@@ -7,20 +7,31 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc.
 Phases, each of which raises (non-zero exit) when it fails:
 
 1. identity: card name and power limit, torch / CUDA / nvcc versions;
-2. build: compiles the port's kernels from csrc/ (timed);
+2. build: compiles the port's kernels from csrc/ (one nvcc per source, all
+   at once; timed) and prints ptxas's registers and spills per kernel;
 3. K1 (csrc/riccati_backward.cu) against its plain PyTorch version on the
    card at the main path's shapes (acrobot n=4, m=1, T=101, B=4096), in f64
    and f32, plus a batch with indefinite Quu on some lanes (ok = 0);
    median times of both;
+3b. K3 and K4 (csrc/sl_forward.cu) against their plain versions on the
+   card: acrobot T=101 and car T=51, B=4096, f64 and f32, K3 for the
+   8-candidate head (j0=0) and the 9-candidate tail (j0=8), K4 at per-lane
+   step sizes; random non-converged gains from a numpy seed, car with
+   inactive (c < 0, lam = 0) and active inequality rows; median times of
+   both and the byte and operation bounds;
 4. the slice end to end: make_batched_solve_fn + batch_stats on acrobot
    T=101, B=4096, f32, under the bench.py presets "tuned" and "parity", with
-   bench.py's initial-guess protocol; solved fraction from batch_stats and
-   recomputed from the returned trajectories with constraint_values; K1
-   launches counted over the timed solve; the per-iteration split of
-   derive+backward against line search;
-5. reference checks on small inputs: the card against the port's plain CPU
-   path (acrobot T=9, B=4, f64: equal iterates), and the committed golden
-   T=101 acrobot solution (tests/fixtures/golden_acrobot_T101.npz, f64).
+   bench.py's initial-guess protocol, each with the loop rollouts
+   (forward_kernel="scan") and the rollout kernels ("pallas") in one run;
+   then car T=51, B=4096, f32 under both; solved fraction from batch_stats
+   and recomputed from the returned trajectories with constraint_values;
+   K1, K3 and K4 launches counted over each timed solve; the per-iteration
+   split of derive+backward against line search;
+5. reference checks on small inputs: the card's "pallas" path against the
+   port's plain CPU "scan" path (acrobot T=9 and car T=8, B=4, f64: equal
+   iterates), and the committed golden acrobot T=101 and car solutions
+   (tests/fixtures/golden_*.npz) solved on the card through "pallas" in
+   f64.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -45,10 +56,25 @@ T_MAIN, B_MAIN = 101, 4096
 SEED = 0
 SPLIT_ITERATIONS = 20
 
+T_CAR = 51
 TUNED = dict(verbose=False, record_traces=False,
              initial_constraint_penalty=1000.0, min_step_size=4.0e-3,
              early_round_iteration_cap=20)
 PARITY = dict(verbose=False, record_traces=False)
+
+# the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations per rollout step and candidate, counted from the device
+# functions (csrc/sl_model_*.cuh and the control and AL code of
+# csrc/sl_forward.cu): each addition, multiplication or division one, each
+# sin or cos 20 (an estimate of the precise routine's fast path: range
+# reduction plus a polynomial).  Acrobot: 2 x 43 for the two dynamics
+# evaluations, 16 for the RK2 updates, 15 control, 8 cost, 8 sin/cos.  Car:
+# 2 x 2 dynamics, 12 RK2, 21 control, 13 cost, 10 constraints, 30 AL terms,
+# 2 accumulations, 4 sin/cos.
+OPS_PER_STEP = {"acrobot": 2 * 43 + 16 + 15 + 8 + 8 * 20,
+                "car": 2 * 2 + 12 + 21 + 13 + 10 + 30 + 2 + 4 * 20}
 
 
 def log(msg):
@@ -62,6 +88,13 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+def bound_ms(nbytes, ops):
+    """(least time in ms, what bounds it) at the card's peaks, f32."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -151,9 +184,139 @@ def check_k1(pk):
                 p_ms = cuda_ms(lambda: pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg))
                 line += f"; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms (median of 10)"
                 if dtype == torch.float32:
-                    record = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms)
+                    # each input read once, each output written once; about
+                    # 650 operations a step for n=4, m=1 (the products with
+                    # P dominate) against 60 values moved
+                    nbytes = sum(a.numel() * a.element_size()
+                                 for a in (*kin, reg, *out))
+                    ops = 650 * Tm1 * B
+                    b_ms, b_by = bound_ms(nbytes, ops)
+                    line += f"; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)"
+                    record = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
+                                  bound_ms=b_ms, bound_by=b_by)
             log(line)
     return record
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: K3 and K4 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def rollout_case(fk, name, T, B, dtype, seed):
+    """Live line-search arrays on the card, from a numpy seed: states
+    rolled out from noisy controls, random non-converged gains, duals with
+    lam = 0 on half the lanes (there a car inequality row with c < 0 is
+    inactive) and, for car, lanes that head through the obstacle or push a
+    control past its bound (active rows)."""
+    from iterativelqr_tpu_torch import build_spec
+    from iterativelqr_tpu_torch.models import acrobot, car
+
+    spec = build_spec(*{"acrobot": acrobot, "car": car}[name].problem(T)[:3])
+    r = fk.Rollouts(spec, "cuda")
+    rng = np.random.default_rng(seed)
+    nx, nu, nc, Tm1 = spec.nx, spec.nu, spec.nc, T - 1
+    x0 = 0.05 * rng.standard_normal((nx, B))
+    ubar = 0.1 * rng.standard_normal((Tm1, nu, B))
+    if name == "car":
+        ubar[:, 0] += 0.7
+        x0[2, ::3] += np.pi / 4
+        ubar[:, 0, 1::5] = 6.0
+    K = 0.1 * rng.standard_normal((Tm1, nu, nx, B))
+    k = 0.1 * rng.standard_normal((Tm1, nu, B))
+    duals = np.abs(0.5 * rng.standard_normal((T, nc, B))) * (rng.uniform(size=B) < 0.5)
+    penalty = 10.0 * rng.uniform(0.5, 2.0, (T, nc, B))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda").contiguous()
+    ws = torch.zeros((T, 0, B), dtype=dtype, device="cuda")
+    xbar0 = torch.zeros((T, nx, B), dtype=dtype, device="cuda")
+    xbar0[0] = t(x0)
+    # zero gains: the plain re-roll is the open-loop rollout of ubar
+    xbar = fk.winner_reroll_reference(
+        r, torch.zeros(B, dtype=dtype, device="cuda"), xbar0, t(ubar), ws,
+        t(0 * K), t(0 * k), t(duals), t(penalty))[0].contiguous()
+    alpha = t(0.5 ** rng.integers(0, 17, B))
+    return r, (xbar, t(ubar), ws, t(K), t(k), t(duals), t(penalty)), alpha
+
+
+def max_err(name, outs, refs, tol):
+    """(max |kernel - plain|, max |plain|) over the outputs; raises beyond
+    tol * max(|plain|, 1) of an output or where finiteness differs."""
+    worst, top = 0.0, 0.0
+    for a, b in zip(outs, refs):
+        fin = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), fin):
+            raise AssertionError(f"{name}: non-finite positions differ")
+        if not fin.any():
+            continue
+        scale = float(b[fin].abs().max())
+        err = float((a[fin] - b[fin]).abs().max())
+        if not err <= tol * max(scale, 1.0):
+            raise AssertionError(
+                f"{name}: max |kernel - plain| {err:.3e} > {tol:g} * "
+                f"max(|plain|, 1) = {tol * max(scale, 1.0):.3e}")
+        worst, top = max(worst, err), max(top, scale)
+    return worst, top
+
+
+def rollout_bytes(spec, B, size, nb=None):
+    """Bytes K3 (``nb`` candidates) or K4 (``nb`` None) must move: each
+    input read once, each output written once."""
+    T, nx, nu, nc = spec.T, spec.nx, spec.nu, spec.nc
+    Tm1 = T - 1
+    ncs, nct = int(spec.c_dims[0]), int(spec.c_dims[-1])
+    per_lane = Tm1 * (nx + nu + nu * nx + nu + 2 * ncs) + 2 * nct
+    if nb is not None:
+        per_lane += nb                                      # J
+    else:
+        per_lane += 1 + T * nx + Tm1 * nu + T * nc + 1      # alpha, xs, us, c, J
+    return per_lane * B * size
+
+
+def check_rollouts(fk):
+    """K3 and K4 = plain within tolerance, acrobot T=101 and car T=51,
+    B=4096, f64 and f32; returns the f32 acrobot records (the main path's
+    shapes) for the JSON line."""
+    # f64: IEEE f64 on both sides, sums in other orders and FMA contraction
+    # in the kernel, through T-1 dependent steps: 1e-10 relative.  f32: the
+    # same at f32 rounding: 1e-4 relative (K1's tolerances and reasons).
+    tols = {torch.float64: 1e-10, torch.float32: 1e-4}
+    records = {}
+    for name, T in (("acrobot", T_MAIN), ("car", T_CAR)):
+        for dtype, tol in tols.items():
+            r, live, alpha = rollout_case(fk, name, T, B_MAIN, dtype, SEED)
+            spec, size = r.spec, torch.finfo(dtype).bits // 8
+            dn = str(dtype).split(".")[-1]
+            runs = (
+                ("sl_score_rollout", "head j0=0 nb=8",
+                 lambda: (fk.score_rollout(r, 0, 8, *live),),
+                 lambda: (fk.score_rollout_reference(r, 0, 8, *live),), 8),
+                ("sl_score_rollout", "tail j0=8 nb=9",
+                 lambda: (fk.score_rollout(r, 8, 9, *live),),
+                 lambda: (fk.score_rollout_reference(r, 8, 9, *live),), 9),
+                ("sl_winner_reroll", "per-lane alpha",
+                 lambda: fk.winner_reroll(r, alpha, *live),
+                 lambda: fk.winner_reroll_reference(r, alpha, *live), None),
+            )
+            for kname, what, kern, plain, nb in runs:
+                outs = kern()
+                torch.cuda.synchronize()
+                err, top = max_err(f"{kname} {name} {dn} {what}", outs, plain(), tol)
+                k_ms = cuda_ms(kern)
+                p_ms = cuda_ms(plain, reps=3, warmup=1)
+                nbytes = rollout_bytes(spec, B_MAIN, size, nb)
+                ops = OPS_PER_STEP[name] * (T - 1) * B_MAIN * (nb or 1)
+                line = (f"[rollout] {kname} {name} T={T} B={B_MAIN} {dn} {what}: "
+                        f"max |kernel - plain| {err:.3e}, max |plain| {top:.3e} (tol {tol:g} relative); "
+                        f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms (median)")
+                if dtype == torch.float32:
+                    b_ms, b_by = bound_ms(nbytes, ops)
+                    line += (f"; bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
+                             f"{ops / 1e9:.3f} G operations)")
+                    if name == "acrobot" and what != "tail j0=8 nb=9":
+                        records[kname] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                              bound_ms=b_ms, bound_by=b_by)
+                log(line)
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -209,13 +372,80 @@ def recomputed_solved_fraction(spec, sol, ws, tol):
     return float((v <= tol).to(torch.float32).mean())
 
 
-def run_preset(P, pk, name, kw):
+LAUNCH_NAMES = ("riccati_backward", "sl_score_rollout", "sl_winner_reroll")
+
+
+def counters():
+    from iterativelqr_tpu_torch.ops import packed_backward as pk
+    from iterativelqr_tpu_torch.ops import sl_forward_kernel as fk
+
+    return dict(zip(LAUNCH_NAMES, (pk.RICCATI_LAUNCHES, fk.SCORE_LAUNCHES,
+                                   fk.REROLL_LAUNCHES)))
+
+
+def counted_solve(P, solve, args):
+    """One timed solve of the main path (the user entry point and
+    batch_stats, no instrumentation) with every launch count set to 0 just
+    before and read just after; returns (solution, stats, wall s, counts)."""
+    for c in counters().values():
+        c.reset()
+    t0 = time.perf_counter()
+    sol = solve(*args)
+    stats = P.batch_stats(sol)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return sol, stats, wall, {k: c.launches for k, c in counters().items()}
+
+
+def check_launches(name, fkm, counts):
+    if counts["riccati_backward"] <= 0:
+        raise AssertionError(f"{name}: K1 was not launched on the main path")
+    rollouts = counts["sl_score_rollout"], counts["sl_winner_reroll"]
+    if fkm == "pallas" and min(rollouts) <= 0:
+        raise AssertionError(f"{name}: K3/K4 were not launched on the main path {rollouts}")
+    if fkm == "scan" and max(rollouts) > 0:
+        raise AssertionError(f"{name}: the loop path launched K3/K4 {rollouts}")
+
+
+def integrity(name, spec, sol, stats, ws, tol, B, T, nx, nu):
+    """Shapes, finiteness, and the solved fraction recomputed fresh from the
+    returned trajectories; returns (batch_stats fraction, recomputed)."""
+    if tuple(sol.xs.shape) != (B, T, nx) or tuple(sol.us.shape) != (B, T - 1, nu):
+        raise AssertionError(f"{name}: bad shapes {tuple(sol.xs.shape)} {tuple(sol.us.shape)}")
+    for f in ("xs", "us", "K", "k", "objective", "max_violation"):
+        if not bool(torch.isfinite(getattr(sol, f)).all()):
+            raise AssertionError(f"{name}: non-finite {f}")
+    frac = float(stats.solved_fraction)
+    frac_true = recomputed_solved_fraction(spec, sol, ws, tol)
+    if abs(frac_true - frac) > 0.01:
+        raise AssertionError(f"{name}: batch_stats solved {frac} vs recomputed {frac_true}")
+    return frac, frac_true
+
+
+def report(name, sol, stats, frac, frac_true, wall, counts, na, B):
+    its = sol.iterations
+    trips = int(its.max())                  # loop iterations of the batch
+    k1 = counts["riccati_backward"]
+    tail_gates = trips if na > 8 else 0
+    syncs = (trips + 1) + k1 + tail_gates
+    log(f"[slice] {name}: solved_fraction batch_stats {frac:.4f} recomputed {frac_true:.4f}; "
+        f"iterations mean {float(its.float().mean()):.2f} max {trips}; "
+        f"mean objective {float(stats.mean_objective):.4f}; max violation {float(stats.max_violation):.3e}")
+    log(f"[slice] {name}: wall {wall:.3f} s after a warm-up ({B * frac_true / wall:.1f} solved/s); "
+        f"launches K1 {k1}, K3 {counts['sl_score_rollout']}, K4 {counts['sl_winner_reroll']}; "
+        f"host syncs {syncs} (loop tests {trips + 1}, reg-retry tests {k1}, tail gates {tail_gates})")
+
+
+def run_preset(P, name, kw, fkm):
+    """Acrobot T=101, B=4096, f32 under one bench.py preset with the
+    rollouts of ``fkm``; returns the main path's launch counts."""
     from iterativelqr_tpu_torch.core.solve_sl import make_batched_solve_sl
     from iterativelqr_tpu_torch.models import acrobot
 
+    name = f"{name}/{fkm}"
     dtype, device = torch.float32, torch.device("cuda")
     spec = P.build_spec(*acrobot.problem(T_MAIN)[:3])
-    opts = P.Options(**kw)
+    opts = P.Options(**kw, forward_kernel=fkm)
     xs, us, ws = bench_inputs(B_MAIN, T_MAIN, dtype, device)
 
     # warm-up: the same program, cut to three iterations
@@ -225,15 +455,8 @@ def run_preset(P, pk, name, kw):
     warm(xs, us, ws)
     torch.cuda.synchronize()
 
-    # the main path, counted: the user entry point, no instrumentation
     solve = P.make_batched_solve_fn(spec, opts, device=device, dtype=dtype)
-    pk.RICCATI_LAUNCHES.reset()
-    t0 = time.perf_counter()
-    sol = solve(xs, us, ws)
-    stats = P.batch_stats(sol)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = pk.RICCATI_LAUNCHES.launches
+    sol, stats, wall, counts = counted_solve(P, solve, (xs, us, ws))
 
     # the per-iteration split: the same solve with the per-phase timer,
     # cut to its first SPLIT_ITERATIONS iterations (every lane still live)
@@ -246,40 +469,65 @@ def run_preset(P, pk, name, kw):
     dev_ms = sections.device_ms()
     split_trips = int(sol2.iterations.max())
 
-    # integrity: shapes, finiteness, solved fraction recomputed fresh
-    if tuple(sol.xs.shape) != (B_MAIN, T_MAIN, 4) or tuple(sol.us.shape) != (B_MAIN, T_MAIN - 1, 1):
-        raise AssertionError(f"{name}: bad shapes {tuple(sol.xs.shape)} {tuple(sol.us.shape)}")
-    for f in ("xs", "us", "K", "k", "objective", "max_violation"):
-        if not bool(torch.isfinite(getattr(sol, f)).all()):
-            raise AssertionError(f"{name}: non-finite {f}")
-    frac = float(stats.solved_fraction)
-    frac_true = recomputed_solved_fraction(spec, sol, ws, opts.constraint_tolerance)
-    if abs(frac_true - frac) > 0.01:
-        raise AssertionError(f"{name}: batch_stats solved {frac} vs recomputed {frac_true}")
+    frac, frac_true = integrity(name, spec, sol, stats, ws, opts.constraint_tolerance,
+                                B_MAIN, T_MAIN, 4, 1)
     if frac_true < 0.99:
         raise AssertionError(f"{name}: recomputed solved fraction {frac_true} < 0.99")
-    if launches <= 0:
-        raise AssertionError(f"{name}: K1 was not launched on the main path")
+    check_launches(name, fkm, counts)
 
-    its = sol.iterations
-    trips = int(its.max())                  # loop iterations of the batch
-    na = opts.num_step_sizes
-    tail_gates = trips if na > 8 else 0
-    syncs = (trips + 1) + launches + tail_gates
     der_host = sections.host["derive_backward"] / split_trips * 1e3
     ls_host = sections.host["line_search"] / split_trips * 1e3
     der_dev = dev_ms["derive_backward"] / split_trips
     ls_dev = dev_ms["line_search"] / split_trips
-    log(f"[slice] {name}: B={B_MAIN} T={T_MAIN} f32 candidates={na}")
-    log(f"[slice] {name}: solved_fraction batch_stats {frac:.4f} recomputed {frac_true:.4f}; "
-        f"iterations mean {float(its.float().mean()):.2f} max {trips}; "
-        f"mean objective {float(stats.mean_objective):.4f}; max violation {float(stats.max_violation):.3e}")
-    log(f"[slice] {name}: wall {wall:.3f} s after a warm-up ({B_MAIN * frac / wall:.1f} solved/s); "
-        f"K1 launches {launches}; host syncs {syncs} "
-        f"(loop tests {trips + 1}, reg-retry tests {launches}, tail gates {tail_gates})")
+    log(f"[slice] {name}: B={B_MAIN} T={T_MAIN} f32 candidates={opts.num_step_sizes}")
+    report(name, sol, stats, frac, frac_true, wall, counts, opts.num_step_sizes, B_MAIN)
     log(f"[slice] {name}: per iteration (first {split_trips}) derive+backward {der_host:.2f} ms host / {der_dev:.2f} ms device-events, "
         f"line search {ls_host:.2f} ms host / {ls_dev:.2f} ms device-events")
-    return launches
+    return counts
+
+
+def car_inputs(B, T, dtype, device):
+    """x0 = x1 + 0.02 N(0,1) from a numpy seed, the reference's initial
+    controls, states rolled out open loop."""
+    from torch.func import vmap
+
+    from iterativelqr_tpu_torch.models import car
+
+    dyn, _, _, x1, _ = car.problem(T)
+    rng = np.random.default_rng(SEED)
+    x = torch.as_tensor(x1.numpy() + 0.02 * rng.standard_normal((B, 3)),
+                        dtype=dtype, device=device)
+    us = torch.stack(car.initial_controls(T)).to(device, dtype)
+    us = us[None].expand(B, T - 1, 2).contiguous()
+    xs = [x]
+    for t in range(T - 1):
+        x = vmap(dyn[t])(x, us[:, t])
+        xs.append(x)
+    ws = torch.zeros((B, T, 0), dtype=dtype, device=device)
+    return torch.stack(xs, dim=1).contiguous(), us, ws
+
+
+def run_car(P, fkm):
+    """Car T=51, B=4096, f32 with the rollouts of ``fkm``; returns
+    (recomputed solved fraction, launch counts)."""
+    from iterativelqr_tpu_torch.models import car
+
+    name = f"car/{fkm}"
+    dtype, device = torch.float32, torch.device("cuda")
+    spec = P.build_spec(*car.problem(T_CAR)[:3])
+    opts = P.Options(record_traces=False, forward_kernel=fkm)
+    xs, us, ws = car_inputs(B_MAIN, T_CAR, dtype, device)
+    P.make_batched_solve_fn(spec, dataclasses.replace(opts, max_total_iterations=3),
+                            device=device, dtype=dtype)(xs, us, ws)
+    torch.cuda.synchronize()
+    solve = P.make_batched_solve_fn(spec, opts, device=device, dtype=dtype)
+    sol, stats, wall, counts = counted_solve(P, solve, (xs, us, ws))
+    frac, frac_true = integrity(name, spec, sol, stats, ws, opts.constraint_tolerance,
+                                B_MAIN, T_CAR, 3, 2)
+    check_launches(name, fkm, counts)
+    log(f"[slice] {name}: B={B_MAIN} T={T_CAR} f32 candidates={opts.num_step_sizes}")
+    report(name, sol, stats, frac, frac_true, wall, counts, opts.num_step_sizes, B_MAIN)
+    return frac_true, counts
 
 
 # ---------------------------------------------------------------------------
@@ -288,38 +536,55 @@ def run_preset(P, pk, name, kw):
 
 
 def check_card_vs_cpu(P):
-    """The slice on the card (CUDA kernel) against the port's plain CPU path,
-    acrobot T=9, B=4, f64: equal iterates, trajectories within 1e-8."""
-    from iterativelqr_tpu_torch.models import acrobot
+    """The card's kernel path (forward_kernel="pallas") against the port's
+    plain CPU loop path ("scan"), acrobot T=9 and car T=8, B=4, f64: equal
+    iterates, trajectories within 1e-8."""
+    from iterativelqr_tpu_torch.models import acrobot, car
 
-    T, B = 9, 4
-    spec = P.build_spec(*acrobot.problem(T)[:3])
-    opts = P.Options(record_traces=False, max_iterations=12, max_dual_updates=3)
-    sols = {}
-    for dev in ("cpu", "cuda"):
-        xs, us, ws = bench_inputs(B, T, torch.float64, dev)
-        sols[dev] = P.make_batched_solve_fn(spec, opts, device=dev, dtype=torch.float64)(xs, us, ws)
-    a, b = sols["cpu"], sols["cuda"]
-    for f in ("iterations", "al_iterations", "status"):
-        if not torch.equal(getattr(a, f), getattr(b, f).cpu()):
-            raise AssertionError(f"card vs cpu: {f} differ")
-    for f in ("xs", "us", "objective", "max_violation"):
-        torch.testing.assert_close(getattr(b, f).cpu(), getattr(a, f), rtol=1e-8, atol=1e-8)
-    log(f"[check] card vs plain CPU path (T={T}, B={B}, f64): iterations {a.iterations.tolist()} equal; "
-        f"max |dxs| {float((a.xs - b.xs.cpu()).abs().max()):.3e}")
+    for name, mod, T, make in (("acrobot", acrobot, 9, bench_inputs),
+                               ("car", car, 8, car_inputs)):
+        B = 4
+        spec = P.build_spec(*mod.problem(T)[:3])
+        base = dict(record_traces=False, max_iterations=12, max_dual_updates=3)
+        sols = {}
+        for dev, fkm in (("cpu", "scan"), ("cuda", "pallas")):
+            xs, us, ws = make(B, T, torch.float64, dev)
+            for c in counters().values():
+                c.reset()
+            opts = P.Options(**base, forward_kernel=fkm)
+            sols[dev] = P.make_batched_solve_fn(spec, opts, device=dev,
+                                                dtype=torch.float64)(xs, us, ws)
+            if dev == "cuda":
+                check_launches(f"card vs cpu {name}", fkm,
+                               {k: c.launches for k, c in counters().items()})
+        a, b = sols["cpu"], sols["cuda"]
+        for f in ("iterations", "al_iterations", "status"):
+            if not torch.equal(getattr(a, f), getattr(b, f).cpu()):
+                raise AssertionError(f"card vs cpu {name}: {f} differ")
+        for f in ("xs", "us", "objective", "max_violation"):
+            torch.testing.assert_close(getattr(b, f).cpu(), getattr(a, f), rtol=1e-8, atol=1e-8)
+        log(f"[check] card pallas vs plain CPU scan, {name} (T={T}, B={B}, f64): "
+            f"iterations {a.iterations.tolist()} equal; max |dxs| {float((a.xs - b.xs.cpu()).abs().max()):.3e}")
 
 
-def check_golden(P):
-    """The committed golden T=101 solution (reference-exact AL schedule,
-    initial states rolled out from us0), solved on the card in f64."""
-    from iterativelqr_tpu_torch.models import acrobot
+# tests/test_golden.py's gates: (x_atol, u_atol), violation <= 5e-3
+GOLDEN = {"acrobot_T101": ("acrobot", 1e-2, 5e-2), "car": ("car", 1e-3, 5e-3)}
 
+
+def check_golden(P, fixture):
+    """A committed golden solution (reference-exact AL schedule, initial
+    states rolled out from us0), solved on the card through the rollout
+    kernels in f64."""
+    from iterativelqr_tpu_torch.models import acrobot, car
+
+    name, x_atol, u_atol = GOLDEN[fixture]
+    mod = {"acrobot": acrobot, "car": car}[name]
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "tests", "fixtures", "golden_acrobot_T101.npz")
+                        "tests", "fixtures", f"golden_{fixture}.npz")
     data = np.load(path)
     T = data["xs"].shape[0]
     dev, dtype = torch.device("cuda"), torch.float64
-    dyn, cost, con, x1, _ = acrobot.problem(T)
+    dyn, cost, con, x1, _ = mod.problem(T)
     spec = P.build_spec(dyn, cost, con)
     us = torch.as_tensor(data["us0"], dtype=dtype, device=dev)
     x = x1.to(dtype=dtype, device=dev)
@@ -329,25 +594,31 @@ def check_golden(P):
         xs.append(x)
     xs = torch.stack(xs)[None]
     ws = torch.zeros((1, T, 0), dtype=dtype, device=dev)
-    opts = P.Options(record_traces=False, adaptive_penalty=False)
+    opts = P.Options(record_traces=False, adaptive_penalty=False,
+                     forward_kernel="pallas")
+    for c in counters().values():
+        c.reset()
     sol = P.make_batched_solve_fn(spec, opts, device=dev, dtype=dtype)(xs, us[None], ws)
+    check_launches(f"golden {fixture}", "pallas",
+                   {k: c.launches for k, c in counters().items()})
     viol = float(sol.max_violation[0])
     dx = float(np.abs(sol.xs[0].cpu().numpy() - data["xs"]).max())
     du = float(np.abs(sol.us[0].cpu().numpy() - data["us"]).max())
-    log(f"[check] golden acrobot T={T} (f64 on the card): violation {viol:.3e}, "
+    log(f"[check] golden {fixture} T={T} (f64 on the card, rollout kernels): violation {viol:.3e}, "
         f"objective {float(sol.objective[0]):.4f} (golden {float(data['objective']):.4f}), "
         f"max |dxs| {dx:.3e}, max |dus| {du:.3e}, iterations {int(sol.iterations[0])}")
-    # tests/test_golden.py's gates for this fixture
-    if not (viol <= 5e-3 and dx <= 1e-2 and du <= 5e-2):
-        raise AssertionError("golden acrobot T=101: outside tests/test_golden.py's gates")
+    if not (viol <= 5e-3 and dx <= x_atol and du <= u_atol):
+        raise AssertionError(f"golden {fixture}: outside tests/test_golden.py's gates")
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false")
+    t_start = time.perf_counter()
     import iterativelqr_tpu_torch as P
     from iterativelqr_tpu_torch import _build
     from iterativelqr_tpu_torch.ops import packed_backward as pk
+    from iterativelqr_tpu_torch.ops import sl_forward_kernel as fk
 
     smi = nvidia_smi_line()
     nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True,
@@ -359,26 +630,41 @@ def main():
     _build.load_library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({_build.library_path().name})")
+    for line in _build.ptxas_report():
+        log(f"[build] {line}")
 
-    k1 = check_k1(pk)
+    records = {"riccati_backward": check_k1(pk)}
+    records.update(check_rollouts(fk))
 
-    launches = {}
+    launches = collections.Counter()
     for name, kw in (("tuned", TUNED), ("parity", PARITY)):
-        launches[name] = run_preset(P, pk, name, kw)
+        for fkm in ("scan", "pallas"):
+            launches.update(run_preset(P, name, kw, fkm))
+    fracs = {}
+    for fkm in ("scan", "pallas"):
+        fracs[fkm], counts = run_car(P, fkm)
+        launches.update(counts)
+    log(f"[slice] car: recomputed solved fraction scan {fracs['scan']:.4f}, pallas {fracs['pallas']:.4f}")
+    if abs(fracs["scan"] - fracs["pallas"]) > 0.01:
+        raise AssertionError(f"car: scan and pallas solved fractions differ by more than 0.01: {fracs}")
 
     check_card_vs_cpu(P)
-    check_golden(P)
+    for fixture in GOLDEN:
+        check_golden(P, fixture)
 
-    print(json.dumps({"kernels": [{
-        "name": "riccati_backward",
-        "route": "cuda",
-        "source": "iterativelqr_tpu_torch/csrc/riccati_backward.cu",
-        "replaces": "iterativelqr_tpu/ops/packed_backward.py:509",
-        "launches": launches["tuned"] + launches["parity"],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }]}), flush=True)
+    sources = {"riccati_backward": ("riccati_backward.cu", "iterativelqr_tpu/ops/packed_backward.py:509"),
+               "sl_score_rollout": ("sl_forward.cu", "iterativelqr_tpu/ops/sl_forward_kernel.py:327"),
+               "sl_winner_reroll": ("sl_forward.cu", "iterativelqr_tpu/ops/sl_forward_kernel.py:426")}
+    log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [dict(
+        name=name,
+        route="cuda",
+        source=f"iterativelqr_tpu_torch/csrc/{src}",
+        replaces=replaces,
+        launches=launches[name],
+        library_ms=None,   # no single PyTorch call computes the recursion or a rollout
+        **records[name],
+    ) for name, (src, replaces) in sources.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

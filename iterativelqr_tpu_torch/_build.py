@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
-``ctypes``.  The library lands in ``iterativelqr_tpu_torch/_build/`` (listed
+(``sm_90a``), one process per source started together, and linked into one
+shared library with a plain C interface, loaded with ``ctypes``.  The library lands in ``iterativelqr_tpu_torch/_build/`` (listed
 in ``.gitignore``) under a name keyed on a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one is reused.  Nothing is built
 at import: ``load_library`` runs the first time a CUDA tensor reaches a
@@ -23,13 +23,19 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# -Xptxas -v only reports each kernel's registers, shared memory and spills
+# (kept in the build log, ``ptxas_report``); it does not change the code
+COMPILE_FLAGS = (
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-c",
 )
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
 def _sources():
+    """Every source and header under ``csrc/``: an edited header changes the
+    hash too."""
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
@@ -38,7 +44,7 @@ def _source_hash() -> str:
     for f in _sources():
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -61,30 +67,87 @@ def library_path() -> Path:
     return BUILD_DIR / f"libilqr_kernels_{_source_hash()}.so"
 
 
+def _log_path() -> Path:
+    return library_path().with_suffix(".log")
+
+
+def _run(cmds):
+    """Start every command at once, wait for all; raise on the first that
+    failed.  Returns their combined output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs, failed = [], None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        outs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists."""
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    srcs = [str(f) for f in _sources() if f.suffix == ".cu"]
-    # compile to a private name, then rename: a concurrent loader never
+    nvcc = find_nvcc()
+    # build in a private directory, then rename: a concurrent loader never
     # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, cmds = [], []
+        for src in (f for f in _sources() if f.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            cmds.append([nvcc, *COMPILE_FLAGS, "-o", obj, str(src)])
+        log = _run(cmds)
+        lib = os.path.join(tmp, out.name)
+        log += _run([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        Path(tmp, "build.log").write_text(log)
+        os.replace(os.path.join(tmp, "build.log"), _log_path())
+        os.replace(lib, out)
     return out
+
+
+def _demangle(names):
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool is None:
+        cand = Path(find_nvcc()).parent / "cu++filt"
+        tool = str(cand) if cand.exists() else None
+    if tool is None or not names:
+        return names
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True)
+    out = res.stdout.splitlines()
+    return out if res.returncode == 0 and len(out) == len(names) else names
+
+
+def ptxas_report() -> list:
+    """One line per compiled kernel from the build log: its name, the
+    registers it uses and the bytes it spills."""
+    if not _log_path().exists():
+        return []
+    names, regs, spills, props = [], {}, {}, None
+    for ln in _log_path().read_text().splitlines():
+        if "Compiling entry function" in ln:
+            names.append(ln.split("'")[1])
+        elif "Function properties for" in ln:
+            props = ln.split("Function properties for", 1)[1].strip()
+        elif names and "spill stores" in ln and props == names[-1]:
+            spills[names[-1]] = ln.strip()
+        elif names and "Used" in ln and "registers" in ln:
+            regs[names[-1]] = ln.split("Used", 1)[1].split(",")[0].strip()
+    lines = []
+    for n, p in zip(names, _demangle(names)):
+        p = p.replace("void (anonymous namespace)::", "")
+        p = p[:p.find(">(") + 1] if ">(" in p else p    # drop the arguments
+        lines.append(f"{p}: {regs.get(n, '?')}; {spills.get(n, 'no spill line')}")
+    return lines
 
 
 @functools.lru_cache(maxsize=None)

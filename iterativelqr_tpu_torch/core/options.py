@@ -6,11 +6,13 @@ rationale of every knob.  The dataclass is frozen so an ``Options`` can be
 shared between solves without being mutated.
 
 Some selectors name machinery the port does not have yet.  They validate as
-in the reference and are refused where a solve would need them:
-``forward_kernel="pallas"`` (the line-search rollout kernels, ROADMAP K3/K4)
-raises in ``ops/sl_ops.py``; options the SL batched solver cannot run
-(``record_traces``, ``live_progress``, the nested AL loop, ``ddp``) raise in
-``parallel/batch.py`` or ``core/solve_sl.py``.
+in the reference and are refused where a solve would need them: options the
+SL batched solver cannot run (``record_traces``, ``live_progress``, the
+nested AL loop, ``ddp``) raise in ``parallel/batch.py`` or
+``core/solve_sl.py``.  ``forward_kernel`` keeps the reference's values:
+"pallas" runs the CUDA rollout kernels K3/K4 (``ops/sl_forward_kernel.py``),
+"scan" the plain loops, "auto" the kernels on the card where the spec
+qualifies.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ class Options:
     # --- hard total inner-iteration budget (None = unlimited) ---
     max_total_iterations: "int | None" = None
 
-    # --- line-search rollout selector ("scan" is the only ported route) ---
+    # --- line-search rollout selector: "scan" | "pallas" | "auto" ---
     forward_kernel: str = "scan"
 
     # --- constraint-aware line-search acceptance ---

@@ -15,11 +15,13 @@ fused AL loop only, no ddp.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 
 from ..ops.packed_pipeline import make_derive_backward_sl
+from ..ops.sl_forward_kernel import select_kernels
 from ..ops.sl_ops import SLOps, from_sl, to_sl
 from .options import Options
 from .solve import Solution
@@ -60,7 +62,7 @@ def _no_section(name):
 
 def make_sl_parts(
     spec: ProblemSpec, options: Options = Options(), *,
-    device="cpu", dtype=torch.float32, dual_warm_start: bool = False,
+    device="cuda", dtype=torch.float32, dual_warm_start: bool = False,
     section: Callable = _no_section,
 ) -> SLParts:
     """``section(name)`` returns a context manager wrapped around each
@@ -82,10 +84,19 @@ def make_sl_parts(
     o = options
     nc, T = spec.nc, spec.T
     device = torch.device(device)
-    ops = SLOps(spec, o, device=device, dtype=dtype)
-    derive = make_derive_backward_sl(spec, o, device=device)
+    # the rollout-kernel choice is checked now; the pieces that hold device
+    # tensors are made at first use, so a solver for the card can be built
+    # (and refuse CPU inputs) where there is no card
+    select_kernels(spec, o, device)
+
+    @functools.lru_cache(maxsize=None)
+    def built():
+        return (SLOps(spec, o, device=device, dtype=dtype),
+                make_derive_backward_sl(spec, o, device=device))
 
     def body(ws):
+        ops, derive = built()
+
         def _body(s: _SLCarry) -> _SLCarry:
             live = ~s.stop
             with section("derive_backward"):
@@ -200,6 +211,7 @@ def make_sl_parts(
         return _body
 
     def init(xs_b, us_b, ws_b, duals_b=None, pen_b=None):
+        ops, _ = built()
         B = xs_b.shape[0]
         xs, us, ws = to_sl(xs_b), to_sl(us_b), to_sl(ws_b)
         if dual_warm_start:
@@ -228,6 +240,7 @@ def make_sl_parts(
         return carry, ws
 
     def finish(s: _SLCarry, ws) -> Solution:
+        ops, derive = built()
         B = s.xs.shape[-1]
         # user-facing violation evaluated fresh at the returned trajectory
         _, c_fin = ops.al_objective(s.xs, s.us, ws, s.duals, s.penalty)
@@ -256,7 +269,7 @@ def make_sl_parts(
 
 def make_batched_solve_sl(
     spec: ProblemSpec, options: Options = Options(), *,
-    device="cpu", dtype=torch.float32, dual_warm_start: bool = False,
+    device="cuda", dtype=torch.float32, dual_warm_start: bool = False,
     section: Callable = _no_section,
 ):
     """Build ``(xs [B,T,nx], us [B,T-1,nu], ws [B,T,npar]) -> Solution``

@@ -361,6 +361,13 @@ class ProblemSpec:
     c_mask: np.ndarray  # [T, nc] bool
     ineq_mask: np.ndarray  # [T, nc] bool
 
+    # the user's stage object of each type index (one per entry of the
+    # *_eval tuples); the rollout kernels recognise registered models by
+    # their functions (ops/sl_forward_kernel.py::device_model)
+    dyn_types: tuple = ()
+    cost_types: tuple = ()
+    con_types: tuple = ()
+
 
 def build_spec(
     dynamics: Sequence[Dynamics],
@@ -453,4 +460,7 @@ def build_spec(
         u_mask=mask(u_dims, nu, T - 1),
         c_mask=mask(c_dims, nc, T),
         ineq_mask=ineq_mask,
+        dyn_types=tuple(d_uniq),
+        cost_types=tuple(g_uniq),
+        con_types=tuple(c_uniq),
     )

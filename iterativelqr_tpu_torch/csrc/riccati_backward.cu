@@ -322,3 +322,5 @@ int launch(const void* fx, const void* fu, const void* gx, const void* gu,
 
 RICCATI_ENTRY(riccati_backward_f32_n4_m1, 4, 1, float)
 RICCATI_ENTRY(riccati_backward_f64_n4_m1, 4, 1, double)
+RICCATI_ENTRY(riccati_backward_f32_n3_m2, 3, 2, float)
+RICCATI_ENTRY(riccati_backward_f64_n3_m2, 3, 2, double)

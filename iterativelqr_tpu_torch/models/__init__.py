@@ -1,5 +1,5 @@
-"""Model library (ported so far: acrobot)."""
+"""Model library (ported so far: acrobot, car)."""
 
-from . import acrobot
+from . import acrobot, car
 
-__all__ = ["acrobot"]
+__all__ = ["acrobot", "car"]

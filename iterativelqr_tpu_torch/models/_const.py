@@ -1,0 +1,25 @@
+"""Model constants kept once per (device, dtype).
+
+A model function runs on every rollout step; casting a float64 host
+constant with ``.to(x)`` there would copy it from the host on every call.
+``const_like`` makes each cast once and hands back the same tensor after.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_CACHE: dict = {}
+
+
+def const_like(values: tuple, x) -> torch.Tensor:
+    """``torch.tensor(values, dtype=float64)`` cast to ``x``'s dtype on
+    ``x``'s device, made once per (values, device, dtype)."""
+    key = (values, x.device, x.dtype)
+    c = _CACHE.get(key)
+    if c is None:
+        c = torch.tensor(values, dtype=torch.float64).to(
+            device=x.device, dtype=x.dtype
+        )
+        _CACHE[key] = c
+    return c

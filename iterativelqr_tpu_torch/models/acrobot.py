@@ -3,7 +3,10 @@
 Counterpart of ``iterativelqr_tpu/models/acrobot.py``: 4 states (q1, q2, v1,
 v2), 1 action; RK2 midpoint discretization; terminal equality constraint
 x_T = (pi, 0, 0, 0).  The functions are per-instance (1-D ``x``, ``u``); the
-solver batches them with ``torch.func.vmap``.
+solver batches them with ``torch.func.vmap``.  The stage functions are
+module-level so that the line-search kernels can recognise them
+(``ops/sl_forward_kernel.py``); their device counterparts are in
+``csrc/sl_model_acrobot.cuh``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import math
 import torch
 
 from ..core.spec import Constraint, Cost, Dynamics
+from ._const import const_like
 
 NUM_STATE = 4
 NUM_ACTION = 1
@@ -24,6 +28,8 @@ LENGTH1, LENGTH2 = 1.0, 1.0
 LENGTHCOM1, LENGTHCOM2 = 0.5, 0.5
 GRAVITY = 9.81
 FRICTION1, FRICTION2 = 0.1, 0.1
+
+GOAL = (math.pi, 0.0, 0.0, 0.0)
 
 
 def acrobot_continuous(x, u):
@@ -66,22 +72,30 @@ def acrobot_discrete(x, u, h=0.1):
     return x + h * acrobot_continuous(x + 0.5 * h * acrobot_continuous(x, u), u)
 
 
+def stage_cost(x, u):
+    return 0.1 * torch.dot(x[2:4], x[2:4]) + 0.1 * torch.dot(u, u)
+
+
+def terminal_cost(x, u):
+    return 0.1 * torch.dot(x[2:4], x[2:4])
+
+
+def goal_constraint(x, u):
+    """x_T - (pi, 0, 0, 0), the goal in the input's dtype on its device."""
+    return x - const_like(GOAL, x)
+
+
 def problem(T: int = 51):
-    xT = torch.tensor([math.pi, 0.0, 0.0, 0.0], dtype=torch.float64)
+    xT = torch.tensor(GOAL, dtype=torch.float64)
 
     dyn = Dynamics(acrobot_discrete, NUM_STATE, NUM_ACTION)
     dynamics = [dyn] * (T - 1)
 
-    stage = Cost(
-        lambda x, u: 0.1 * torch.dot(x[2:4], x[2:4]) + 0.1 * torch.dot(u, u),
-        NUM_STATE,
-        NUM_ACTION,
-    )
-    term = Cost(lambda x, u: 0.1 * torch.dot(x[2:4], x[2:4]), NUM_STATE, 0)
+    stage = Cost(stage_cost, NUM_STATE, NUM_ACTION)
+    term = Cost(terminal_cost, NUM_STATE, 0)
     objective = [stage] * (T - 1) + [term]
 
-    # the goal follows the input's device and dtype
-    goal = Constraint(lambda x, u: x - xT.to(x), NUM_STATE, 0)
+    goal = Constraint(goal_constraint, NUM_STATE, 0)
     constraints = [Constraint() for _ in range(T - 1)] + [goal]
 
     x1 = torch.zeros(NUM_STATE, dtype=torch.float64)

@@ -22,8 +22,9 @@ import torch
 from .. import _build
 
 # (n, m) pairs with a compiled kernel, in each of float32 and float64; keep
-# equal to the RICCATI_ENTRY list in csrc/riccati_backward.cu
-_INSTANTIATIONS = ((4, 1),)
+# equal to the RICCATI_ENTRY list in csrc/riccati_backward.cu (acrobot,
+# car)
+_INSTANTIATIONS = ((4, 1), (3, 2))
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 

@@ -47,7 +47,7 @@ def _grouped_bt2(fns, comb_key, rows, args):
     return _merge_groups(results, groups)
 
 
-def make_derive_backward_sl(spec: ProblemSpec, options, device=None):
+def make_derive_backward_sl(spec: ProblemSpec, options, device):
     """Build the batch-last derive+backward+slope step of the SL solver:
 
         (xs [T,nx,B], us [T-1,nu,B], ws [T,npar,B], duals [T,nc,B],
@@ -56,7 +56,8 @@ def make_derive_backward_sl(spec: ProblemSpec, options, device=None):
               reg_next [B])
 
     ``valid`` (bool [B] or None) marks real lanes: lanes outside it never
-    hold the regularization retry open.  ``device`` places the static masks.
+    hold the regularization retry open.  ``device`` (the solve's device,
+    from the caller) places the static masks.
     """
     T, nx, nu, nc = spec.T, spec.nx, spec.nu, spec.nc
     Tm1 = T - 1

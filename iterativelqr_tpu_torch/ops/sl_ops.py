@@ -9,25 +9,20 @@ lanes is a run of neighbouring addresses for every elementwise op.
 this one.  Per-instance semantics are those of the JAX module; its
 citations of the reference live there.
 
-The rollouts of the line search are Python loops over t of small batched
-ops (the JAX package's scans).  The JAX package's Pallas rollout kernels
-(``forward_kernel="pallas"``) are not ported yet (ROADMAP K3/K4).
+The rollouts of the line search live in ``ops/sl_forward_kernel.py``:
+``forward_kernel="pallas"`` (the reference's option value) runs the CUDA
+rollout kernels K3/K4 there, ``"scan"`` the plain loops, and ``"auto"`` the
+kernels when the solver runs on the card and the spec has a device model.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.func import vmap
 
 from ..core.spec import ProblemSpec
-from .packed_pipeline import _grouped_bt2, map2
-
-
-def map3(fn):
-    """map2 plus a leading line-search-candidate axis on (x, u); w is shared
-    across candidates."""
-    return vmap(map2(fn), in_dims=(0, 0, None), out_dims=0)
+from . import sl_forward_kernel as fk
+from .packed_pipeline import _grouped_bt2
 
 
 def to_sl(a):
@@ -41,41 +36,22 @@ def from_sl(a):
 
 
 class SLOps:
-    """Per-spec batch-last operations, built once per solver."""
+    """Per-spec batch-last operations, built once per solver for one
+    ``device``."""
 
-    def __init__(self, spec: ProblemSpec, options, device=None,
+    def __init__(self, spec: ProblemSpec, options, device,
                  dtype=torch.float32):
         self.spec = spec
         self.options = options
         T, nc = spec.T, spec.nc
         Tm1 = T - 1
-        if options.forward_kernel == "pallas" and options.line_search == "armijo":
-            raise NotImplementedError(
-                "forward_kernel='pallas' is not ported yet (ROADMAP K3/K4)"
-            )
-        # "auto" resolves to the rollout loops: no rollout kernel is ported
+        device = torch.device(device)
+        self.rollouts = fk.Rollouts(spec, device)
         self._viol_filter = options.constraint_aware_acceptance and nc > 0
-        self.ineq_t = torch.as_tensor(spec.ineq_mask, device=device)   # [T,nc]
-        self.cmask_t = torch.as_tensor(spec.c_mask, device=device)     # [T,nc]
-        self.ineq_sl = self.ineq_t[:, :, None]
-        self.cmask_sl = self.cmask_t[:, :, None]
-        na = options.num_step_sizes
-        self.alphas = 0.5 ** torch.arange(na, dtype=dtype, device=device)
-
-        self.dyn2 = [map2(f) for f in spec.dyn_eval]
-        self.cost2 = [map2(f) for f in spec.cost_eval]
-        self.con2 = [map2(f) for f in spec.con_eval]
-        self.dyn3 = [map3(f) for f in spec.dyn_eval]
-        self.cost3 = [map3(f) for f in spec.cost_eval]
-        self.con3 = [map3(f) for f in spec.con_eval]
-
-        # static per-step stage types: the rollout loops pick each step's
-        # function in Python (the JAX scans switch on a traced index)
-        self.td = [int(i) for i in spec.dyn_tidx]
-        self.tg = [int(i) for i in spec.cost_tidx[:Tm1]]
-        self.tc = [int(i) for i in spec.con_tidx[:Tm1]]
-        self.gT = int(spec.cost_tidx[-1])
-        self.cT = int(spec.con_tidx[-1])
+        self.use_kernels = fk.select_kernels(spec, options, device)
+        self.ineq_sl = self.rollouts.ineq_t[:, :, None]
+        self.cmask_sl = self.rollouts.cmask_t[:, :, None]
+        self.alphas = self.rollouts.alphas(dtype, options.num_step_sizes)
 
         # grouped parallel (over t) cost+constraint evaluation for the entry
         # objective and the fresh exit constraints
@@ -160,10 +136,11 @@ class SLOps:
         else:
             (g,) = outs
         u0 = xs.new_zeros((spec.nu, B))
-        gT = self.cost2[self.gT](xs[-1], u0, ws[-1])
+        r = self.rollouts
+        gT = r.cost2[r.gT](xs[-1], u0, ws[-1])
         J = torch.sum(g, dim=0) + gT
         if nc > 0:
-            cT = self.con2[self.cT](xs[-1], u0, ws[-1])
+            cT = r.con2[r.cT](xs[-1], u0, ws[-1])
             c = torch.cat([c_head, cT[None]], dim=0)
             J = J + self.al_terms(c, duals, penalty)
         else:
@@ -171,13 +148,6 @@ class SLOps:
         return J, c
 
     # --- line search --------------------------------------------------------
-
-    def _al_step_term(self, c_t, lam, rho, iq, dim):
-        """lam*c + 1/2 a rho c^2 summed over the constraint axis ``dim``,
-        with a = 0 on inactive inequality rows."""
-        inactive = iq & (c_t < 0.0) & (lam == 0.0)
-        a = (~inactive).to(c_t.dtype)
-        return torch.sum(lam * c_t + 0.5 * a * rho * c_t * c_t, dim=dim)
 
     def line_search(self, xbar, ubar, ws, K, k, slope, J_prev, c_prev,
                     duals, penalty, need=None):
@@ -188,57 +158,22 @@ class SLOps:
         lane wins, and one winner re-roll (per-lane alpha) recovers the
         trajectory and constraint values.  Candidates split into a head block
         (8) scored always and a tail block scored only when some lane in
-        ``need`` (None = all) has no head acceptance — one host sync.
+        ``need`` (None = all) has no head acceptance — one host sync.  With
+        ``use_kernels`` each block is one K3 launch and the re-roll one K4
+        launch; otherwise both are the plain loops.
 
         Returns (xs, us, J, c, status, step_size).
         """
-        spec = self.spec
         o = self.options
-        nc = spec.nc
+        r = self.rollouts
         dtype = xbar.dtype
         B = xbar.shape[-1]
-        nu, nx = spec.nu, spec.nx
-        Tm1 = spec.T - 1
-        ineq_t = self.ineq_t
-
-        def roll(alpha):
-            """One closed-loop rollout at per-lane step size ``alpha`` [B],
-            emitting trajectory, objective and constraints."""
-            x = xbar[0]
-            J = xbar.new_zeros(B)
-            xs_l, us_l, cs_l = [], [], []
-            for t in range(Tm1):
-                dx = x - xbar[t]
-                u = ubar[t] + torch.sum(K[t] * dx[None], dim=1) + alpha[None] * k[t]
-                w = ws[t]
-                J = J + self.cost2[self.tg[t]](x, u, w)
-                if nc > 0:
-                    c_t = self.con2[self.tc[t]](x, u, w)
-                    J = J + self._al_step_term(
-                        c_t, duals[t], penalty[t], ineq_t[t][:, None], 0
-                    )
-                    cs_l.append(c_t)
-                xs_l.append(x)
-                us_l.append(u)
-                x = self.dyn2[self.td[t]](x, u, w)
-            u0 = xbar.new_zeros((nu, B))
-            J = J + self.cost2[self.gT](x, u0, ws[-1])
-            if nc > 0:
-                cT = self.con2[self.cT](x, u0, ws[-1])
-                J = J + self._al_step_term(
-                    cT, duals[-1], penalty[-1], ineq_t[-1][:, None], 0
-                )
-                c = torch.stack(cs_l + [cT])
-            else:
-                c = xbar.new_zeros((spec.T, 0, B))
-            xs = torch.stack(xs_l + [x])
-            us = torch.stack(us_l)
-            return xs, us, J, c
+        live = (xbar, ubar, ws, K, k, duals, penalty)
 
         if o.line_search == "none":
             # unconditional full step (reference: src/options.jl:2)
             ones = xbar.new_ones(B)
-            xs_w, us_w, J_w, c_w = roll(ones)
+            xs_w, us_w, J_w, c_w = fk.winner_reroll_reference(r, ones, *live)
             ok = torch.isfinite(J_w)
             return (
                 torch.where(ok, xs_w, xbar),
@@ -254,49 +189,18 @@ class SLOps:
         c1 = torch.tensor(o.armijo_c1, dtype=dtype, device=xbar.device)
         viol_filter = self._viol_filter
 
-        def score_block(alphas_blk):
-            """Score a block of candidates in one rollout loop, the candidate
-            axis leading; with the violation filter also the per-candidate
-            max violation."""
-            nb = alphas_blk.shape[0]
-            x = xbar[0][None].expand(nb, nx, B)
-            J = xbar.new_zeros((nb, B))
-            V = xbar.new_zeros((nb, B)) if viol_filter else None
-            for t in range(Tm1):
-                dx = x - xbar[t][None]
-                u = (
-                    ubar[t][None]
-                    + torch.sum(K[t][None] * dx[:, None], dim=2)
-                    + alphas_blk[:, None, None] * k[t][None]
-                )
-                w = ws[t]
-                J = J + self.cost3[self.tg[t]](x, u, w)
-                if nc > 0:
-                    c_t = self.con3[self.tc[t]](x, u, w)   # [nb,nc,B]
-                    iq = ineq_t[t][None, :, None]
-                    J = J + self._al_step_term(
-                        c_t, duals[t][None], penalty[t][None], iq, 1
-                    )
-                    if viol_filter:
-                        v = torch.where(iq, torch.clamp(c_t, min=0.0), torch.abs(c_t))
-                        v = torch.where(self.cmask_t[t][None, :, None], v,
-                                        torch.zeros_like(v))
-                        V = torch.maximum(V, v.amax(dim=1))
-                x = self.dyn3[self.td[t]](x, u, w)
-            u0 = xbar.new_zeros((nb, nu, B))
-            J = J + self.cost3[self.gT](x, u0, ws[-1])
-            if nc > 0:
-                cT = self.con3[self.cT](x, u0, ws[-1])
-                iq = ineq_t[-1][None, :, None]
-                J = J + self._al_step_term(
-                    cT, duals[-1][None], penalty[-1][None], iq, 1
-                )
-                if viol_filter:
-                    v = torch.where(iq, torch.clamp(cT, min=0.0), torch.abs(cT))
-                    v = torch.where(self.cmask_t[-1][None, :, None], v,
-                                    torch.zeros_like(v))
-                    V = torch.maximum(V, v.amax(dim=1))
-            return J, V
+        if self.use_kernels:
+            def score_block(j0, nb):
+                return fk.score_rollout(r, j0, nb, *live), None
+
+            roll_winner = lambda a: fk.winner_reroll(r, a, *live)
+        else:
+            def score_block(j0, nb):
+                out = fk.score_rollout_reference(r, j0, nb, *live,
+                                                 violation=viol_filter)
+                return out if viol_filter else (out, None)
+
+            roll_winner = lambda a: fk.winner_reroll_reference(r, a, *live)
 
         def acc(J_blk, alphas_blk):
             return (
@@ -311,7 +215,7 @@ class SLOps:
             viol_gate = torch.clamp(
                 self.max_violation(c_prev), min=o.constraint_tolerance
             )
-        J_head, V_head = score_block(alphas[:n1])
+        J_head, V_head = score_block(0, n1)
         J_c, V_c = J_head, V_head
         if na > n1:
             # the tail can only change lanes with no head acceptance (the
@@ -326,7 +230,7 @@ class SLOps:
                 tail = xbar.new_full((na - n1, B), float("inf"))
                 J_tail, V_tail = tail, (tail if viol_filter else None)
             else:
-                J_tail, V_tail = score_block(alphas[n1:])
+                J_tail, V_tail = score_block(n1, na - n1)
             J_c = torch.cat([J_head, J_tail], dim=0)
             if viol_filter:
                 V_c = torch.cat([V_head, V_tail], dim=0)
@@ -343,7 +247,7 @@ class SLOps:
         alpha_win = alphas[idx]
         J_win = torch.gather(J_c, 0, idx[None])[0]
 
-        xs_w, us_w, _J_reroll, c_w = roll(alpha_win)
+        xs_w, us_w, _J_reroll, c_w = roll_winner(alpha_win)
         xs = torch.where(status, xs_w, xbar)
         us = torch.where(status, us_w, ubar)
         J = torch.where(status, J_win, J_prev)

@@ -39,7 +39,7 @@ def make_batched_solve_fn(
     in_axes=(0, 0, 0),
     dual_warm_start: bool = False,
     *,
-    device="cpu",
+    device="cuda",
     dtype=torch.float32,
 ):
     """Build ``(xs_init [B,T,nx], us_init [B,T-1,nu], ws [B,T,npar]) ->
@@ -48,8 +48,9 @@ def make_batched_solve_fn(
     ``in_axes`` follows vmap semantics over (xs_init, us_init, ws); None
     marks an argument shared across the batch.  ``dual_warm_start`` adds
     ``(duals0 [B,T,nc], penalty0 [B,T,nc])``.  Inputs must be on ``device``
-    in ``dtype``: CPU tensors run every kernel's plain version, CUDA tensors
-    the kernels.
+    in ``dtype``.  The solve runs on the card unless the caller passes
+    ``device="cpu"``; CPU tensors run every kernel's plain version, CUDA
+    tensors the kernels.
     """
     use_sl = options.batched_solver == "sl" or (
         options.batched_solver == "auto" and _sl_eligible(options, callback)

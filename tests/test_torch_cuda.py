@@ -12,7 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from iterativelqr_tpu_torch import Cost, build_spec
+from iterativelqr_tpu_torch.models import acrobot, car
 from iterativelqr_tpu_torch.ops import packed_backward as pk
+from iterativelqr_tpu_torch.ops import sl_forward_kernel as fk
 
 
 def _stacks(rng, B, Tm1, n, m):
@@ -65,9 +68,9 @@ def test_riccati_kernel_rejects_what_it_was_not_built_for():
         pytest.skip("needs a CUDA card")
     B, Tm1 = 64, 5
     st = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
-          for a in _stacks(np.random.default_rng(1), B, Tm1, 3, 2)]
+          for a in _stacks(np.random.default_rng(1), B, Tm1, 2, 1)]
     kin = [a.contiguous() for a in pk.prepare_stacks(
-        *st, torch.ones((Tm1, 2), dtype=torch.bool))]
+        *st, torch.ones((Tm1, 1), dtype=torch.bool))]
     reg = torch.zeros(B, device="cuda")
     with pytest.raises(NotImplementedError):
         pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
@@ -78,3 +81,91 @@ def test_riccati_kernel_rejects_what_it_was_not_built_for():
         pk.backward_pass_multiref(
             (kin4[0].transpose(0, 1).contiguous().transpose(0, 1),) + tuple(kin4[1:7]),
             kin4[7].contiguous(), kin4[8].contiguous(), reg)
+
+
+def _rollout_case(name, T, B, dtype, seed):
+    """Live line-search arrays on the card, from a numpy seed: states
+    rolled out from noisy controls, random non-converged gains, duals with
+    lam = 0 on half the lanes (there a car inequality row with c < 0 is
+    inactive) and, for car, lanes that head through the obstacle or push a
+    control past its bound (active rows)."""
+    spec = build_spec(*{"acrobot": acrobot, "car": car}[name].problem(T)[:3])
+    r = fk.Rollouts(spec, "cuda")
+    rng = np.random.default_rng(seed)
+    nx, nu, nc, Tm1 = spec.nx, spec.nu, spec.nc, T - 1
+    x0 = 0.05 * rng.standard_normal((nx, B))
+    ubar = 0.1 * rng.standard_normal((Tm1, nu, B))
+    if name == "car":
+        ubar[:, 0] += 0.7
+        x0[2, ::3] += np.pi / 4
+        ubar[:, 0, 1::5] = 6.0
+    K = 0.1 * rng.standard_normal((Tm1, nu, nx, B))
+    k = 0.1 * rng.standard_normal((Tm1, nu, B))
+    duals = np.abs(0.5 * rng.standard_normal((T, nc, B))) * (rng.uniform(size=B) < 0.5)
+    penalty = 10.0 * rng.uniform(0.5, 2.0, (T, nc, B))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda").contiguous()
+    ws = torch.zeros((T, 0, B), dtype=dtype, device="cuda")
+    xbar0 = torch.zeros((T, nx, B), dtype=dtype, device="cuda")
+    xbar0[0] = t(x0)
+    # zero gains: the plain re-roll is the open-loop rollout of ubar
+    xbar = fk.winner_reroll_reference(
+        r, torch.zeros(B, dtype=dtype, device="cuda"), xbar0, t(ubar), ws,
+        t(0 * K), t(0 * k), t(duals), t(penalty))[0].contiguous()
+    return r, (xbar, t(ubar), ws, t(K), t(k), t(duals), t(penalty))
+
+
+def _close(a, b, tol):
+    finite = torch.isfinite(b)
+    assert torch.equal(torch.isfinite(a), finite)
+    scale = float(b[finite].abs().max()) if finite.any() else 1.0
+    torch.testing.assert_close(a[finite], b[finite], rtol=tol,
+                               atol=tol * max(scale, 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,T", [("acrobot", 101), ("car", 51)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_rollout_kernels_match_plain(name, T, dtype, tol):
+    """K3 (head, tail, and 20 candidates over two block rows) and K4 against
+    their plain versions on the same card inputs, B=1000 (a ragged lane
+    edge).  Tolerance relative to the largest value, as K1's: the two sum
+    in other orders and the kernels contract to FMA, through T-1 steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B = 1000
+    r, live = _rollout_case(name, T, B, dtype, seed=3)
+    before = (fk.SCORE_LAUNCHES.launches, fk.REROLL_LAUNCHES.launches)
+    for j0, nb in ((0, 8), (8, 9), (0, 20)):
+        J = fk.score_rollout(r, j0, nb, *live)
+        torch.cuda.synchronize()
+        _close(J, fk.score_rollout_reference(r, j0, nb, *live), tol)
+    rng = np.random.default_rng(4)
+    alpha = torch.as_tensor(0.5 ** rng.integers(0, 17, B), dtype=dtype,
+                            device="cuda")
+    outs = fk.winner_reroll(r, alpha, *live)
+    torch.cuda.synchronize()
+    for a, b in zip(outs, fk.winner_reroll_reference(r, alpha, *live)):
+        _close(a, b, tol)
+    assert (fk.SCORE_LAUNCHES.launches, fk.REROLL_LAUNCHES.launches) == (
+        before[0] + 3, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_rollout_kernels_refuse_what_they_cannot_run():
+    """A spec with no device model, a dtype without a kernel, and a
+    non-contiguous input raise before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    T, B = 9, 64
+    r, live = _rollout_case("car", T, B, torch.float32, seed=1)
+    dyn, cost, con, *_ = acrobot.problem(T)
+    mine = Cost(lambda x, u: 0.3 * torch.dot(u, u), 4, 1)
+    r_foreign = fk.Rollouts(build_spec(dyn, [mine] * (T - 1) + cost[-1:], con), "cuda")
+    _, a_live = _rollout_case("acrobot", T, B, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="no device model"):
+        fk.score_rollout(r_foreign, 0, 8, *a_live)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        fk.score_rollout(r, 0, 8, *(a.half() for a in live))
+    K_nc = live[3].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.winner_reroll(r, torch.ones(B, device="cuda"), *live[:3], K_nc, *live[4:])

@@ -12,6 +12,9 @@ import importlib, pkgutil, sys
 import iterativelqr_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+for name in ("ops.sl_forward_kernel", "models.car", "models.acrobot",
+             "ops.packed_backward"):
+    assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib", "iterativelqr_tpu."))
              or n == "iterativelqr_tpu")
@@ -33,13 +36,25 @@ def test_port_imports_no_jax():
     assert res.stdout.strip() == "ok"
 
 
+def _assert_names_no_jax(f):
+    for line in f.read_text(encoding="utf-8").splitlines():
+        s = line.strip()
+        assert not s.startswith(("import jax", "from jax")), (f, line)
+        assert not s.startswith(("import iterativelqr_tpu ",
+                                 "from iterativelqr_tpu ",
+                                 "from iterativelqr_tpu.")), (f, line)
+
+
 def test_port_sources_name_no_jax():
     pkg = _ROOT / "iterativelqr_tpu_torch"
-    for f in sorted(pkg.rglob("*.py")):
-        text = f.read_text(encoding="utf-8")
-        for line in text.splitlines():
-            s = line.strip()
-            assert not s.startswith(("import jax", "from jax")), (f, line)
-            assert not s.startswith(("import iterativelqr_tpu ",
-                                     "from iterativelqr_tpu ",
-                                     "from iterativelqr_tpu.")), (f, line)
+    files = sorted(pkg.rglob("*.py"))
+    assert pkg / "ops" / "sl_forward_kernel.py" in files
+    assert pkg / "models" / "car.py" in files
+    for f in files:
+        _assert_names_no_jax(f)
+
+
+def test_chip_smoke_names_no_jax():
+    """The card's smoke run imports the port only: the card's machine has
+    no JAX."""
+    _assert_names_no_jax(_ROOT / "chip_smoke.py")

@@ -110,6 +110,8 @@ def test_prepare_stacks_guu_fixup():
 @pytest.mark.parametrize("n,m,dtype,ok", [
     (4, 1, torch.float32, True),
     (4, 1, torch.float64, True),
+    (3, 2, torch.float32, True),
+    (3, 2, torch.float64, True),
     (4, 1, torch.float16, False),
     (12, 4, torch.float32, False),
 ])

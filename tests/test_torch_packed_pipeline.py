@@ -56,7 +56,7 @@ def test_derive_backward_matches_jax(case):
     ref = [np.asarray(r).reshape(r.shape[:-2] + (B,)) for r in ref]
 
     derive = make_derive_backward_sl(
-        tspec, options_from_fields(dataclasses.asdict(jo))
+        tspec, options_from_fields(dataclasses.asdict(jo)), device="cpu"
     )
     bl = lambda a: torch.as_tensor(np.ascontiguousarray(np.moveaxis(a, 0, -1)))
     before = pk.RICCATI_LAUNCHES.launches
@@ -90,7 +90,7 @@ def test_invalid_lanes_never_hold_the_retry_open():
     valid = torch.ones(b, dtype=torch.bool)
     valid[:3] = False
     derive = make_derive_backward_sl(tspec, options_from_fields(
-        dataclasses.asdict(JaxOptions(record_traces=False))))
+        dataclasses.asdict(JaxOptions(record_traces=False))), device="cpu")
     K, *_ = derive(xs, us, ws, duals, penalty, c, reg, valid=valid)
     assert torch.isnan(K[..., :3]).all()
     assert torch.isfinite(K[..., 3:]).all()

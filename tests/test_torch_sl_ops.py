@@ -69,7 +69,7 @@ def _tnp(a):
 def _ops(p, **kw):
     return (JaxSLOps(p["jspec"], JaxOptions(record_traces=False, **kw)),
             SLOps(p["tspec"], Options(record_traces=False, **kw),
-                  dtype=torch.float64))
+                  device="cpu", dtype=torch.float64))
 
 
 def test_al_objective_matches(problem):

@@ -19,6 +19,7 @@ from iterativelqr_tpu.parallel.batch import (
     make_batched_solve_fn as jax_make_batched_solve_fn,
 )
 from iterativelqr_tpu_torch import (
+    Cost,
     Options,
     batch_stats,
     build_spec,
@@ -96,8 +97,9 @@ def test_shared_ws_in_axes_broadcasts(inputs):
     tspec = build_spec(*acrobot.problem(T)[:3])
     opts = Options(batched_solver="sl", **dict(_BASE, max_iterations=3))
     args = batch_from_numpy(xs, us, ws, device="cpu", dtype=torch.float64)
-    a = make_batched_solve_fn(tspec, opts, dtype=torch.float64)(*args)
-    b = make_batched_solve_fn(tspec, opts, in_axes=(0, 0, None),
+    a = make_batched_solve_fn(tspec, opts, device="cpu",
+                              dtype=torch.float64)(*args)
+    b = make_batched_solve_fn(tspec, opts, in_axes=(0, 0, None), device="cpu",
                               dtype=torch.float64)(*args[:2], args[2][0])
     assert torch.equal(a.xs, b.xs) and torch.equal(a.iterations, b.iterations)
 
@@ -110,21 +112,38 @@ def test_shared_ws_in_axes_broadcasts(inputs):
 def test_vmap_route_is_not_ported(kw):
     tspec = build_spec(*acrobot.problem(T)[:3])
     with pytest.raises(NotImplementedError, match="M10"):
-        make_batched_solve_fn(tspec, Options(**kw))
+        make_batched_solve_fn(tspec, Options(**kw), device="cpu")
 
 
-def test_pallas_rollout_kernels_are_not_ported():
-    tspec = build_spec(*acrobot.problem(T)[:3])
-    with pytest.raises(NotImplementedError, match="K3/K4"):
+def test_pallas_rollout_kernels_refuse_a_model_without_device_functions():
+    """A user function the registry does not know has no device model:
+    forward_kernel="pallas" refuses the spec at build time, naming the
+    models that have device functions."""
+    dyn, cost, con, *_ = acrobot.problem(T)
+    mine = Cost(lambda x, u: 0.2 * torch.dot(u, u), 4, 1)
+    tspec = build_spec(dyn, [mine] * (T - 1) + cost[-1:], con)
+    with pytest.raises(ValueError, match="stage-uniform.*acrobot, car"):
         make_batched_solve_fn(
-            tspec, Options(record_traces=False, forward_kernel="pallas"))
+            tspec, Options(record_traces=False, forward_kernel="pallas"),
+            device="cpu")
+
+
+def test_solver_defaults_to_the_card(inputs):
+    """Built with no device argument the solver is for the card, and
+    refuses CPU tensors before anything runs (no card needed)."""
+    _, xs, us, ws = inputs
+    tspec = build_spec(*acrobot.problem(T)[:3])
+    fn = make_batched_solve_fn(tspec, Options(record_traces=False),
+                               dtype=torch.float64)
+    with pytest.raises(ValueError, match="built for torch.float64 on cuda"):
+        fn(*batch_from_numpy(xs, us, ws, device="cpu", dtype=torch.float64))
 
 
 def test_inputs_must_match_device_and_dtype(inputs):
     _, xs, us, ws = inputs
     tspec = build_spec(*acrobot.problem(T)[:3])
     fn = make_batched_solve_fn(tspec, Options(record_traces=False),
-                               dtype=torch.float32)
+                               device="cpu", dtype=torch.float32)
     with pytest.raises(ValueError, match="float64"):
         fn(*batch_from_numpy(xs, us, ws, device="cpu", dtype=torch.float64))
 
@@ -135,7 +154,8 @@ def test_dual_warm_start_and_total_budget_match_jax(inputs):
     jspec, xs, us, ws = inputs
     tspec = build_spec(*acrobot.problem(T)[:3])
     cold = make_batched_solve_fn(
-        tspec, Options(batched_solver="sl", **_BASE), dtype=torch.float64,
+        tspec, Options(batched_solver="sl", **_BASE), device="cpu",
+        dtype=torch.float64,
     )(*batch_from_numpy(xs, us, ws, device="cpu", dtype=torch.float64))
     duals0, pen0 = cold.duals.numpy(), cold.penalty.numpy()
     jo = JaxOptions(batched_solver="sl", max_total_iterations=5, **_BASE)
@@ -144,7 +164,7 @@ def test_dual_warm_start_and_total_budget_match_jax(inputs):
     )(*(jnp.asarray(a) for a in (xs, us, ws, duals0, pen0)))
     sol = make_batched_solve_fn(
         tspec, options_from_fields(dataclasses.asdict(jo)),
-        dual_warm_start=True, dtype=torch.float64,
+        dual_warm_start=True, device="cpu", dtype=torch.float64,
     )(*batch_from_numpy(xs, us, ws, duals0, pen0, device="cpu",
                         dtype=torch.float64))
     out = solution_to_numpy(sol)
