@@ -10,28 +10,30 @@ Phases, each of which raises (non-zero exit) when it fails:
 2. build: compiles the port's kernels from csrc/ (one nvcc per source, all
    at once; timed) and prints ptxas's registers and spills per kernel;
 3. K1 (csrc/riccati_backward.cu) against its plain PyTorch version on the
-   card at the main path's shapes (acrobot n=4, m=1, T=101, B=4096), in f64
-   and f32, plus a batch with indefinite Quu on some lanes (ok = 0);
-   median times of both;
+   card at the main path's shapes (acrobot n=4, m=1, T=101, B=4096), and K2
+   (csrc/riccati_backward_wide.cu) at the quadrotor's (n=12, m=4, T=41,
+   B=4096), in f64 and f32, each plus a batch with indefinite Quu on some
+   lanes (ok = 0); median times of both and the bounds;
 3b. K3 and K4 (csrc/sl_forward.cu) against their plain versions on the
-   card: acrobot T=101 and car T=51, B=4096, f64 and f32, K3 for the
-   8-candidate head (j0=0) and the 9-candidate tail (j0=8), K4 at per-lane
-   step sizes; random non-converged gains from a numpy seed, car with
-   inactive (c < 0, lam = 0) and active inequality rows; median times of
-   both and the byte and operation bounds;
+   card: acrobot T=101, car T=51 and quadrotor T=41, B=4096, f64 and f32,
+   K3 for the 8-candidate head (j0=0) and the 9-candidate tail (j0=8), K4
+   at per-lane step sizes; random non-converged gains from a numpy seed,
+   car and quadrotor with inactive (c < 0, lam = 0) and active inequality
+   rows; median times of both and the byte and operation bounds;
 4. the slice end to end: make_batched_solve_fn + batch_stats on acrobot
    T=101, B=4096, f32, under the bench.py presets "tuned" and "parity", with
    bench.py's initial-guess protocol, each with the loop rollouts
    (forward_kernel="scan") and the rollout kernels ("pallas") in one run;
-   then car T=51, B=4096, f32 under both; solved fraction from batch_stats
-   and recomputed from the returned trajectories with constraint_values;
-   K1, K3 and K4 launches counted over each timed solve; the per-iteration
-   split of derive+backward against line search;
+   then car T=51 and quadrotor T=41 (benchmarks/measure_all.py's protocol),
+   B=4096, f32, under both; solved fraction from batch_stats and recomputed
+   from the returned trajectories with constraint_values; K1 (acrobot, car)
+   or K2 (quadrotor), K3 and K4 launches counted over each timed solve; the
+   per-iteration split of derive+backward against line search in each;
 5. reference checks on small inputs: the card's "pallas" path against the
-   port's plain CPU "scan" path (acrobot T=9 and car T=8, B=4, f64: equal
-   iterates), and the committed golden acrobot T=101 and car solutions
-   (tests/fixtures/golden_*.npz) solved on the card through "pallas" in
-   f64.
+   port's plain CPU "scan" path (acrobot T=9, car and quadrotor T=8, B=4,
+   f64: equal iterates), and the committed golden acrobot T=101, car and
+   quadrotor solutions (tests/fixtures/golden_*.npz) solved on the card
+   through "pallas" in f64.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -42,6 +44,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -57,6 +60,7 @@ SEED = 0
 SPLIT_ITERATIONS = 20
 
 T_CAR = 51
+T_QUAD = 41
 TUNED = dict(verbose=False, record_traces=False,
              initial_constraint_penalty=1000.0, min_step_size=4.0e-3,
              early_round_iteration_cap=20)
@@ -72,9 +76,12 @@ F32_OPS_PER_S = 67e12
 # reduction plus a polynomial).  Acrobot: 2 x 43 for the two dynamics
 # evaluations, 16 for the RK2 updates, 15 control, 8 cost, 8 sin/cos.  Car:
 # 2 x 2 dynamics, 12 RK2, 21 control, 13 cost, 10 constraints, 30 AL terms,
-# 2 accumulations, 4 sin/cos.
+# 2 accumulations, 4 sin/cos.  Quadrotor: 2 x 58 dynamics, 48 RK2, 120
+# control, 55 cost, 8 constraints, 48 AL terms, 2 accumulations, 14 sin, cos
+# or tan.
 OPS_PER_STEP = {"acrobot": 2 * 43 + 16 + 15 + 8 + 8 * 20,
-                "car": 2 * 2 + 12 + 21 + 13 + 10 + 30 + 2 + 4 * 20}
+                "car": 2 * 2 + 12 + 21 + 13 + 10 + 30 + 2 + 4 * 20,
+                "quadrotor": 2 * 58 + 48 + 120 + 55 + 8 + 48 + 2 + 14 * 20}
 
 
 def log(msg):
@@ -116,12 +123,12 @@ def cuda_ms(fn, reps=10, warmup=2):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: K1 against its plain version
+# phase 3: K1 and K2 against their plain version
 # ---------------------------------------------------------------------------
 
 
 def random_stacks(seed, B, Tm1, n, m):
-    """Well-conditioned batch-last derivative stacks (numpy, f64)."""
+    """Well-conditioned batch-last derivative stacks for m=1 (numpy, f64)."""
     rng = np.random.default_rng(seed)
     T = Tm1 + 1
     fx = 0.1 * rng.standard_normal((Tm1, n, n, B)) + np.eye(n)[None, :, :, None]
@@ -135,63 +142,109 @@ def random_stacks(seed, B, Tm1, n, m):
     return [fx, fu, gx, gu, gxx, guu, gux]
 
 
-def check_k1(pk):
-    """K1 = plain within tolerance, ok equal, in f64 and f32; returns the
-    f32 record at the main path's shapes."""
-    B, Tm1, n, m = B_MAIN, T_MAIN - 1, 4, 1
-    # f64: both sides are IEEE f64 summing 4-term products in other orders
+def wide_stacks(seed, B, Tm1, n, m):
+    """Well-conditioned batch-last derivative stacks for m > 1 (numpy, f64):
+    the scheme of tests/test_packed_pipeline.py's streamed-output test,
+    symmetric positive definite gxx and guu."""
+    rng = np.random.default_rng(seed)
+    T = Tm1 + 1
+    fx = 0.1 * rng.standard_normal((Tm1, n, n, B)) + np.eye(n)[None, :, :, None]
+    fu = 0.5 * rng.standard_normal((Tm1, n, m, B))
+    gx = rng.standard_normal((T, n, B))
+    gu = rng.standard_normal((Tm1, m, B))
+
+    def spd(rows, d, scale):
+        A = rng.standard_normal((rows, d, d, B))
+        return (scale * np.einsum("tikb,tjkb->tijb", A, A) / d
+                + 2.0 * np.eye(d)[None, :, :, None])
+
+    gxx = spd(T, n, 0.5)
+    guu = spd(Tm1, m, 1.0)
+    gux = 0.2 * rng.standard_normal((Tm1, m, n, B))
+    return [fx, fu, gx, gu, gxx, guu, gux]
+
+
+def riccati_ops(n, m):
+    """Operations a step and lane of the recursion (each multiplication,
+    addition, division or square root one): Qx, Qu, fx^T P, fu^T P, Qxx,
+    Quu, Qux, the Cholesky and its n+1 solves, Quu K, the P and p updates
+    and the symmetrization."""
+    return (2 * n * n + 2 * n * m + 2 * n ** 3 + 2 * n * n * m
+            + 2 * n ** 3 + n * n + 2 * n * m * m + m * m + 2 * n * n * m + n * m
+            + (m ** 3) // 3 + m * m + (n + 1) * 2 * m * m + 2 * m * m * n
+            + 6 * m * n * n + 3 * n * n + 2 * n * n + 6 * m * n + 3 * n)
+
+
+# label -> (launch counter name, n, m, T, stacks, step made indefinite)
+RICCATI_CASES = {
+    "K1": ("riccati_backward", 4, 1, T_MAIN, random_stacks, 50),
+    "K2": ("riccati_backward_wide", 12, 4, T_QUAD, wide_stacks, 20),
+}
+
+
+def check_riccati(pk, label):
+    """K1 or K2 = plain within tolerance, ok equal, in f64 and f32; returns
+    the f32 record at its path's shapes."""
+    kname, n, m, T, make, bad_t = RICCATI_CASES[label]
+    B, Tm1 = B_MAIN, T - 1
+    # f64: both sides are IEEE f64 summing the same products in other orders
     # (the kernel also contracts to FMA): 1e-10 relative.  f32: the same
-    # differences at f32 rounding, carried through a 100-step recursion
-    # (f32 against f64 of the plain version differs by ~1e-6 relative on
-    # these stacks): 1e-4 relative.
+    # differences at f32 rounding, carried through the recursion (f32
+    # against f64 of the plain version differs by ~1e-6 relative on these
+    # stacks): 1e-4 relative.
     tols = {torch.float64: 1e-10, torch.float32: 1e-4}
     record = {}
     for case in ("well_conditioned", "indefinite_lanes"):
-        st = random_stacks(SEED, B, Tm1, n, m)
+        st = make(SEED, B, Tm1, n, m)
         bad = np.zeros(B, bool)
         if case == "indefinite_lanes":
             bad[::61] = True
-            st[5][50, 0, 0, bad] = -1.0e3
+            st[5][bad_t, 0, 0, bad] = -1.0e3
         for dtype, tol in tols.items():
             dev = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in st]
             kin = pk.prepare_stacks(*dev, torch.ones((Tm1, m), dtype=torch.bool))
             kin = [a.contiguous() for a in kin]
             reg = torch.zeros(B, dtype=dtype, device="cuda")
+            counter = counters()[kname]
+            before = counter.launches
             out = pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
             ref = pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg)
             torch.cuda.synchronize()
+            if counter.launches != before + 1:
+                raise AssertionError(f"{label}: backward_pass_multiref did not launch {kname}")
             max_abs = 0.0
             for name, a, b in zip(("K", "k", "Qx", "Qu", "p", "ok"), out, ref):
                 nan_a, nan_b = torch.isnan(a), torch.isnan(b)
                 if not torch.equal(nan_a, nan_b):
-                    raise AssertionError(f"K1 {case} {dtype} {name}: NaN positions differ")
+                    raise AssertionError(f"{label} {case} {dtype} {name}: NaN positions differ")
                 fa, fb = a[~nan_b], b[~nan_b]
                 scale = float(fb.abs().max()) if fb.numel() else 0.0
                 err = float((fa - fb).abs().max()) if fb.numel() else 0.0
                 if not err <= tol * max(scale, 1.0):
                     raise AssertionError(
-                        f"K1 {case} {dtype} {name}: max |kernel - plain| {err:.3e} "
+                        f"{label} {case} {dtype} {name}: max |kernel - plain| {err:.3e} "
                         f"> {tol:g} * max(|plain|, 1) = {tol * max(scale, 1.0):.3e}")
                 max_abs = max(max_abs, err)
             ok = out[-1].cpu().numpy()
             if not np.array_equal(ok, ref[-1].cpu().numpy()):
-                raise AssertionError(f"K1 {case} {dtype}: ok differs")
+                raise AssertionError(f"{label} {case} {dtype}: ok differs")
             if not np.array_equal(ok == 0, bad):
-                raise AssertionError(f"K1 {case} {dtype}: ok=0 lanes are not the indefinite ones")
-            line = f"[k1] {case} {str(dtype).split('.')[-1]}: max |kernel - plain| {max_abs:.3e} (tol {tol:g} relative), ok equal, {int((ok == 0).sum())} lanes ok=0"
+                raise AssertionError(f"{label} {case} {dtype}: ok=0 lanes are not the indefinite ones")
+            line = (f"[{label.lower()}] {kname} n={n} m={m} T={T} B={B} {case} {str(dtype).split('.')[-1]}: "
+                    f"max |kernel - plain| {max_abs:.3e} (tol {tol:g} relative), ok equal, "
+                    f"{int((ok == 0).sum())} lanes ok=0")
             if case == "well_conditioned":
                 k_ms = cuda_ms(lambda: pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg))
                 p_ms = cuda_ms(lambda: pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg))
                 line += f"; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms (median of 10)"
                 if dtype == torch.float32:
-                    # each input read once, each output written once; about
-                    # 650 operations a step for n=4, m=1 (the products with
-                    # P dominate) against 60 values moved
+                    # each input read once, each output written once
                     nbytes = sum(a.numel() * a.element_size()
                                  for a in (*kin, reg, *out))
-                    ops = 650 * Tm1 * B
+                    ops = riccati_ops(n, m) * Tm1 * B
                     b_ms, b_by = bound_ms(nbytes, ops)
-                    line += f"; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)"
+                    line += (f"; bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
+                             f"{ops / 1e9:.3f} G operations)")
                     record = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
                                   bound_ms=b_ms, bound_by=b_by)
             log(line)
@@ -206,13 +259,14 @@ def check_k1(pk):
 def rollout_case(fk, name, T, B, dtype, seed):
     """Live line-search arrays on the card, from a numpy seed: states
     rolled out from noisy controls, random non-converged gains, duals with
-    lam = 0 on half the lanes (there a car inequality row with c < 0 is
-    inactive) and, for car, lanes that head through the obstacle or push a
-    control past its bound (active rows)."""
+    lam = 0 on half the lanes (there an inequality row with c < 0 is
+    inactive) and, for car and the quadrotor, lanes that head through the
+    obstacle or push a control past its bound (active rows)."""
     from iterativelqr_tpu_torch import build_spec
-    from iterativelqr_tpu_torch.models import acrobot, car
+    from iterativelqr_tpu_torch.models import acrobot, car, quadrotor
 
-    spec = build_spec(*{"acrobot": acrobot, "car": car}[name].problem(T)[:3])
+    mod = {"acrobot": acrobot, "car": car, "quadrotor": quadrotor}[name]
+    spec = build_spec(*mod.problem(T)[:3])
     r = fk.Rollouts(spec, "cuda")
     rng = np.random.default_rng(seed)
     nx, nu, nc, Tm1 = spec.nx, spec.nu, spec.nc, T - 1
@@ -222,8 +276,19 @@ def rollout_case(fk, name, T, B, dtype, seed):
         ubar[:, 0] += 0.7
         x0[2, ::3] += np.pi / 4
         ubar[:, 0, 1::5] = 6.0
+    if name == "quadrotor":
+        # thrusts near hover; some lanes hold every rotor past its upper or
+        # lower bound (active rows, no torque)
+        ubar = quadrotor.HOVER + 0.1 * ubar
+        ubar[:, :, 1::5] = 6.5
+        ubar[:, :, 3::7] = -0.2
     K = 0.1 * rng.standard_normal((Tm1, nu, nx, B))
     k = 0.1 * rng.standard_normal((Tm1, nu, B))
+    if name == "quadrotor":
+        # gentler gains: larger random ones tip the attitude past 90 degrees
+        # within the horizon (tan and 1/cos of pitch overflow) or make the
+        # alpha = 1 rollouts chaotic
+        K, k = 0.2 * K, 0.2 * k
     duals = np.abs(0.5 * rng.standard_normal((T, nc, B))) * (rng.uniform(size=B) < 0.5)
     penalty = 10.0 * rng.uniform(0.5, 2.0, (T, nc, B))
     t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda").contiguous()
@@ -273,15 +338,15 @@ def rollout_bytes(spec, B, size, nb=None):
 
 
 def check_rollouts(fk):
-    """K3 and K4 = plain within tolerance, acrobot T=101 and car T=51,
-    B=4096, f64 and f32; returns the f32 acrobot records (the main path's
-    shapes) for the JSON line."""
+    """K3 and K4 = plain within tolerance, acrobot T=101, car T=51 and
+    quadrotor T=41, B=4096, f64 and f32; returns the f32 acrobot records
+    (the main path's shapes) for the JSON line."""
     # f64: IEEE f64 on both sides, sums in other orders and FMA contraction
     # in the kernel, through T-1 dependent steps: 1e-10 relative.  f32: the
     # same at f32 rounding: 1e-4 relative (K1's tolerances and reasons).
     tols = {torch.float64: 1e-10, torch.float32: 1e-4}
     records = {}
-    for name, T in (("acrobot", T_MAIN), ("car", T_CAR)):
+    for name, T in (("acrobot", T_MAIN), ("car", T_CAR), ("quadrotor", T_QUAD)):
         for dtype, tol in tols.items():
             r, live, alpha = rollout_case(fk, name, T, B_MAIN, dtype, SEED)
             spec, size = r.spec, torch.finfo(dtype).bits // 8
@@ -372,15 +437,16 @@ def recomputed_solved_fraction(spec, sol, ws, tol):
     return float((v <= tol).to(torch.float32).mean())
 
 
-LAUNCH_NAMES = ("riccati_backward", "sl_score_rollout", "sl_winner_reroll")
+LAUNCH_NAMES = ("riccati_backward", "riccati_backward_wide", "sl_score_rollout",
+                "sl_winner_reroll")
 
 
 def counters():
     from iterativelqr_tpu_torch.ops import packed_backward as pk
     from iterativelqr_tpu_torch.ops import sl_forward_kernel as fk
 
-    return dict(zip(LAUNCH_NAMES, (pk.RICCATI_LAUNCHES, fk.SCORE_LAUNCHES,
-                                   fk.REROLL_LAUNCHES)))
+    return dict(zip(LAUNCH_NAMES, (pk.RICCATI_LAUNCHES, pk.RICCATI_WIDE_LAUNCHES,
+                                   fk.SCORE_LAUNCHES, fk.REROLL_LAUNCHES)))
 
 
 def counted_solve(P, solve, args):
@@ -397,9 +463,16 @@ def counted_solve(P, solve, args):
     return sol, stats, wall, {k: c.launches for k, c in counters().items()}
 
 
-def check_launches(name, fkm, counts):
-    if counts["riccati_backward"] <= 0:
-        raise AssertionError(f"{name}: K1 was not launched on the main path")
+def check_launches(name, fkm, counts, model):
+    """The model's backward kernel (K2 for the quadrotor, K1 for acrobot and
+    car) was launched and the other was not; K3/K4 launched on the kernel
+    path and not on the loop path."""
+    k1, k2 = counts["riccati_backward"], counts["riccati_backward_wide"]
+    if model == "quadrotor":
+        if k2 <= 0 or k1 != 0:
+            raise AssertionError(f"{name}: expected K2 and not K1 on the main path (K1 {k1}, K2 {k2})")
+    elif k1 <= 0 or k2 != 0:
+        raise AssertionError(f"{name}: expected K1 and not K2 on the main path (K1 {k1}, K2 {k2})")
     rollouts = counts["sl_score_rollout"], counts["sl_winner_reroll"]
     if fkm == "pallas" and min(rollouts) <= 0:
         raise AssertionError(f"{name}: K3/K4 were not launched on the main path {rollouts}")
@@ -425,21 +498,43 @@ def integrity(name, spec, sol, stats, ws, tol, B, T, nx, nu):
 def report(name, sol, stats, frac, frac_true, wall, counts, na, B):
     its = sol.iterations
     trips = int(its.max())                  # loop iterations of the batch
-    k1 = counts["riccati_backward"]
+    k1, k2 = counts["riccati_backward"], counts["riccati_backward_wide"]
     tail_gates = trips if na > 8 else 0
-    syncs = (trips + 1) + k1 + tail_gates
+    syncs = (trips + 1) + k1 + k2 + tail_gates
     log(f"[slice] {name}: solved_fraction batch_stats {frac:.4f} recomputed {frac_true:.4f}; "
         f"iterations mean {float(its.float().mean()):.2f} max {trips}; "
         f"mean objective {float(stats.mean_objective):.4f}; max violation {float(stats.max_violation):.3e}")
     log(f"[slice] {name}: wall {wall:.3f} s after a warm-up ({B * frac_true / wall:.1f} solved/s); "
-        f"launches K1 {k1}, K3 {counts['sl_score_rollout']}, K4 {counts['sl_winner_reroll']}; "
-        f"host syncs {syncs} (loop tests {trips + 1}, reg-retry tests {k1}, tail gates {tail_gates})")
+        f"launches K1 {k1}, K2 {k2}, K3 {counts['sl_score_rollout']}, K4 {counts['sl_winner_reroll']}; "
+        f"host syncs {syncs} (loop tests {trips + 1}, reg-retry tests {k1 + k2}, tail gates {tail_gates})")
+
+
+def per_iteration_split(name, spec, opts, xs, us, ws):
+    """The same solve with the per-phase timer, cut to its first
+    SPLIT_ITERATIONS iterations (on acrobot every lane is still live then):
+    host and device-event ms per iteration of derive+backward and of the
+    line search."""
+    from iterativelqr_tpu_torch.core.solve_sl import make_batched_solve_sl
+
+    sections = Sections()
+    timed = make_batched_solve_sl(
+        spec, dataclasses.replace(opts, max_total_iterations=SPLIT_ITERATIONS),
+        device=xs.device, dtype=xs.dtype, section=sections)
+    sol = timed(xs, us, ws)
+    torch.cuda.synchronize()
+    dev_ms = sections.device_ms()
+    trips = int(sol.iterations.max())
+    der_host = sections.host["derive_backward"] / trips * 1e3
+    ls_host = sections.host["line_search"] / trips * 1e3
+    der_dev = dev_ms["derive_backward"] / trips
+    ls_dev = dev_ms["line_search"] / trips
+    log(f"[slice] {name}: per iteration (first {trips}) derive+backward {der_host:.2f} ms host / {der_dev:.2f} ms device-events, "
+        f"line search {ls_host:.2f} ms host / {ls_dev:.2f} ms device-events")
 
 
 def run_preset(P, name, kw, fkm):
     """Acrobot T=101, B=4096, f32 under one bench.py preset with the
     rollouts of ``fkm``; returns the main path's launch counts."""
-    from iterativelqr_tpu_torch.core.solve_sl import make_batched_solve_sl
     from iterativelqr_tpu_torch.models import acrobot
 
     name = f"{name}/{fkm}"
@@ -458,47 +553,39 @@ def run_preset(P, name, kw, fkm):
     solve = P.make_batched_solve_fn(spec, opts, device=device, dtype=dtype)
     sol, stats, wall, counts = counted_solve(P, solve, (xs, us, ws))
 
-    # the per-iteration split: the same solve with the per-phase timer,
-    # cut to its first SPLIT_ITERATIONS iterations (every lane still live)
-    sections = Sections()
-    timed = make_batched_solve_sl(
-        spec, dataclasses.replace(opts, max_total_iterations=SPLIT_ITERATIONS),
-        device=device, dtype=dtype, section=sections)
-    sol2 = timed(xs, us, ws)
-    torch.cuda.synchronize()
-    dev_ms = sections.device_ms()
-    split_trips = int(sol2.iterations.max())
-
     frac, frac_true = integrity(name, spec, sol, stats, ws, opts.constraint_tolerance,
                                 B_MAIN, T_MAIN, 4, 1)
     if frac_true < 0.99:
         raise AssertionError(f"{name}: recomputed solved fraction {frac_true} < 0.99")
-    check_launches(name, fkm, counts)
-
-    der_host = sections.host["derive_backward"] / split_trips * 1e3
-    ls_host = sections.host["line_search"] / split_trips * 1e3
-    der_dev = dev_ms["derive_backward"] / split_trips
-    ls_dev = dev_ms["line_search"] / split_trips
+    check_launches(name, fkm, counts, "acrobot")
     log(f"[slice] {name}: B={B_MAIN} T={T_MAIN} f32 candidates={opts.num_step_sizes}")
     report(name, sol, stats, frac, frac_true, wall, counts, opts.num_step_sizes, B_MAIN)
-    log(f"[slice] {name}: per iteration (first {split_trips}) derive+backward {der_host:.2f} ms host / {der_dev:.2f} ms device-events, "
-        f"line search {ls_host:.2f} ms host / {ls_dev:.2f} ms device-events")
+    per_iteration_split(name, spec, opts, xs, us, ws)
     return counts
 
 
-def car_inputs(B, T, dtype, device):
-    """x0 = x1 + 0.02 N(0,1) from a numpy seed, the reference's initial
-    controls, states rolled out open loop."""
+# model -> (T of its cell, scale of the x0 noise, its initial controls)
+MODEL_CELLS = {"car": (T_CAR, 0.02, "initial_controls"),
+               "quadrotor": (T_QUAD, 0.05, "hover_controls")}
+
+
+def model_inputs(model, B, T, dtype, device):
+    """x0 = x1 + scale N(0,1) on every state from a numpy seed, the model's
+    initial controls (car: the reference's; quadrotor: hover, with 0.05 the
+    protocol of benchmarks/measure_all.py), states rolled out open loop."""
     from torch.func import vmap
 
-    from iterativelqr_tpu_torch.models import car
+    from iterativelqr_tpu_torch import models
 
-    dyn, _, _, x1, _ = car.problem(T)
+    mod = getattr(models, model)
+    _, scale, controls = MODEL_CELLS[model]
+    dyn, _, _, x1, _ = mod.problem(T)
+    nx = x1.shape[0]
     rng = np.random.default_rng(SEED)
-    x = torch.as_tensor(x1.numpy() + 0.02 * rng.standard_normal((B, 3)),
+    x = torch.as_tensor(x1.numpy() + scale * rng.standard_normal((B, nx)),
                         dtype=dtype, device=device)
-    us = torch.stack(car.initial_controls(T)).to(device, dtype)
-    us = us[None].expand(B, T - 1, 2).contiguous()
+    us = torch.stack(getattr(mod, controls)(T)).to(device, dtype)
+    us = us[None].expand(B, *us.shape).contiguous()
     xs = [x]
     for t in range(T - 1):
         x = vmap(dyn[t])(x, us[:, t])
@@ -507,26 +594,29 @@ def car_inputs(B, T, dtype, device):
     return torch.stack(xs, dim=1).contiguous(), us, ws
 
 
-def run_car(P, fkm):
-    """Car T=51, B=4096, f32 with the rollouts of ``fkm``; returns
-    (recomputed solved fraction, launch counts)."""
-    from iterativelqr_tpu_torch.models import car
+def run_model(P, model, fkm):
+    """Car T=51 or quadrotor T=41, B=4096, f32, ``Options(record_traces=
+    False)``, with the rollouts of ``fkm``; returns (recomputed solved
+    fraction, launch counts)."""
+    from iterativelqr_tpu_torch import models
 
-    name = f"car/{fkm}"
+    T = MODEL_CELLS[model][0]
+    name = f"{model}/{fkm}"
     dtype, device = torch.float32, torch.device("cuda")
-    spec = P.build_spec(*car.problem(T_CAR)[:3])
+    spec = P.build_spec(*getattr(models, model).problem(T)[:3])
     opts = P.Options(record_traces=False, forward_kernel=fkm)
-    xs, us, ws = car_inputs(B_MAIN, T_CAR, dtype, device)
+    xs, us, ws = model_inputs(model, B_MAIN, T, dtype, device)
     P.make_batched_solve_fn(spec, dataclasses.replace(opts, max_total_iterations=3),
                             device=device, dtype=dtype)(xs, us, ws)
     torch.cuda.synchronize()
     solve = P.make_batched_solve_fn(spec, opts, device=device, dtype=dtype)
     sol, stats, wall, counts = counted_solve(P, solve, (xs, us, ws))
     frac, frac_true = integrity(name, spec, sol, stats, ws, opts.constraint_tolerance,
-                                B_MAIN, T_CAR, 3, 2)
-    check_launches(name, fkm, counts)
-    log(f"[slice] {name}: B={B_MAIN} T={T_CAR} f32 candidates={opts.num_step_sizes}")
+                                B_MAIN, T, spec.nx, spec.nu)
+    check_launches(name, fkm, counts, model)
+    log(f"[slice] {name}: B={B_MAIN} T={T} f32 candidates={opts.num_step_sizes}")
     report(name, sol, stats, frac, frac_true, wall, counts, opts.num_step_sizes, B_MAIN)
+    per_iteration_split(name, spec, opts, xs, us, ws)
     return frac_true, counts
 
 
@@ -537,12 +627,14 @@ def run_car(P, fkm):
 
 def check_card_vs_cpu(P):
     """The card's kernel path (forward_kernel="pallas") against the port's
-    plain CPU loop path ("scan"), acrobot T=9 and car T=8, B=4, f64: equal
-    iterates, trajectories within 1e-8."""
-    from iterativelqr_tpu_torch.models import acrobot, car
+    plain CPU loop path ("scan"), acrobot T=9, car and quadrotor T=8, B=4,
+    f64: equal iterates, trajectories within 1e-8."""
+    from iterativelqr_tpu_torch.models import acrobot, car, quadrotor
 
     for name, mod, T, make in (("acrobot", acrobot, 9, bench_inputs),
-                               ("car", car, 8, car_inputs)):
+                               ("car", car, 8, functools.partial(model_inputs, "car")),
+                               ("quadrotor", quadrotor, 8,
+                                functools.partial(model_inputs, "quadrotor"))):
         B = 4
         spec = P.build_spec(*mod.problem(T)[:3])
         base = dict(record_traces=False, max_iterations=12, max_dual_updates=3)
@@ -556,7 +648,7 @@ def check_card_vs_cpu(P):
                                                 dtype=torch.float64)(xs, us, ws)
             if dev == "cuda":
                 check_launches(f"card vs cpu {name}", fkm,
-                               {k: c.launches for k, c in counters().items()})
+                               {k: c.launches for k, c in counters().items()}, name)
         a, b = sols["cpu"], sols["cuda"]
         for f in ("iterations", "al_iterations", "status"):
             if not torch.equal(getattr(a, f), getattr(b, f).cpu()):
@@ -568,17 +660,18 @@ def check_card_vs_cpu(P):
 
 
 # tests/test_golden.py's gates: (x_atol, u_atol), violation <= 5e-3
-GOLDEN = {"acrobot_T101": ("acrobot", 1e-2, 5e-2), "car": ("car", 1e-3, 5e-3)}
+GOLDEN = {"acrobot_T101": ("acrobot", 1e-2, 5e-2), "car": ("car", 1e-3, 5e-3),
+          "quadrotor": ("quadrotor", 1e-2, 5e-2)}
 
 
 def check_golden(P, fixture):
     """A committed golden solution (reference-exact AL schedule, initial
     states rolled out from us0), solved on the card through the rollout
     kernels in f64."""
-    from iterativelqr_tpu_torch.models import acrobot, car
+    from iterativelqr_tpu_torch import models
 
     name, x_atol, u_atol = GOLDEN[fixture]
-    mod = {"acrobot": acrobot, "car": car}[name]
+    mod = getattr(models, name)
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "tests", "fixtures", f"golden_{fixture}.npz")
     data = np.load(path)
@@ -600,7 +693,7 @@ def check_golden(P, fixture):
         c.reset()
     sol = P.make_batched_solve_fn(spec, opts, device=dev, dtype=dtype)(xs, us[None], ws)
     check_launches(f"golden {fixture}", "pallas",
-                   {k: c.launches for k, c in counters().items()})
+                   {k: c.launches for k, c in counters().items()}, name)
     viol = float(sol.max_violation[0])
     dx = float(np.abs(sol.xs[0].cpu().numpy() - data["xs"]).max())
     du = float(np.abs(sol.us[0].cpu().numpy() - data["us"]).max())
@@ -633,26 +726,32 @@ def main():
     for line in _build.ptxas_report():
         log(f"[build] {line}")
 
-    records = {"riccati_backward": check_k1(pk)}
+    records = {"riccati_backward": check_riccati(pk, "K1"),
+               "riccati_backward_wide": check_riccati(pk, "K2")}
     records.update(check_rollouts(fk))
 
     launches = collections.Counter()
     for name, kw in (("tuned", TUNED), ("parity", PARITY)):
         for fkm in ("scan", "pallas"):
             launches.update(run_preset(P, name, kw, fkm))
-    fracs = {}
-    for fkm in ("scan", "pallas"):
-        fracs[fkm], counts = run_car(P, fkm)
-        launches.update(counts)
-    log(f"[slice] car: recomputed solved fraction scan {fracs['scan']:.4f}, pallas {fracs['pallas']:.4f}")
-    if abs(fracs["scan"] - fracs["pallas"]) > 0.01:
-        raise AssertionError(f"car: scan and pallas solved fractions differ by more than 0.01: {fracs}")
+    for model in MODEL_CELLS:
+        fracs = {}
+        for fkm in ("scan", "pallas"):
+            fracs[fkm], counts = run_model(P, model, fkm)
+            launches.update(counts)
+        log(f"[slice] {model}: recomputed solved fraction scan {fracs['scan']:.4f}, "
+            f"pallas {fracs['pallas']:.4f}")
+        if abs(fracs["scan"] - fracs["pallas"]) > 0.01:
+            raise AssertionError(f"{model}: scan and pallas solved fractions differ by more than 0.01: {fracs}")
+        if model == "quadrotor" and min(fracs.values()) < 0.99:
+            raise AssertionError(f"quadrotor: recomputed solved fraction below 0.99: {fracs}")
 
     check_card_vs_cpu(P)
     for fixture in GOLDEN:
         check_golden(P, fixture)
 
     sources = {"riccati_backward": ("riccati_backward.cu", "iterativelqr_tpu/ops/packed_backward.py:509"),
+               "riccati_backward_wide": ("riccati_backward_wide.cu", "iterativelqr_tpu/ops/packed_backward.py:574"),
                "sl_score_rollout": ("sl_forward.cu", "iterativelqr_tpu/ops/sl_forward_kernel.py:327"),
                "sl_winner_reroll": ("sl_forward.cu", "iterativelqr_tpu/ops/sl_forward_kernel.py:426")}
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")

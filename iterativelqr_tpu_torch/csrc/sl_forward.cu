@@ -34,7 +34,8 @@
 // 16.4 MB, plus 0.3 MB of terminal inputs and J, about 5 us at 3.35 TB/s.
 // K4 reads the same and writes xs, us and c (908 floats a lane, 14.9 MB):
 // about 31 MB, 9.4 us.  Car T=51: 23 floats a step, about 18.8 MB, 5.6 us
-// for K3.  Operations: each step evaluates the dynamics twice (RK2), and
+// for K3.  Quadrotor T=41: 84 floats a step, about 55 MB, 16 us for K3.
+// Operations: each step evaluates the dynamics twice (RK2), and
 // acrobot's dynamics take four sin/cos each, so a step is a dependent chain
 // of several hundred instructions (chip_smoke.py counts them); 100 dependent
 // steps per lane make both kernels latency-bound, far above the byte bound.
@@ -57,6 +58,7 @@
 
 #include "sl_model_acrobot.cuh"
 #include "sl_model_car.cuh"
+#include "sl_model_quadrotor.cuh"
 
 namespace {
 
@@ -312,3 +314,5 @@ SL_ENTRIES(acrobot_nc0_f32, sl_models::AcrobotNc0, float)
 SL_ENTRIES(acrobot_nc0_f64, sl_models::AcrobotNc0, double)
 SL_ENTRIES(car_f32, sl_models::Car, float)
 SL_ENTRIES(car_f64, sl_models::Car, double)
+SL_ENTRIES(quadrotor_f32, sl_models::Quadrotor, float)
+SL_ENTRIES(quadrotor_f64, sl_models::Quadrotor, double)

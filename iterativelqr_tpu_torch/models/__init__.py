@@ -1,5 +1,5 @@
-"""Model library (ported so far: acrobot, car)."""
+"""Model library (ported so far: acrobot, car, quadrotor)."""
 
-from . import acrobot, car
+from . import acrobot, car, quadrotor
 
-__all__ = ["acrobot", "car"]
+__all__ = ["acrobot", "car", "quadrotor"]

@@ -3,6 +3,8 @@
 A model function runs on every rollout step; casting a float64 host
 constant with ``.to(x)`` there would copy it from the host on every call.
 ``const_like`` makes each cast once and hands back the same tensor after.
+``floats`` turns a problem's scalar or vector argument into the tuple of
+Python floats that a model's ``Parameters`` hold.
 """
 
 from __future__ import annotations
@@ -23,3 +25,9 @@ def const_like(values: tuple, x) -> torch.Tensor:
         )
         _CACHE[key] = c
     return c
+
+
+def floats(v, n: int) -> tuple:
+    """``v`` (a scalar or a length-``n`` sequence) as ``n`` Python floats."""
+    return tuple(float(a) for a in torch.broadcast_to(
+        torch.as_tensor(v, dtype=torch.float64), (n,)))

@@ -18,7 +18,7 @@ import functools
 import torch
 
 from ..core.spec import Constraint, Cost, Dynamics
-from ._const import const_like
+from ._const import const_like, floats
 
 NUM_STATE = 3
 NUM_ACTION = 2
@@ -81,11 +81,6 @@ def terminal_constraint(x, u, *, p: Parameters):
     ])
 
 
-def _floats(v, n):
-    return tuple(float(a) for a in torch.broadcast_to(
-        torch.as_tensor(v, dtype=torch.float64), (n,)))
-
-
 def problem(
     T: int = 51,
     x_goal=(1.0, 1.0, 0.0),
@@ -95,10 +90,10 @@ def problem(
     obstacle_radius=0.1,
 ):
     p = Parameters(
-        x_goal=_floats(x_goal, NUM_STATE),
-        u_lower=_floats(u_lower, NUM_ACTION),
-        u_upper=_floats(u_upper, NUM_ACTION),
-        obstacle_center=_floats(obstacle_center, 2),
+        x_goal=floats(x_goal, NUM_STATE),
+        u_lower=floats(u_lower, NUM_ACTION),
+        u_upper=floats(u_upper, NUM_ACTION),
+        obstacle_center=floats(obstacle_center, 2),
         obstacle_radius_sq=float(obstacle_radius) ** 2,
     )
     xT = torch.tensor(p.x_goal, dtype=torch.float64)

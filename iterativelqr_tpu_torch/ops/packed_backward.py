@@ -1,10 +1,12 @@
-"""Batched backward Riccati recursion (K1) and its plain reference.
+"""Batched backward Riccati recursion (K1, K2) and its plain reference.
 
 Counterpart of ``iterativelqr_tpu/ops/packed_backward.py``: the entry
-``backward_pass_multiref`` runs the recursion of the TPU kernel ``_kernel_mr``
-on the card through the hand-written CUDA kernel
-``csrc/riccati_backward.cu``, and ``backward_pass_multiref_reference`` is the
-same math as a PyTorch loop over t (the ``_riccati_step`` of the JAX module).
+``backward_pass_multiref`` runs the recursion on the card through one of two
+hand-written CUDA kernels, picked by the problem's dims
+(``uses_wide_kernel``): K1, ``csrc/riccati_backward.cu`` (the TPU kernel
+``_kernel_mr``), or K2, ``csrc/riccati_backward_wide.cu`` (the TPU kernel
+``_kernel_mr_stream``).  ``backward_pass_multiref_reference`` is the same
+math as a PyTorch loop over t (the ``_riccati_step`` of the JAX module).
 
 Layout: batch-last and contiguous, ``[Tm1, *dims, B]`` — an exact reshape of
 the JAX package's ``[Tm1, *dims, S, 128]`` SL arrays (lane b = s*128 + l).
@@ -22,9 +24,11 @@ import torch
 from .. import _build
 
 # (n, m) pairs with a compiled kernel, in each of float32 and float64; keep
-# equal to the RICCATI_ENTRY list in csrc/riccati_backward.cu (acrobot,
-# car)
+# equal to the RICCATI_ENTRY list in csrc/riccati_backward.cu (K1: acrobot,
+# car) and the RICCATI_WIDE_ENTRY list in csrc/riccati_backward_wide.cu (K2:
+# quadrotor)
 _INSTANTIATIONS = ((4, 1), (3, 2))
+_WIDE_INSTANTIATIONS = ((12, 4),)
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -40,6 +44,30 @@ class LaunchCounter:
 
 
 RICCATI_LAUNCHES = LaunchCounter()
+RICCATI_WIDE_LAUNCHES = LaunchCounter()
+
+# K1 runs one thread per lane and keeps everything a step needs in that
+# thread's registers, of which a thread has at most 255
+_REGISTERS_PER_THREAD = 255
+
+
+def k1_live_values(n: int, m: int) -> int:
+    """Values K1 keeps live in one lane's thread: P and p, one step's
+    inputs and the prefetched next step's, and the n x n temporaries fx^T P
+    and Qxx."""
+    step = 2 * n * n + 2 * n * m + n + m + m * m
+    return n * n + n + 2 * step + 2 * n * n
+
+
+def uses_wide_kernel(n: int, m: int) -> bool:
+    """The kernel choice, a function of the dims alone: K2 where K1's
+    per-lane values overflow a thread's registers (counted as 32-bit
+    values, the solve's f32; f64 follows the same choice so that its tests
+    hold the kernel f32 runs).  The JAX package's rule is a VMEM budget of
+    the TPU (``_stream_outputs``); the register budget is its counterpart
+    on the card.  Acrobot (4, 1) needs 144 values and car (3, 2) 108: K1;
+    the quadrotor's (12, 4) needs 1,276: K2."""
+    return k1_live_values(n, m) > _REGISTERS_PER_THREAD
 
 
 def prepare_stacks(fx, fu, gx, gu, gxx, guu, gux, u_mask):
@@ -166,16 +194,21 @@ def backward_pass_multiref_reference(stacks, gxxT, gxT, reg):
 
 
 def kernel_symbol(n: int, m: int, dtype: torch.dtype) -> str:
-    """C entry point of the compiled (n, m, dtype) instantiation; raises
-    when there is none."""
-    if (n, m) not in _INSTANTIATIONS or dtype not in _DTYPES:
+    """C entry point of the compiled (n, m, dtype) instantiation of the
+    kernel ``uses_wide_kernel`` picks; raises when there is none."""
+    if uses_wide_kernel(n, m):
+        name, compiled, src = ("riccati_backward_wide", _WIDE_INSTANTIATIONS,
+                               "riccati_backward_wide.cu and _WIDE_INSTANTIATIONS")
+    else:
+        name, compiled, src = ("riccati_backward", _INSTANTIATIONS,
+                               "riccati_backward.cu and _INSTANTIATIONS")
+    if (n, m) not in compiled or dtype not in _DTYPES:
         raise NotImplementedError(
-            f"riccati_backward has no CUDA instantiation for n={n}, m={m}, "
-            f"dtype={dtype}; compiled: (n, m) in {_INSTANTIATIONS} x "
-            f"{sorted(str(d) for d in _DTYPES)} (add one to "
-            "csrc/riccati_backward.cu and _INSTANTIATIONS)"
+            f"{name} has no CUDA instantiation for n={n}, m={m}, "
+            f"dtype={dtype}; compiled: (n, m) in {compiled} x "
+            f"{sorted(str(d) for d in _DTYPES)} (add one to csrc/{src})"
         )
-    return f"riccati_backward_{_DTYPES[dtype]}_n{n}_m{m}"
+    return f"{name}_{_DTYPES[dtype]}_n{n}_m{m}"
 
 
 def _kernel_fn(symbol: str):
@@ -209,9 +242,9 @@ def backward_pass_multiref(stacks, gxxT, gxT, reg):
     p [Tm1,n,B], ok [B]) with ok 1.0 where every Cholesky pivot was finite
     and positive, else 0.0.
 
-    CPU tensors take the plain reference.  CUDA tensors launch the kernel on
-    the current stream, without synchronising; an (n, m, dtype) with no
-    compiled instantiation raises.
+    CPU tensors take the plain reference.  CUDA tensors launch K1 or K2
+    (``uses_wide_kernel``) on the current stream, without synchronising; an
+    (n, m, dtype) with no compiled instantiation raises.
     """
     fx = stacks[0]
     device = fx.device
@@ -252,8 +285,8 @@ def backward_pass_multiref(stacks, gxxT, gxT, reg):
         )
     if err != 0:
         raise RuntimeError(
-            f"riccati_backward launch failed: CUDA error {err} "
-            f"({symbol}, Tm1={Tm1}, B={B})"
+            f"{symbol} launch failed: CUDA error {err} (Tm1={Tm1}, B={B})"
         )
-    RICCATI_LAUNCHES.launches += 1
+    counter = RICCATI_WIDE_LAUNCHES if uses_wide_kernel(n, m) else RICCATI_LAUNCHES
+    counter.launches += 1
     return K_t, k_t, Qx_t, Qu_t, p_t, ok

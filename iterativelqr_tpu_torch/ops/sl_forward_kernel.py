@@ -21,9 +21,9 @@ A CUDA kernel cannot run arbitrary torch user code, so the kernels run the
 stage functions of registered models as device functions
 (``csrc/sl_model_*.cuh``).  ``device_model`` recognises a spec whose every
 stage type is one of a registered model's own function objects, by
-identity (car's are ``functools.partial``s of module functions over one
-problem's ``Parameters``), and returns the model with its parameters;
-anything else has no device model and keeps the loops.
+identity (car's and the quadrotor's are ``functools.partial``s of module
+functions over one problem's ``Parameters``), and returns the model with
+its parameters; anything else has no device model and keeps the loops.
 
 The JAX module's ``reroll_fits`` is a VMEM budget rule of the TPU; a Hopper
 kernel writes its outputs straight to device memory, so the rule has no
@@ -44,7 +44,7 @@ from torch.func import vmap
 
 from .. import _build
 from ..core.spec import ProblemSpec
-from ..models import acrobot, car
+from ..models import acrobot, car, quadrotor
 from .packed_backward import LaunchCounter, _check
 from .packed_pipeline import map2
 
@@ -123,13 +123,18 @@ _REGISTRY = (
     _Entry("car", car.car_discrete, car.stage_cost, car.terminal_cost,
            car.stage_constraint, car.terminal_constraint,
            3, 2, 5, (0, 1, 2, 3, 4), (3,)),
+    # thrust bounds on every stage; the terminal hover is an equality
+    _Entry("quadrotor", quadrotor.quadrotor_discrete, quadrotor.stage_cost,
+           quadrotor.terminal_cost, quadrotor.stage_constraint,
+           quadrotor.terminal_constraint, 12, 4, 12, tuple(range(8)), ()),
 )
 
 DEVICE_MODELS = tuple(sorted({e.name.split("_")[0] for e in _REGISTRY}))
 
 
 def _base(f):
-    """(function, car Parameters or None) of a stage object's callable."""
+    """(function, the model's Parameters or None) of a stage object's
+    callable."""
     if isinstance(f, functools.partial) and set(f.keywords) == {"p"} and not f.args:
         return f.func, f.keywords["p"]
     return f, None
@@ -170,7 +175,7 @@ def device_model(spec: ProblemSpec) -> Optional[DeviceModel]:
             continue
         bound = {p for p in params if p is not None}
         if len(bound) > 1:
-            return None      # stage functions of two different car problems
+            return None      # stage functions of two different problems
         flat = bound.pop().flat() if bound else ()
         return DeviceModel(e.name, tuple(float(v) for v in flat))
     return None

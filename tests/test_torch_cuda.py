@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from iterativelqr_tpu_torch import Cost, build_spec
-from iterativelqr_tpu_torch.models import acrobot, car
+from iterativelqr_tpu_torch.models import acrobot, car, quadrotor
 from iterativelqr_tpu_torch.ops import packed_backward as pk
 from iterativelqr_tpu_torch.ops import sl_forward_kernel as fk
 
@@ -62,6 +62,55 @@ def test_riccati_kernel_matches_plain(dtype, tol):
     assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad))
 
 
+def _wide_stacks(rng, B, Tm1, n, m):
+    """Well-conditioned batch-last stacks with m > 1: symmetric positive
+    definite gxx and guu (numpy, f64)."""
+    T = Tm1 + 1
+
+    def spd(rows, d, scale):
+        A = rng.standard_normal((rows, d, d, B))
+        return (scale * np.einsum("tikb,tjkb->tijb", A, A) / d
+                + 2.0 * np.eye(d)[None, :, :, None])
+
+    fx = 0.1 * rng.standard_normal((Tm1, n, n, B)) + np.eye(n)[None, :, :, None]
+    fu = 0.5 * rng.standard_normal((Tm1, n, m, B))
+    gx = rng.standard_normal((T, n, B))
+    gu = rng.standard_normal((Tm1, m, B))
+    return [fx, fu, gx, gu, spd(T, n, 0.5), spd(Tm1, m, 1.0),
+            0.2 * rng.standard_normal((Tm1, m, n, B))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_riccati_wide_kernel_matches_plain(dtype, tol):
+    """K2 at the quadrotor's shapes (n=12, m=4, T=41, B=4096, a ragged lane
+    edge at B=4000 too), with indefinite Quu on every 61st lane; the
+    wrapper launches K2 and not K1.  Tolerances as K1's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    Tm1, n, m = 40, 12, 4
+    for B in (4096, 4000):
+        st = _wide_stacks(np.random.default_rng(6), B, Tm1, n, m)
+        bad = np.zeros(B, bool)
+        bad[::61] = True
+        st[5][20, 0, 0, bad] = -1.0e3
+        dev = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in st]
+        kin = [a.contiguous() for a in pk.prepare_stacks(
+            *dev, torch.ones((Tm1, m), dtype=torch.bool))]
+        reg = torch.full((B,), 0.1, dtype=dtype, device="cuda")
+        before = (pk.RICCATI_LAUNCHES.launches, pk.RICCATI_WIDE_LAUNCHES.launches)
+        out = pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
+        torch.cuda.synchronize()
+        assert (pk.RICCATI_LAUNCHES.launches, pk.RICCATI_WIDE_LAUNCHES.launches) == (
+            before[0], before[1] + 1)
+        ref = pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg)
+        for a, b in zip(out, ref):
+            scale = float(b[~torch.isnan(b)].abs().max())
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol * max(scale, 1.0),
+                                       equal_nan=True)
+        assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad))
+
+
 @pytest.mark.cuda
 def test_riccati_kernel_rejects_what_it_was_not_built_for():
     if not torch.cuda.is_available():
@@ -74,6 +123,13 @@ def test_riccati_kernel_rejects_what_it_was_not_built_for():
     reg = torch.zeros(B, device="cuda")
     with pytest.raises(NotImplementedError):
         pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
+    # K2's dims without an instantiation
+    st53 = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+            for a in _wide_stacks(np.random.default_rng(1), B, Tm1, 5, 3)]
+    kin53 = [a.contiguous() for a in pk.prepare_stacks(
+        *st53, torch.ones((Tm1, 3), dtype=torch.bool))]
+    with pytest.raises(NotImplementedError, match="riccati_backward_wide"):
+        pk.backward_pass_multiref(kin53[:7], kin53[7], kin53[8], reg)
     st4 = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
            for a in _stacks(np.random.default_rng(1), B, Tm1, 4, 1)]
     kin4 = pk.prepare_stacks(*st4, torch.ones((Tm1, 1), dtype=torch.bool))
@@ -86,10 +142,11 @@ def test_riccati_kernel_rejects_what_it_was_not_built_for():
 def _rollout_case(name, T, B, dtype, seed):
     """Live line-search arrays on the card, from a numpy seed: states
     rolled out from noisy controls, random non-converged gains, duals with
-    lam = 0 on half the lanes (there a car inequality row with c < 0 is
-    inactive) and, for car, lanes that head through the obstacle or push a
-    control past its bound (active rows)."""
-    spec = build_spec(*{"acrobot": acrobot, "car": car}[name].problem(T)[:3])
+    lam = 0 on half the lanes (there an inequality row with c < 0 is
+    inactive) and, for car and the quadrotor, lanes that head through the
+    obstacle or push a control past its bound (active rows)."""
+    mod = {"acrobot": acrobot, "car": car, "quadrotor": quadrotor}[name]
+    spec = build_spec(*mod.problem(T)[:3])
     r = fk.Rollouts(spec, "cuda")
     rng = np.random.default_rng(seed)
     nx, nu, nc, Tm1 = spec.nx, spec.nu, spec.nc, T - 1
@@ -99,8 +156,15 @@ def _rollout_case(name, T, B, dtype, seed):
         ubar[:, 0] += 0.7
         x0[2, ::3] += np.pi / 4
         ubar[:, 0, 1::5] = 6.0
+    if name == "quadrotor":
+        # thrusts near hover, every rotor past a bound on some lanes
+        ubar = quadrotor.HOVER + 0.1 * ubar
+        ubar[:, :, 1::5] = 6.5
+        ubar[:, :, 3::7] = -0.2
     K = 0.1 * rng.standard_normal((Tm1, nu, nx, B))
     k = 0.1 * rng.standard_normal((Tm1, nu, B))
+    if name == "quadrotor":
+        K, k = 0.2 * K, 0.2 * k   # larger random gains tip the attitude over
     duals = np.abs(0.5 * rng.standard_normal((T, nc, B))) * (rng.uniform(size=B) < 0.5)
     penalty = 10.0 * rng.uniform(0.5, 2.0, (T, nc, B))
     t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda").contiguous()
@@ -123,7 +187,7 @@ def _close(a, b, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,T", [("acrobot", 101), ("car", 51)])
+@pytest.mark.parametrize("name,T", [("acrobot", 101), ("car", 51), ("quadrotor", 41)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 def test_rollout_kernels_match_plain(name, T, dtype, tol):
     """K3 (head, tail, and 20 candidates over two block rows) and K4 against

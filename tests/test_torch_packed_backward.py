@@ -113,13 +113,20 @@ def test_prepare_stacks_guu_fixup():
     (3, 2, torch.float32, True),
     (3, 2, torch.float64, True),
     (4, 1, torch.float16, False),
-    (12, 4, torch.float32, False),
+    (12, 4, torch.float32, True),    # K2
+    (12, 4, torch.float64, True),    # K2
+    (5, 3, torch.float32, False),    # K2's dims, not compiled
+    (2, 1, torch.float32, False),    # K1's dims, not compiled
+    (12, 4, torch.float16, False),
 ])
 def test_unsupported_instantiation_raises(n, m, dtype, ok):
     """An (n, m, dtype) without a compiled kernel raises before any launch
-    (the wrapper never falls back to the plain version on a CUDA tensor)."""
+    (the wrapper never falls back to the plain version on a CUDA tensor);
+    a compiled one names the kernel its dims select."""
+    kernel = "riccati_backward_wide" if pk.uses_wide_kernel(n, m) else "riccati_backward"
     if ok:
-        assert pk.kernel_symbol(n, m, dtype).startswith("riccati_backward_")
+        tag = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+        assert pk.kernel_symbol(n, m, dtype) == f"{kernel}_{tag}_n{n}_m{m}"
     else:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match=f"{kernel} has no"):
             pk.kernel_symbol(n, m, dtype)
