@@ -2,9 +2,10 @@
 
 A second package beside the JAX reference, with the same core/ ops/
 parallel/ models/ layout and module names.  It imports torch and never jax.
-The batched AL-iLQR solve runs on CPU tensors through plain PyTorch and on
-CUDA tensors through the hand-written kernels in ``csrc/`` (built with nvcc
-at first use, ``_build.py``).
+The per-instance solver (``make_solve_fn``, with its batched form) and the
+batched AL-iLQR solve run on CPU tensors through plain PyTorch and on CUDA
+tensors through the hand-written kernels in ``csrc/`` (built with nvcc at
+first use, ``_build.py``).
 """
 
 import torch
@@ -17,12 +18,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .core.options import Options  # noqa: E402
-from .core.solve import Solution  # noqa: E402
+from .core.solve import CallbackState, Solution, make_solve_fn  # noqa: E402
 from .core.spec import Constraint, Cost, Dynamics, ProblemSpec, build_spec  # noqa: E402
+from .ops.rollout import rollout  # noqa: E402
 from .parallel.batch import BatchStats, batch_stats, make_batched_solve_fn  # noqa: E402
 
 __all__ = [
     "BatchStats",
+    "CallbackState",
     "Constraint",
     "Cost",
     "Dynamics",
@@ -32,4 +35,6 @@ __all__ = [
     "batch_stats",
     "build_spec",
     "make_batched_solve_fn",
+    "make_solve_fn",
+    "rollout",
 ]

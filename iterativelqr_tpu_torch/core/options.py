@@ -6,10 +6,14 @@ rationale of every knob.  The dataclass is frozen so an ``Options`` can be
 shared between solves without being mutated.
 
 Some selectors name machinery the port does not have yet.  They validate as
-in the reference and are refused where a solve would need them: options the
-SL batched solver cannot run (``record_traces``, ``live_progress``, the
-nested AL loop, ``ddp``) raise in ``parallel/batch.py`` or
-``core/solve_sl.py``.  ``forward_kernel`` keeps the reference's values:
+in the reference and are refused where a solve would need them:
+``backward_pass="associative"`` (and "auto" where it picks the associative
+scan), ``ddp`` and ``live_progress`` raise ``NotImplementedError`` in
+``core/solve.py`` (ROADMAP M11, M12, M13).  Options the SL batched solver
+does not run (``record_traces``, the nested AL loop, a callback) take the
+per-instance solver's vmap route, as in the reference.  ``scan_unroll`` is
+a JAX scan knob that the port's loops ignore.  ``forward_kernel`` keeps the
+reference's values:
 "pallas" runs the CUDA rollout kernels K3/K4 (``ops/sl_forward_kernel.py``),
 "scan" the plain loops, "auto" the kernels on the card where the spec
 qualifies.

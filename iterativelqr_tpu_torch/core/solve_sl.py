@@ -14,7 +14,6 @@ fused AL loop only, no ddp.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Callable, NamedTuple
 
@@ -24,7 +23,7 @@ from ..ops.packed_pipeline import make_derive_backward_sl
 from ..ops.sl_forward_kernel import select_kernels
 from ..ops.sl_ops import SLOps, from_sl, to_sl
 from .options import Options
-from .solve import Solution
+from .solve import Solution, _no_section
 from .spec import ProblemSpec
 
 
@@ -54,10 +53,6 @@ class SLParts(NamedTuple):
     init: Callable    # (xs [B,T,nx], us, ws[, duals, penalty]) -> (_SLCarry, ws_sl)
     body: Callable    # ws_sl -> (_SLCarry -> _SLCarry)
     finish: Callable  # (_SLCarry, ws_sl) -> Solution (batch-leading)
-
-
-def _no_section(name):
-    return contextlib.nullcontext()
 
 
 def make_sl_parts(

@@ -1,0 +1,183 @@
+"""Backward Riccati recursion of the per-instance solver.
+
+Counterpart of ``iterativelqr_tpu/ops/backward.py`` (its citations of the
+reference live there):
+
+* ``riccati_step`` / ``backward_pass_scan`` — the Gauss-Newton step and the
+  reverse recursion as a Python loop over t (the JAX ``lax.scan``), on
+  stacks with any leading lane axes, in the JAX operation order
+  (``ops/linalg_small.py``).  Padded action dims carry an identity Quu block
+  and zero gains.  The full-DDP ``f2`` terms wait for ROADMAP M12.
+* ``backward_pass`` — the adaptive Quu regularization retry, one loop over
+  lanes (``ops/batching.py::while_lanes``): each lane escalates its own
+  ``reg`` until its factorizations are positive definite.
+* the ``backward_pass="auto"`` dispatch (``_make_auto_dispatch``) — the
+  JAX ``custom_vmap`` that takes the associative scan for unbatched and
+  small-batch calls (``_assoc_wins``) and the reverse scan for the rest.
+  The associative scan (``ops/assoc.py``) is not ported: where "auto" would
+  take it, and for ``backward_pass="associative"``, the port raises
+  (ROADMAP M11).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from . import linalg_small
+from .batching import custom_vmap, lane_call, while_lanes
+
+_M11 = ("the associative backward scan (ops/assoc.py) is not ported yet "
+        "(ROADMAP M11)")
+
+
+def riccati_step(P, p, fx_t, fu_t, gx_t, gu_t, gxx_t, guu_t, gux_t, um, reg):
+    """One backward step at t given the value function (P, p) at t+1; ``um``
+    is the float action mask [nu], ``reg`` a scalar or per-lane [...].
+    Returns (P_new, p_new, ok, K, k, Qx, Qu)."""
+    mm, mv = linalg_small.matmul, linalg_small.matvec
+    fxT = fx_t.transpose(-1, -2)
+    fuT = fu_t.transpose(-1, -2)
+    Qx = gx_t + mv(fxT, p)
+    Qu = gu_t + mv(fuT, p)
+    fxTP = mm(fxT, P)
+    fuTP = mm(fuT, P)
+    Qxx = gxx_t + mm(fxTP, fx_t)
+    Quu = guu_t + mm(fuTP, fu_t)
+    Qux = gux_t + mm(fuTP, fx_t)
+
+    # padded action dims: identity diagonal so the factorization is well
+    # posed and the corresponding gain rows vanish
+    mask2 = um[:, None] * um[None, :]
+    Quu_eff = Quu * mask2 + torch.diag(1.0 - um)
+    Quu_reg = Quu_eff + reg[..., None, None] * torch.diag(um)
+
+    L = linalg_small.cholesky(Quu_reg)
+    diag = torch.diagonal(L, dim1=-2, dim2=-1)
+    ok = torch.all(torch.isfinite(diag) & (diag > 0.0), dim=-1)
+
+    # K = -Quu \ Qux ; k = -Quu \ Qu
+    sol = linalg_small.cho_solve(L, torch.cat([Qux, Qu[..., :, None]], dim=-1))
+    K = -sol[..., :, :-1] * um[:, None]
+    k = -sol[..., :, -1] * um
+
+    # value update with the unregularized Quu
+    KT = K.transpose(-1, -2)
+    QuxT = Qux.transpose(-1, -2)
+    QuuK = mm(Quu_eff, K)
+    P_new = Qxx + mm(KT, QuuK) + mm(KT, Qux) + mm(QuxT, K)
+    P_new = 0.5 * (P_new + P_new.transpose(-1, -2))
+    p_new = Qx + mv(QuuK.transpose(-1, -2), k) + mv(KT, Qu) + mv(QuxT, k)
+    return P_new, p_new, ok, K, k, Qx, Qu
+
+
+def backward_pass_scan(fx, fu, gx, gu, gxx, guu, gux, u_mask, reg):
+    """Reverse Riccati recursion on stacks with any leading lane axes.
+
+    Returns (K [..., T-1, nu, nx], k [..., T-1, nu], Qx [..., T-1, nx],
+    Qu [..., T-1, nu], p [..., T-1, nx] — the value gradient at t — and the
+    all-timesteps PD flag [...]).  Terminal P = gxx_T, p = gx_T."""
+    dtype, device = gx.dtype, gx.device
+    um = torch.as_tensor(u_mask, device=device).to(dtype)
+    reg = torch.as_tensor(reg, dtype=dtype, device=device)
+    P, p = gxx[..., -1, :, :], gx[..., -1, :]
+    ok = torch.ones((), dtype=torch.bool, device=device)
+    outs = []
+    for t in range(fx.shape[-3] - 1, -1, -1):
+        P, p, ok_t, K, k, Qx, Qu = riccati_step(
+            P, p, fx[..., t, :, :], fu[..., t, :, :], gx[..., t, :],
+            gu[..., t, :], gxx[..., t, :, :], guu[..., t, :, :],
+            gux[..., t, :, :], um[t], reg,
+        )
+        ok = ok & ok_t
+        outs.append((K, k, Qx, Qu, p))
+    outs.reverse()
+    K, k, Qx, Qu, p = (torch.stack(a, dim=-3 if i == 0 else -2)
+                       for i, a in enumerate(zip(*outs)))
+    return K, k, Qx, Qu, p, ok
+
+
+def _assoc_wins(B: int, T: int) -> bool:
+    """The JAX package's (B, T) regime rule, measured on a TPU v5e: the
+    associative scan for B <= max(1, T // 7)."""
+    return B <= max(1, T // 7)
+
+
+@functools.lru_cache(maxsize=None)
+def _make_auto_dispatch():
+    """The ``backward_pass="auto"`` dispatch: associative scan unbatched and
+    where ``_assoc_wins`` (not ported: raises, M11), reverse scan for
+    batches that fill the card."""
+
+    @custom_vmap
+    def dispatch(fx, fu, gx, gu, gxx, guu, gux, u_mask, reg):
+        raise NotImplementedError(
+            f'backward_pass="auto" takes the associative scan for a '
+            f"single-instance solve; {_M11}; use backward_pass=\"scan\"")
+
+    @dispatch.def_vmap
+    def _rule(axis_size, in_batched, fx, fu, gx, gu, gxx, guu, gux, u_mask, reg):
+        T = (fx.shape[1] if in_batched[0] else fx.shape[0]) + 1
+        if _assoc_wins(axis_size, T):
+            raise NotImplementedError(
+                f'backward_pass="auto" takes the associative scan at '
+                f"B={axis_size} <= max(1, T // 7) with T={T}; {_M11}; use "
+                f'backward_pass="scan"')
+        um = u_mask[0] if in_batched[7] else u_mask
+        return backward_pass_scan(fx, fu, gx, gu, gxx, guu, gux, um, reg)
+
+    return dispatch
+
+
+def backward_pass(fx, fu, gx, gu, gxx, guu, gux, u_mask, reg_carry, options,
+                  impl=None, batched=True):
+    """Backward pass with adaptive Quu regularization, per lane.
+
+    Stacks carry the leading lane axis, ``u_mask`` [T-1, nu] is shared and
+    ``reg_carry`` is [B].  The first attempt uses the carried ``reg``; a lane
+    whose factorization fails escalates its ``reg`` geometrically and re-runs,
+    and on success the carried value decays.  ``impl``: a recursion with the
+    ``backward_pass_scan`` signature (per instance), called as the JAX
+    program calls it (``ops/batching.py::lane_call``; ``batched`` False is
+    the per-instance form of the solver).
+
+    Returns (K, k, Qx, Qu, p, ok, reg_next_carry)."""
+    if options.backward_pass == "associative" and impl is None:
+        raise NotImplementedError(f'backward_pass="associative": {_M11}')
+    if impl is None and options.backward_pass == "auto":
+        impl = _make_auto_dispatch()
+    stacks = (fx, fu, gx, gu, gxx, guu, gux)
+
+    def run(reg):
+        if impl is None:
+            return backward_pass_scan(*stacks, u_mask, reg)
+        return lane_call(impl, stacks + (u_mask, reg),
+                         (True,) * 7 + (False, True), batched)
+
+    def cond(s):
+        i, _, _, ok, _ = s
+        return (~ok) & (i <= options.max_regularization_steps)
+
+    def body(s):
+        i, reg, _, _, _ = s
+        K, k, Qx, Qu, p, ok = run(reg)
+        reg_next = torch.clamp(reg * options.regularization_scale,
+                               options.regularization_min,
+                               options.regularization_max)
+        return (i + 1, reg_next, reg, ok, (K, k, Qx, Qu, p))
+
+    # the first attempt runs on every lane (its test cannot fail), so it
+    # needs no host sync
+    i0 = torch.zeros(reg_carry.shape, dtype=torch.int32, device=reg_carry.device)
+    state = body((i0, reg_carry, reg_carry, None, None))
+    _, _, reg_used, ok, (K, k, Qx, Qu, p) = while_lanes(
+        cond, body, state, "regularization")
+
+    # decay for the next iteration's first attempt
+    reg_next_carry = torch.where(
+        reg_used <= options.regularization_min,
+        torch.zeros_like(reg_used),
+        reg_used / options.regularization_scale,
+    )
+    return K, k, Qx, Qu, p, ok, reg_next_carry

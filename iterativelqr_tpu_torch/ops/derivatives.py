@@ -1,31 +1,52 @@
-"""Horizon-stacked evaluation of stage functions.
+"""Horizon-stacked evaluation and differentiation of stage functions.
 
-Counterpart of ``iterativelqr_tpu/ops/derivatives.py``; only
-``constraint_values`` is ported so far (the batched solver derives its stacks
-in ``ops/packed_pipeline.py``).  Each stage type is evaluated over its
-statically known timesteps with ``torch.func.vmap`` and the rows are put
-back in time order.
+Counterpart of ``iterativelqr_tpu/ops/derivatives.py``.  Each stage type is
+evaluated over its statically known timesteps and the rows are put back in
+time order.  Arguments are ``[..., T, dim]`` tensors: one instance, or a
+batch with leading lane axes (the per-instance solver's batched form); the
+timesteps of a group and the lanes are one flattened ``torch.func.vmap``
+(``ops/batching.py::lane_eval``).  The dynamics second derivatives
+(``dynamics_hessians``, DDP) wait for ROADMAP M12; ``stage_derivatives``
+(a fused pass only a JAX test calls) is not ported.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
-from torch.func import vmap
 
 from ..core.spec import ProblemSpec
+from .batching import lane_eval
 
 
-def _merge_groups(results, groups):
+@functools.lru_cache(maxsize=None)
+def _constant(data: bytes, np_dtype: str, shape: tuple, device: torch.device,
+              dtype):
+    a = np.frombuffer(data, dtype=np_dtype).reshape(shape)
+    return torch.as_tensor(a.copy(), device=device, dtype=dtype)
+
+
+def device_constant(a, device, dtype=None):
+    """A static numpy array (mask, index) as a tensor on ``device``, made
+    once per (array, device, dtype): a host-to-device copy of pageable
+    memory waits for the stream, so the solver's loops must not make one."""
+    a = np.ascontiguousarray(a)
+    return _constant(a.tobytes(), a.dtype.str, a.shape, torch.device(device),
+                     dtype)
+
+
+def _merge_groups(results, groups, dim=0):
     """Rows of per-group results (each a tensor or a tuple of tensors with
-    the group's timesteps on axis 0) back in time order.  ``groups``
+    the group's timesteps on axis ``dim``) back in time order.  ``groups``
     partition the rows.  A concatenation and one gather, so the merge also
     works under an outer ``vmap`` (an in-place scatter would not)."""
-    inv = torch.as_tensor(np.argsort(np.concatenate(groups)))
+    inv = np.argsort(np.concatenate(groups))
 
     def merge(parts):
-        cat = torch.cat(parts, dim=0)
-        return cat[inv.to(cat.device)]
+        cat = torch.cat(parts, dim=dim)
+        return cat.index_select(dim, device_constant(inv, cat.device))
 
     if isinstance(results[0], tuple):
         return tuple(merge(parts) for parts in zip(*results))
@@ -33,26 +54,71 @@ def _merge_groups(results, groups):
 
 
 def _grouped(fns, groups, args):
-    """vmap each fns[g] over its timestep group, rows back in time order."""
+    """fns[g] over its timestep group (axis -2 of every argument), rows back
+    in time order; leading lane axes are kept."""
     if len(fns) == 1:
-        return vmap(fns[0])(*args)
+        return lane_eval(fns[0], *args)
     results = []
     for fn, idx in zip(fns, groups):
-        idx_t = torch.as_tensor(idx, device=args[0].device)
-        results.append(vmap(fn)(*(a[idx_t] for a in args)))
-    return _merge_groups(results, groups)
+        idx_t = device_constant(idx, args[0].device)
+        results.append(lane_eval(fn, *(a.index_select(-2, idx_t) for a in args)))
+    return _merge_groups(results, groups, dim=args[0].ndim - 2)
 
 
 def _us_full(spec: ProblemSpec, us):
     """Actions padded with a terminal zero row: terminal stage functions see
     u = 0 (their true action dim is 0)."""
-    return torch.cat([us, us.new_zeros((1, spec.nu))], dim=0)
+    return torch.cat([us, us.new_zeros(us.shape[:-2] + (1, spec.nu))], dim=-2)
+
+
+def stage_costs(spec: ProblemSpec, xs, us, ws):
+    """Per-timestep cost values [..., T]."""
+    return _grouped(spec.cost_eval, spec.cost_groups, (xs, _us_full(spec, us), ws))
+
+
+def total_cost(spec: ProblemSpec, xs, us, ws):
+    return torch.sum(stage_costs(spec, xs, us, ws), dim=-1)
+
+
+def cost_gradients(spec: ProblemSpec, xs, us, ws):
+    """gx [..., T, nx], gu [..., T-1, nu]."""
+    gx, gu = _grouped(spec.cost_grad, spec.cost_groups,
+                      (xs, _us_full(spec, us), ws))
+    return gx, gu[..., :-1, :]
+
+
+def cost_hessians(spec: ProblemSpec, xs, us, ws):
+    """gxx [..., T, nx, nx], guu [..., T-1, nu, nu], gux [..., T-1, nu, nx]."""
+    gxx, guu, gux = _grouped(spec.cost_hess, spec.cost_groups,
+                             (xs, _us_full(spec, us), ws))
+    return gxx, guu[..., :-1, :, :], gux[..., :-1, :, :]
+
+
+def dynamics_values(spec: ProblemSpec, xs, us, ws):
+    """f_t(x_t, u_t, w_t) for all t, [..., T-1, nx]."""
+    return _grouped(spec.dyn_eval, spec.dyn_groups,
+                    (xs[..., :-1, :], us, ws[..., :-1, :]))
+
+
+def dynamics_jacobians(spec: ProblemSpec, xs, us, ws):
+    """fx [..., T-1, nx, nx], fu [..., T-1, nx, nu]."""
+    return _grouped(spec.dyn_jac, spec.dyn_groups,
+                    (xs[..., :-1, :], us, ws[..., :-1, :]))
 
 
 def constraint_values(spec: ProblemSpec, xs, us, ws):
-    """c [T,nc] for one instance (xs [T,nx], us [T-1,nu], ws [T,npar]);
-    padded rows are exactly zero (reference: src/constraints.jl:66-73)."""
+    """c [..., T, nc]; padded rows are exactly zero."""
     if spec.nc == 0:
-        return xs.new_zeros((spec.T, 0))
-    uf = _us_full(spec, us)
-    return _grouped(spec.con_eval, spec.con_groups, (xs, uf, ws))
+        return xs.new_zeros(xs.shape[:-1] + (0,))
+    return _grouped(spec.con_eval, spec.con_groups, (xs, _us_full(spec, us), ws))
+
+
+def constraint_jacobians(spec: ProblemSpec, xs, us, ws):
+    """cx [..., T, nc, nx], cu [..., T-1, nc, nu]; the terminal constraint
+    has no action Jacobian."""
+    lead = xs.shape[:-2]
+    if spec.nc == 0:
+        return (xs.new_zeros(lead + (spec.T, 0, spec.nx)),
+                xs.new_zeros(lead + (spec.T - 1, 0, spec.nu)))
+    cx, cu = _grouped(spec.con_jac, spec.con_groups, (xs, _us_full(spec, us), ws))
+    return cx, cu[..., :-1, :, :]

@@ -1,18 +1,26 @@
-"""Batched backward Riccati recursion (K1, K2) and its plain reference.
+"""Batched backward Riccati recursion (K1, K2, K5) and its plain reference.
 
 Counterpart of ``iterativelqr_tpu/ops/packed_backward.py``: the entry
 ``backward_pass_multiref`` runs the recursion on the card through one of two
 hand-written CUDA kernels, picked by the problem's dims
 (``uses_wide_kernel``): K1, ``csrc/riccati_backward.cu`` (the TPU kernel
 ``_kernel_mr``), or K2, ``csrc/riccati_backward_wide.cu`` (the TPU kernel
-``_kernel_mr_stream``).  ``backward_pass_multiref_reference`` is the same
-math as a PyTorch loop over t (the ``_riccati_step`` of the JAX module).
+``_kernel_mr_stream``).  ``backward_pass_packed`` runs K5 (the TPU kernel
+``_kernel``, v3), an instantiation of K1's recursion that reads one packed
+per-step buffer built by ``pack_stacks``/``pack_stacks_bt``;
+``backward_pass_batched_pallas_v3`` is its batch-leading drop-in.
+``backward_pass_multiref_reference`` is the same math as a PyTorch loop over
+t (the ``_riccati_step`` of the JAX module), and serves every one of these
+kernels and the masked K6a/K6b (``ops/pallas_backward.py``).
 
 Layout: batch-last and contiguous, ``[Tm1, *dims, B]`` — an exact reshape of
 the JAX package's ``[Tm1, *dims, S, 128]`` SL arrays (lane b = s*128 + l).
-The TPU kernel's horizon padding to a multiple of its DMA chunk is not
-needed here; the only stack fixup kept is the unit diagonal on ``guu``'s
-invalid action dims (``prepare_stacks``, counterpart of ``pad_stacks_sl``).
+The packed buffer is ``[Tm1, F, B]``, the JAX ``[Tp, F, S, 128]`` without
+the TPU tile padding of the batch.  The TPU kernels' horizon padding to a
+multiple of their DMA chunk (pass-through steps that leave P and p
+unchanged) is not needed here; the only stack fixup kept is the unit
+diagonal on ``guu``'s invalid action dims (``prepare_stacks``, counterpart
+of ``pad_stacks_sl``, and ``pack_stacks``).
 """
 
 from __future__ import annotations
@@ -24,9 +32,9 @@ import torch
 from .. import _build
 
 # (n, m) pairs with a compiled kernel, in each of float32 and float64; keep
-# equal to the RICCATI_ENTRY list in csrc/riccati_backward.cu (K1: acrobot,
-# car) and the RICCATI_WIDE_ENTRY list in csrc/riccati_backward_wide.cu (K2:
-# quadrotor)
+# equal to the RICCATI_FAMILY list in csrc/riccati_backward.cu (K1, K5, K6a,
+# K6b: acrobot, car) and the RICCATI_WIDE_ENTRY list in
+# csrc/riccati_backward_wide.cu (K2: quadrotor)
 _INSTANTIATIONS = ((4, 1), (3, 2))
 _WIDE_INSTANTIATIONS = ((12, 4),)
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
@@ -45,6 +53,7 @@ class LaunchCounter:
 
 RICCATI_LAUNCHES = LaunchCounter()
 RICCATI_WIDE_LAUNCHES = LaunchCounter()
+RICCATI_PACKED_LAUNCHES = LaunchCounter()
 
 # K1 runs one thread per lane and keeps everything a step needs in that
 # thread's registers, of which a thread has at most 255
@@ -132,9 +141,15 @@ def _chol_solve(L, cols, m):
     return outs
 
 
-def _riccati_step(n, m, reg, P, p, ok, fx, fu, gx, gu, gxx, guu, gux):
+def _riccati_step(n, m, reg, P, p, ok, fx, fu, gx, gu, gxx, guu, gux,
+                  um=None, v2=False):
     """One backward Riccati step on (.., B) operands; returns
-    (K, kff, Qx, Qu, P_new, p_new, ok)."""
+    (K, kff, Qx, Qu, P_new, p_new, ok).
+
+    ``um`` (float [m], the step's action mask shared by all lanes) applies
+    the mask inside the step, as the TPU kernels K6a (``v2`` False) and K6b
+    (``v2`` True, its own operation order for Quu_eff) do; None is the
+    mask-free step of K1, K2 and K5."""
     fxT = _t(fx)
     fuT = _t(fu)
     Qx = gx + _mv(fxT, p)
@@ -146,7 +161,16 @@ def _riccati_step(n, m, reg, P, p, ok, fx, fu, gx, gu, gxx, guu, gux):
     Qux = gux + _mm(fuTP, fx)
 
     eye = torch.eye(m, dtype=Quu.dtype, device=Quu.device)[..., None]
-    Lf = _chol(Quu + eye * reg, m)
+    if um is None:
+        Quu_eff, Quu_reg = Quu, Quu + eye * reg
+    else:
+        mask2 = (um[:, None] * um[None, :])[..., None]
+        Quu_eff = Quu * mask2 + eye * (1.0 - um)[None, :, None]
+        reg_um = eye * (reg[None, None, :] * um[None, :, None])
+        Quu_reg = Quu_eff + reg_um
+        if v2:
+            Quu_eff = Quu_reg - reg_um
+    Lf = _chol(Quu_reg, m)
     for a in range(m):
         d = Lf[a][a]
         ok = ok & torch.isfinite(d) & (d > 0.0)
@@ -155,19 +179,24 @@ def _riccati_step(n, m, reg, P, p, ok, fx, fu, gx, gu, gxx, guu, gux):
     sols = _chol_solve(Lf, cols, m)
     K = -torch.stack(sols[:n], dim=1)
     kff = -sols[n]
+    if um is not None:
+        K = K * um[:, None, None]
+        kff = kff * um[:, None]
 
     KT = _t(K)
     QuxT = _t(Qux)
-    QuuK = _mm(Quu, K)
+    QuuK = _mm(Quu_eff, K)
     P_new = Qxx + _mm(KT, QuuK) + _mm(KT, Qux) + _mm(QuxT, K)
     P_new = 0.5 * (P_new + _t(P_new))
     p_new = Qx + _mv(_t(QuuK), kff) + _mv(KT, Qu) + _mv(QuxT, kff)
     return K, kff, Qx, Qu, P_new, p_new, ok
 
 
-def backward_pass_multiref_reference(stacks, gxxT, gxT, reg):
-    """Plain version of the kernel: same inputs and outputs as
-    ``backward_pass_multiref``."""
+def backward_pass_multiref_reference(stacks, gxxT, gxT, reg, um=None,
+                                     v2=False):
+    """Plain version of the kernels: same inputs and outputs as
+    ``backward_pass_multiref``.  ``um`` [Tm1, m] (float) and ``v2`` select
+    the masked step of K6a/K6b (``_riccati_step``)."""
     fx, fu, gx, gu, gxx, guu, gux = stacks
     Tm1, n = fx.shape[0], fx.shape[1]
     m = fu.shape[2]
@@ -183,6 +212,7 @@ def backward_pass_multiref_reference(stacks, gxxT, gxT, reg):
         K, kff, Qx, Qu, P, p, ok = _riccati_step(
             n, m, reg, P, p, ok,
             fx[t], fu[t], gx[t], gu[t], gxx[t], guu[t], gux[t],
+            um=None if um is None else um[t], v2=v2,
         )
         K_t[t], k_t[t], Qx_t[t], Qu_t[t], p_t[t] = K, kff, Qx, Qu, p
     return K_t, k_t, Qx_t, Qu_t, p_t, ok.to(fx.dtype)
@@ -202,6 +232,10 @@ def kernel_symbol(n: int, m: int, dtype: torch.dtype) -> str:
     else:
         name, compiled, src = ("riccati_backward", _INSTANTIATIONS,
                                "riccati_backward.cu and _INSTANTIATIONS")
+    return _symbol(name, compiled, src, n, m, dtype)
+
+
+def _symbol(name, compiled, src, n, m, dtype):
     if (n, m) not in compiled or dtype not in _DTYPES:
         raise NotImplementedError(
             f"{name} has no CUDA instantiation for n={n}, m={m}, "
@@ -211,14 +245,54 @@ def kernel_symbol(n: int, m: int, dtype: torch.dtype) -> str:
     return f"{name}_{_DTYPES[dtype]}_n{n}_m{m}"
 
 
-def _kernel_fn(symbol: str):
+def k1_family_symbol(name: str, n: int, m: int, dtype: torch.dtype) -> str:
+    """C entry point of K5 (``riccati_packed``), K6a (``riccati_masked``) or
+    K6b (``riccati_masked_packed``): instantiations of K1's recursion, so
+    they exist for K1's dims only; the wide dims K2 takes have no packed or
+    masked counterpart yet and raise."""
+    if uses_wide_kernel(n, m):
+        raise NotImplementedError(
+            f"{name} is an instantiation of K1's one-thread-a-lane recursion; "
+            f"n={n}, m={m} overflow its registers (uses_wide_kernel) and have "
+            f"no packed or masked counterpart of K2 yet (ROADMAP Queue 2)"
+        )
+    return _symbol(name, _INSTANTIATIONS,
+                   "riccati_backward.cu (RICCATI_FAMILY) and _INSTANTIATIONS",
+                   n, m, dtype)
+
+
+def _kernel_fn(symbol: str, n_pointers: int):
     fn = getattr(_build.load_library(), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 16 + [
+        fn.argtypes = [ctypes.c_void_p] * n_pointers + [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
+
+
+def new_outputs(Tm1, n, m, B, dtype, device):
+    """Empty batch-last (K, k, Qx, Qu, p, ok) for a kernel to write."""
+    shapes = ((Tm1, m, n, B), (Tm1, m, B), (Tm1, n, B), (Tm1, m, B),
+              (Tm1, n, B), (B,))
+    return tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
+
+
+def launch(symbol, counter, args, outs, Tm1, B):
+    """Launch the C entry ``symbol`` on the current stream with the data
+    pointers of ``args`` then ``outs``; raise on a CUDA error, else count
+    the launch on ``counter``.  Returns ``outs``."""
+    device = outs[0].device
+    fn = _kernel_fn(symbol, len(args) + len(outs))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(a.data_ptr() for a in (*args, *outs)), Tm1, B, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{symbol} launch failed: CUDA error {err} (Tm1={Tm1}, B={B})"
+        )
+    counter.launches += 1
+    return outs
 
 
 def _check(name, a, shape, dtype, device):
@@ -267,26 +341,128 @@ def backward_pass_multiref(stacks, gxxT, gxT, reg):
     _check("gxxT", gxxT, (n, n, B), dtype, device)
     _check("gxT", gxT, (n, B), dtype, device)
     _check("reg", reg, (B,), dtype, device)
-
-    K_t = torch.empty((Tm1, m, n, B), dtype=dtype, device=device)
-    k_t = torch.empty((Tm1, m, B), dtype=dtype, device=device)
-    Qx_t = torch.empty((Tm1, n, B), dtype=dtype, device=device)
-    Qu_t = torch.empty((Tm1, m, B), dtype=dtype, device=device)
-    p_t = torch.empty((Tm1, n, B), dtype=dtype, device=device)
-    ok = torch.empty((B,), dtype=dtype, device=device)
-    fn = _kernel_fn(symbol)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
-            *(a.data_ptr() for a in stacks),
-            gxxT.data_ptr(), gxT.data_ptr(), reg.data_ptr(),
-            K_t.data_ptr(), k_t.data_ptr(), Qx_t.data_ptr(), Qu_t.data_ptr(),
-            p_t.data_ptr(), ok.data_ptr(), Tm1, B, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"{symbol} launch failed: CUDA error {err} (Tm1={Tm1}, B={B})"
-        )
     counter = RICCATI_WIDE_LAUNCHES if uses_wide_kernel(n, m) else RICCATI_LAUNCHES
-    counter.launches += 1
-    return K_t, k_t, Qx_t, Qu_t, p_t, ok
+    return launch(symbol, counter, (*stacks, gxxT, gxT, reg),
+                  new_outputs(Tm1, n, m, B, dtype, device), Tm1, B)
+
+
+# ---------------------------------------------------------------------------
+# K5: the recursion on one packed per-step buffer
+# ---------------------------------------------------------------------------
+
+
+def _offsets(n, m):
+    o_fx = 0
+    o_fu = o_fx + n * n
+    o_gx = o_fu + n * m
+    o_gu = o_gx + n
+    o_gxx = o_gu + m
+    o_guu = o_gxx + n * n
+    o_gux = o_guu + m * m
+    F = o_gux + m * n
+    return o_fx, o_fu, o_gx, o_gu, o_gxx, o_guu, o_gux, F
+
+
+def pack_stacks_bt(fx, fu, gx, gu, gxx, guu, gux, u_mask):
+    """Batch-last stacks (fx [Tm1,n,n,B], gx [T,n,B], ...) -> (packed
+    [Tm1,F,B], gxxT [n,n,B], gxT [n,B], meta), with a unit diagonal added
+    to ``guu`` on invalid action dims (their derivative rows and columns are
+    exact zeros by construction), so the kernel is mask-free.  ``meta`` has
+    the JAX keys: ``Bp`` = B and ``Tp`` = Tm1 (no padding), ``S_all`` None
+    (the batch is one axis)."""
+    Tm1, n, _, B = fx.shape
+    m = fu.shape[2]
+    kin = prepare_stacks(fx, fu, gx, gu, gxx, guu, gux, u_mask)
+    meta = dict(B=B, Bp=B, Tm1=Tm1, Tp=Tm1, n=n, m=m, S_all=None)
+    return pack_slots(kin[:7]), kin[7].contiguous(), kin[8].contiguous(), meta
+
+
+def pack_slots(stacks):
+    """Seven batch-last per-step stacks (fx, fu, gx, gu, gxx, guu, gux, each
+    [Tm1, *dims, B]) -> one contiguous [Tm1, F, B] buffer, slots in that
+    order (``_offsets``)."""
+    Tm1, B = stacks[0].shape[0], stacks[0].shape[-1]
+    return torch.cat([a.reshape(Tm1, -1, B) for a in stacks], dim=1)
+
+
+def pack_stacks(fx, fu, gx, gu, gxx, guu, gux, u_mask):
+    """Batch-leading stacks (fx [B,Tm1,n,n], gx [B,T,n], ...) -> packed, as
+    ``pack_stacks_bt``."""
+    return pack_stacks_bt(*(a.movedim(0, -1) for a in
+                            (fx, fu, gx, gu, gxx, guu, gux)), u_mask)
+
+
+def unpack_views(packed, n, m):
+    """The seven per-step stacks [Tm1, *dims, B] of a packed buffer, as
+    views."""
+    Tm1, B = packed.shape[0], packed.shape[-1]
+    o = _offsets(n, m)
+    dims = ((n, n), (n, m), (n,), (m,), (n, n), (m, m), (m, n))
+    return tuple(packed[:, o[i]:o[i + 1]].reshape(Tm1, *d, B)
+                 for i, d in enumerate(dims))
+
+
+def backward_pass_packed_reference(packed, gxxT, gxT, reg, meta):
+    """Plain version of K5: same inputs and outputs as
+    ``backward_pass_packed``."""
+    return backward_pass_multiref_reference(
+        unpack_views(packed, meta["n"], meta["m"]), gxxT, gxT, reg)
+
+
+def backward_pass_packed(packed, gxxT, gxT, reg, meta):
+    """Run the recursion on a packed buffer (K5).
+
+    ``packed`` [Tm1, F, B], ``gxxT`` [n,n,B], ``gxT`` [n,B] from
+    ``pack_stacks``/``pack_stacks_bt``; ``reg`` [B].  Returns batch-last
+    (K [Tm1,m,n,B], k [Tm1,m,B], Qx [Tm1,n,B], Qu [Tm1,m,B], p [Tm1,n,B],
+    ok [B]) with ok 1.0 where every Cholesky pivot was finite and positive.
+    Regularization rides the whole diagonal (invalid dims carry the packing's
+    unit diagonal, and their Qux/Qu rows are zero, so their gains stay 0).
+
+    CPU tensors take the plain reference; CUDA tensors launch K5 on the
+    current stream, without synchronising.  The TPU kernel's lane blocks
+    need the batch padded to a multiple of its block; K5 masks its ragged
+    lane edge, so no padding is made.
+    """
+    n, m = meta["n"], meta["m"]
+    device = packed.device
+    if device.type == "cpu":
+        return backward_pass_packed_reference(packed, gxxT, gxT, reg, meta)
+    if device.type != "cuda":
+        raise ValueError(f"backward_pass_packed: unsupported device {device}")
+    Tm1, B, dtype = packed.shape[0], packed.shape[-1], packed.dtype
+    symbol = k1_family_symbol("riccati_packed", n, m, dtype)
+    _check("packed", packed, (Tm1, _offsets(n, m)[-1], B), dtype, device)
+    _check("gxxT", gxxT, (n, n, B), dtype, device)
+    _check("gxT", gxT, (n, B), dtype, device)
+    _check("reg", reg, (B,), dtype, device)
+    return launch(symbol, RICCATI_PACKED_LAUNCHES, (packed, gxxT, gxT, reg),
+                  new_outputs(Tm1, n, m, B, dtype, device), Tm1, B)
+
+
+def unflatten_bt(a, meta):
+    """Kernel output -> batch-last [Tm1, *dims, B]: the outputs already are
+    (the JAX function drops the tile padding of the batch)."""
+    return a
+
+
+def ok_vector(outs, meta):
+    """[B]-bool PD-success vector from kernel outputs."""
+    return outs[5] > 0.5
+
+
+def unpack_outputs(outs, meta):
+    """Batch-last kernel outputs -> batch-leading (K [B,Tm1,m,n], k, Qx, Qu,
+    p, ok [B] bool)."""
+    return tuple(a.movedim(-1, 0) for a in outs[:5]) + (ok_vector(outs, meta),)
+
+
+def backward_pass_batched_pallas_v3(fx, fu, gx, gu, gxx, guu, gux, u_mask,
+                                    reg):
+    """Drop-in batched entry (the contract of ``backward_pass_scan`` under
+    vmap): packs batch-leading stacks, runs K5, unpacks."""
+    packed, gxxT, gxT, meta = pack_stacks(fx, fu, gx, gu, gxx, guu, gux,
+                                          u_mask)
+    outs = backward_pass_packed(packed, gxxT, gxT,
+                                reg.to(packed.dtype).contiguous(), meta)
+    return unpack_outputs(outs, meta)

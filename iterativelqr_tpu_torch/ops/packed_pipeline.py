@@ -1,7 +1,9 @@
 """Derive -> AL augmentation -> backward -> Armijo slope, batch-last.
 
-Counterpart of ``iterativelqr_tpu/ops/packed_pipeline.py`` (its
-``_build(...).batched_sl`` path, ``make_derive_backward_sl``).  The
+Counterpart of ``iterativelqr_tpu/ops/packed_pipeline.py``: its
+``_build(...).batched_sl`` path (``make_derive_backward_sl``, the SL
+solver's step) and the ``custom_vmap`` dispatch of ``backward_pass="packed"``
+on the per-instance solver's vmap route (``make_derive_backward``).  The
 derivative stacks are born in the backward kernel's batch-last layout
 ``[T, *dims, B]`` by vmapping the per-timestep derivative functions over t
 and over the trailing batch axis, so no stack is ever re-laid-out before the
@@ -10,12 +12,15 @@ kernel (``ops/packed_backward.py``).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch.func import vmap
 
 from ..core.spec import ProblemSpec
 from . import packed_backward as pk
+from .batching import custom_vmap
 from .derivatives import _merge_groups
 
 
@@ -191,3 +196,40 @@ def make_derive_backward_sl(spec: ProblemSpec, options, device):
         return K_t, k_t, slope, grad_norm, reg_next_carry
 
     return derive
+
+
+def make_derive_backward(spec: ProblemSpec, options, single, *, device):
+    """The ``custom_vmap`` derive+backward+slope of ``backward_pass="packed"``
+    on the per-instance solver's vmap route (``core/solve.py``).
+
+    Per-instance signature (``single``, the solver's scan path, which is
+    what the JAX dispatch's unbatched call computes):
+        (xs [T,nx], us [T-1,nu], ws [T,npar], duals [T,nc], penalty [T,nc],
+         c [T,nc], reg scalar)
+          -> (K [T-1,nu,nx], k [T-1,nu], slope, grad_norm, reg_next)
+
+    The batched rule converts the batch-leading arguments to the batch-last
+    layout and runs ``make_derive_backward_sl``: K1/K2 on the card, their
+    plain version on the CPU.  (The JAX rule falls back to vmapping the
+    per-instance path off the TPU; the card takes the TPU's place here, as
+    ``ops/sl_forward_kernel.py::select_kernels`` treats it.)
+    """
+    @functools.lru_cache(maxsize=None)
+    def built():
+        return make_derive_backward_sl(spec, options, device)
+
+    dispatch = custom_vmap(single)
+
+    @dispatch.def_vmap
+    def _rule(axis_size, in_batched, xs, us, ws, duals, penalty, c, reg):
+        if not all(in_batched[:2]):
+            raise NotImplementedError("xs/us must be batched on axis 0")
+        args = [a if b else a[None].expand((axis_size,) + tuple(a.shape))
+                for a, b in zip((xs, us, ws, duals, penalty, c, reg), in_batched)]
+        last = [a.movedim(0, -1).contiguous() for a in args[:6]]
+        K_t, k_t, slope, grad_norm, reg_next = built()(
+            *last, args[6].to(xs.dtype).contiguous())
+        return (K_t.movedim(-1, 0), k_t.movedim(-1, 0), slope, grad_norm,
+                reg_next)
+
+    return dispatch

@@ -1,9 +1,11 @@
 """Batch parallelism: solve B independent problem instances at once.
 
-Counterpart of ``iterativelqr_tpu/parallel/batch.py``.  Only the SL route
-(``core/solve_sl.py``) is ported; the JAX package's other route vmaps the
-per-instance solver, which is not ported yet (ROADMAP M10), so options that
-would take it raise instead of falling back.
+Counterpart of ``iterativelqr_tpu/parallel/batch.py``, with both of its
+routes: the SL solver (``core/solve_sl.py``, the whole loop batch-last) for
+options it supports, and the batched form of the per-instance solver
+(``core/solve.py::make_solve_fn(...).vmap``, the counterpart of
+``jax.vmap``) for the rest: a literal ``Options()`` (record_traces=True),
+``batched_solver="vmap"``, the nested AL loop, or a callback.
 """
 
 from __future__ import annotations
@@ -13,8 +15,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..core.options import Options
-from ..core.solve import Solution
+from ..core.solve import Solution, make_solve_fn
 from ..core.spec import ProblemSpec
+from ..ops.batching import broadcast_lanes
 
 
 def _sl_eligible(options: Options, callback) -> bool:
@@ -50,45 +53,36 @@ def make_batched_solve_fn(
     ``(duals0 [B,T,nc], penalty0 [B,T,nc])``.  Inputs must be on ``device``
     in ``dtype``.  The solve runs on the card unless the caller passes
     ``device="cpu"``; CPU tensors run every kernel's plain version, CUDA
-    tensors the kernels.
+    tensors the kernels.  The route is picked as the JAX package picks it
+    (``options.batched_solver``; "auto" takes the SL solver where
+    ``_sl_eligible``, with the card in the TPU's place).
     """
     use_sl = options.batched_solver == "sl" or (
         options.batched_solver == "auto" and _sl_eligible(options, callback)
     )
-    if not use_sl:
-        raise NotImplementedError(
-            "these options need the per-instance (vmap) batched solver, which "
-            "is not ported yet (ROADMAP M10); the port runs the SL solver, "
-            "which needs batched_solver in ('auto', 'sl') and, for 'auto', "
-            "record_traces=False, live_progress=False, fused_al_loop=True, "
-            "ddp=False, no callback and backward_pass in ('packed', 'auto')"
-        )
-    from ..core.solve_sl import make_batched_solve_sl
-
     device = torch.device(device)
-    solve_sl = make_batched_solve_sl(
-        spec, options, device=device, dtype=dtype,
-        dual_warm_start=dual_warm_start,
-    )
     eff_in_axes = tuple(in_axes) + ((0, 0) if dual_warm_start else ())
+    if use_sl:
+        from ..core.solve_sl import make_batched_solve_sl
+
+        solve_sl = make_batched_solve_sl(
+            spec, options, device=device, dtype=dtype,
+            dual_warm_start=dual_warm_start,
+        )
+        run = lambda *args: solve_sl(*broadcast_lanes(args, eff_in_axes))
+    else:
+        run = make_solve_fn(spec, options, callback,
+                            dual_warm_start=dual_warm_start,
+                            device=device).vmap(eff_in_axes)
 
     def solve_batch(*args) -> Solution:
-        args = list(args)
         for i, a in enumerate(args):
             if a.dtype != dtype or a.device.type != device.type:
                 raise ValueError(
                     f"argument {i}: {a.dtype} on {a.device}, but the solver "
                     f"was built for {dtype} on {device}"
                 )
-        # vmap-style in_axes: broadcast unbatched (None) arguments
-        B = None
-        for a, ax in zip(args, eff_in_axes):
-            if ax is not None:
-                B = a.shape[0]
-        for i, ax in enumerate(eff_in_axes):
-            if ax is None:
-                args[i] = args[i][None].expand((B,) + tuple(args[i].shape))
-        return solve_sl(*args)
+        return run(*args)
 
     return solve_batch
 

@@ -1,0 +1,197 @@
+"""The per-instance backward pass of the port (iterativelqr_tpu_torch/ops/
+backward.py, linalg_small.py, al.py) against the JAX package's functions
+under ``jax.vmap``, on the same numpy inputs in f64, plus the refusals of
+what is not ported yet (ROADMAP M11, M12, M13).
+
+Tolerance 1e-10 relative to the largest value: both sides are IEEE f64 and
+sum the same products, in other orders where XLA fuses its reductions.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iterativelqr_tpu import Options as JaxOptions
+from iterativelqr_tpu.ops import al as jal
+from iterativelqr_tpu.ops import backward as jbw
+from iterativelqr_tpu.ops import linalg_small as jls
+from iterativelqr_tpu_torch import Options, build_spec, make_batched_solve_fn, make_solve_fn
+from iterativelqr_tpu_torch.models import acrobot
+from iterativelqr_tpu_torch.ops import al, backward, linalg_small
+
+torch.set_num_threads(1)
+
+TOL = 1e-10
+
+
+def close(a, b, tol=TOL):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    fin = np.isfinite(b)
+    np.testing.assert_array_equal(np.isfinite(a), fin)
+    scale = max(np.abs(b[fin]).max(), 1.0) if fin.any() else 1.0
+    np.testing.assert_allclose(a[fin], b[fin], rtol=0, atol=tol * scale)
+
+
+def stacks(rng, B, Tm1, n, m):
+    """Batch-leading derivative stacks: symmetric positive definite gxx and
+    guu, random dynamics near the identity."""
+    T = Tm1 + 1
+
+    def spd(rows, d, scale):
+        A = rng.standard_normal((B, rows, d, d))
+        return scale * (A @ np.swapaxes(A, -1, -2)) / d + 2.0 * np.eye(d)
+
+    return [0.2 * rng.standard_normal((B, Tm1, n, n)) + np.eye(n),
+            rng.standard_normal((B, Tm1, n, m)),
+            rng.standard_normal((B, T, n)),
+            rng.standard_normal((B, Tm1, m)),
+            spd(T, n, 0.5), spd(Tm1, m, 1.0),
+            0.2 * rng.standard_normal((B, Tm1, m, n))]
+
+
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_linalg_small(m):
+    rng = np.random.default_rng(m)
+    A = rng.standard_normal((5, m, m))
+    S = A @ np.swapaxes(A, -1, -2) + m * np.eye(m)
+    Bm = rng.standard_normal((5, m, 3))
+    v = rng.standard_normal((5, m))
+    t = torch.as_tensor
+    close(linalg_small.matmul(t(S), t(Bm)), jls.matmul(jnp.asarray(S), jnp.asarray(Bm)))
+    close(linalg_small.matvec(t(S), t(v)), jls.matvec(jnp.asarray(S), jnp.asarray(v)))
+    L = linalg_small.cholesky(t(S))
+    close(L, jls.cholesky(jnp.asarray(S)))
+    close(linalg_small.cho_solve(L, t(Bm)), jls.cho_solve(jnp.asarray(np.asarray(L)), jnp.asarray(Bm)))
+    close(linalg_small.solve(t(S + 3 * np.eye(m)), t(Bm)),
+          jls.solve(jnp.asarray(S + 3 * np.eye(m)), jnp.asarray(Bm)))
+    # an indefinite matrix: NaN pivots on both sides
+    bad = -S
+    np.testing.assert_array_equal(np.isnan(linalg_small.cholesky(t(bad)).numpy()),
+                                  np.isnan(np.asarray(jls.cholesky(jnp.asarray(bad)))))
+
+
+def test_al_terms_match():
+    rng = np.random.default_rng(2)
+    B, T, nc, nx, nu = 6, 7, 3, 4, 2
+    c = rng.standard_normal((B, T, nc))
+    duals = np.abs(rng.standard_normal((B, T, nc))) * (rng.uniform(size=(B, T, nc)) < 0.5)
+    pen = rng.uniform(1.0, 10.0, (B, T, nc))
+    ineq = np.zeros((T, nc), bool)
+    ineq[:, 1:] = True
+    cmask = np.ones((T, nc), bool)
+    cmask[0, 2] = False
+    cx = rng.standard_normal((B, T, nc, nx))
+    cu = rng.standard_normal((B, T - 1, nc, nu))
+    t = torch.as_tensor
+    close(al.active_set(t(c), t(duals), t(ineq)), jax.vmap(jal.active_set, (0, 0, None))(c, duals, ineq))
+    close(al.al_terms(t(c), t(duals), t(pen), t(ineq)),
+          jax.vmap(jal.al_terms, (0, 0, 0, None))(c, duals, pen, ineq))
+    close(al.max_violation(t(c), t(ineq), t(cmask)),
+          jax.vmap(jal.max_violation, (0, None, None))(c, ineq, cmask))
+    scale = np.where(rng.uniform(size=B) < 0.5, 1000.0, 10.0)
+    for a, b in zip(al.dual_update(t(c), t(duals), t(pen), t(ineq), t(scale), 1e4),
+                    jax.vmap(jal.dual_update, (0, 0, 0, None, 0, None))(c, duals, pen, ineq, scale, 1e4)):
+        close(a, b)
+    for a, b in zip(al.al_gradient_terms(t(c), t(cx), t(cu), t(duals), t(pen), t(ineq)),
+                    jax.vmap(jal.al_gradient_terms, (0, 0, 0, 0, 0, None))(c, cx, cu, duals, pen, ineq)):
+        close(a, b)
+
+
+@pytest.mark.parametrize("n,m", [(4, 1), (3, 2)])
+def test_riccati_step_and_scan_match(n, m):
+    """One step and the whole reverse scan, with a masked action dim at
+    (3, 2) and per-lane regularization."""
+    rng = np.random.default_rng(n)
+    B, Tm1 = 5, 8
+    st = stacks(rng, B, Tm1, n, m)
+    um = np.ones((Tm1, m), bool)
+    if m > 1:
+        um[:, -1] = False
+    reg = np.array([0.0, 1e-3, 0.1, 0.0, 2.0])
+    t = [torch.as_tensor(a) for a in st]
+    out = backward.backward_pass_scan(*t, torch.as_tensor(um), torch.as_tensor(reg))
+    ref = jax.vmap(lambda *a: jbw.backward_pass_scan(*a[:7], um, a[7]))(*st, reg)
+    for a, b in zip(out, ref):
+        close(a, b)
+    P = st[4][:, -1]
+    p = st[2][:, -1]
+    step = backward.riccati_step(
+        torch.as_tensor(P), torch.as_tensor(p), *(torch.as_tensor(a[:, 3]) for a in (
+            st[0], st[1], st[2], st[3], st[4], st[5], st[6])),
+        torch.as_tensor(um[3].astype(np.float64)), torch.as_tensor(reg))
+    ref_step = jax.vmap(lambda P, p, *a: jbw.riccati_step(P, p, *a[:7], um[3].astype(np.float64), a[7]))(
+        P, p, *(a[:, 3] for a in st), reg)
+    for a, b in zip(step, ref_step):
+        close(a, b)
+
+
+def test_backward_pass_retry_matches():
+    """The regularization retry per lane: lanes with an indefinite Quu
+    escalate reg until their factorizations succeed; the returned
+    reg_next (the decayed reg each lane used) fixes each lane's retry count."""
+    rng = np.random.default_rng(4)
+    B, Tm1, n, m = 6, 8, 4, 1
+    st = stacks(rng, B, Tm1, n, m)
+    st[5][1, 4] = -50.0       # lane 1: needs reg > about 50
+    st[5][3, 2] = -1.0e3      # lane 3: needs reg > about 1e3
+    um = np.ones((Tm1, m), bool)
+    reg0 = np.array([0.0, 0.0, 1e-2, 0.0, 1e-6, 5.0])
+    opts = dict(max_regularization_steps=20)
+    t = [torch.as_tensor(a) for a in st]
+    out = backward.backward_pass(*t, torch.as_tensor(um), torch.as_tensor(reg0),
+                                 Options(backward_pass="scan", **opts))
+    ref = jax.vmap(lambda *a: jbw.backward_pass(
+        *a[:7], um, a[7], JaxOptions(backward_pass="scan", **opts)))(*st, reg0)
+    for a, b in zip(out, ref):
+        close(a, b)
+    # lanes 1 and 3 escalated; their decayed reg carries on
+    assert np.asarray(ref[6])[1] >= 1.0 and np.asarray(ref[6])[3] >= 1e2
+
+
+def test_auto_dispatch_takes_the_scan_for_batches():
+    """backward_pass="auto" under the batched form: the reverse scan at
+    B > T // 7; the associative scan it takes for one instance or a small
+    batch is not ported (M11) and raises."""
+    rng = np.random.default_rng(5)
+    st = [torch.as_tensor(a) for a in stacks(rng, 4, 8, 4, 1)]
+    um = torch.ones((8, 1), dtype=torch.bool)
+    reg = torch.zeros(4, dtype=torch.float64)
+    out = backward.backward_pass(*st, um, reg, Options(backward_pass="auto"))
+    ref = backward.backward_pass(*st, um, reg, Options(backward_pass="scan"))
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="M11"):
+        backward.backward_pass(*(a[:1] for a in st), um, reg[:1],
+                               Options(backward_pass="auto"), batched=False)
+    long = [torch.as_tensor(a) for a in stacks(rng, 4, 40, 4, 1)]
+    with pytest.raises(NotImplementedError, match="M11"):
+        backward.backward_pass(*long, torch.ones((40, 1), dtype=torch.bool), reg,
+                               Options(backward_pass="auto"))
+
+
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(backward_pass="associative"), NotImplementedError, "M11"),
+    (dict(ddp=True), NotImplementedError, "M12"),
+    (dict(live_progress=True), NotImplementedError, "M13"),
+])
+def test_unported_options_refuse(kw, exc, match):
+    spec = build_spec(*acrobot.problem(9)[:3])
+    with pytest.raises(exc, match=match):
+        make_solve_fn(spec, Options(**kw), device="cpu")
+    with pytest.raises(exc, match=match):
+        make_batched_solve_fn(spec, Options(batched_solver="vmap", **kw), device="cpu")
+
+
+def test_one_instance_with_auto_backward_needs_m11():
+    """The per-instance form with backward_pass="auto" reaches the
+    associative scan, which is not ported."""
+    T = 9
+    spec = build_spec(*acrobot.problem(T)[:3])
+    solve = make_solve_fn(spec, Options(), device="cpu")
+    xs = torch.zeros((T, 4), dtype=torch.float64)
+    us = torch.full((T - 1, 1), 0.05, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="M11"):
+        solve(xs, us, torch.zeros((T, 0), dtype=torch.float64))

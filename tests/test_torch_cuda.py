@@ -233,3 +233,80 @@ def test_rollout_kernels_refuse_what_they_cannot_run():
     K_nc = live[3].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         fk.winner_reroll(r, torch.ones(B, device="cuda"), *live[:3], K_nc, *live[4:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("kernel,n,m", [("K5", 4, 1), ("K6a", 4, 1), ("K6a", 3, 2),
+                                        ("K6b", 4, 1), ("K6b", 3, 2)])
+def test_packed_and_masked_kernels_match_plain(kernel, n, m, dtype, tol):
+    """K5, K6a and K6b at T=101, B=1000 (a ragged lane edge) against their
+    plain versions, with indefinite Quu on every 61st lane; at (3, 2) the
+    last action is masked with nonzero derivative entries, so the mask is
+    what zeroes its gains.  A per-lane regularizer drawn from [1e-3, 1], so
+    K5's whole-diagonal reg and K6's reg * um (and K6b's order of adding and
+    taking it back) are held against the plain versions.  Tolerances as
+    K1's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from iterativelqr_tpu_torch.ops import pallas_backward as pb
+
+    B, Tm1 = 1000, 100
+    make = _stacks if m == 1 else _wide_stacks
+    rng = np.random.default_rng(8)
+    st = make(rng, B, Tm1, n, m)
+    bad = np.zeros(B, bool)
+    bad[::61] = True
+    st[5][50, 0, 0, bad] = -1.0e3
+    st = [torch.as_tensor(a, dtype=dtype, device="cuda").contiguous() for a in st]
+    um = torch.ones((Tm1, m), dtype=dtype, device="cuda")
+    if m > 1:
+        um[:, -1] = 0.0
+    reg = torch.as_tensor(rng.uniform(1e-3, 1.0, B), dtype=dtype, device="cuda")
+    if kernel == "K5":
+        packed, gxxT, gxT, meta = pk.pack_stacks_bt(*st, um > 0.5)
+        counter = pk.RICCATI_PACKED_LAUNCHES
+        run = lambda: pk.backward_pass_packed(packed, gxxT, gxT, reg, meta)
+        plain = lambda: pk.backward_pass_packed_reference(packed, gxxT, gxT, reg, meta)
+    elif kernel == "K6a":
+        counter = pb.RICCATI_MASKED_LAUNCHES
+        run = lambda: pb.backward_pass_masked(*st, um, reg)
+        plain = lambda: pb.backward_pass_masked_reference(*st, um, reg)
+    else:
+        packed = pk.pack_slots((st[0], st[1], st[2][:-1], st[3], st[4][:-1], st[5], st[6]))
+        gxxT, gxT, meta = st[4][-1].contiguous(), st[2][-1].contiguous(), dict(n=n, m=m)
+        counter = pb.RICCATI_MASKED_PACKED_LAUNCHES
+        run = lambda: pb.backward_pass_masked_packed(packed, gxxT, gxT, um, reg, meta)
+        plain = lambda: pb.backward_pass_masked_packed_reference(packed, gxxT, gxT, um, reg, meta)
+    before = counter.launches
+    out = run()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    for a, b in zip(out, plain()):
+        scale = float(b[~torch.isnan(b)].abs().max())
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol * max(scale, 1.0),
+                                   equal_nan=True)
+    assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad))
+    if m > 1 and kernel != "K5":
+        good = torch.as_tensor(~bad, device="cuda")
+        assert bool((out[0][:, -1][..., good] == 0).all())
+
+
+@pytest.mark.cuda
+def test_packed_and_masked_kernels_refuse_k2_dims():
+    """K5/K6 are instantiations of K1's recursion: the wide dims K2 takes
+    have no counterpart yet and raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from iterativelqr_tpu_torch.ops import pallas_backward as pb
+
+    B, Tm1 = 64, 5
+    st = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+          for a in _wide_stacks(np.random.default_rng(1), B, Tm1, 12, 4)]
+    lead = [a.movedim(-1, 0).contiguous() for a in st]
+    um = torch.ones((Tm1, 4), dtype=torch.bool)
+    reg = torch.zeros(B, device="cuda")
+    for entry in (pk.backward_pass_batched_pallas_v3, pb.backward_pass_batched_pallas,
+                  pb.backward_pass_batched_pallas_v2):
+        with pytest.raises(NotImplementedError, match="K2"):
+            entry(*lead, um, reg)

@@ -105,14 +105,39 @@ def test_shared_ws_in_axes_broadcasts(inputs):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(),                                   # literal Options(): record_traces
+    dict(),                                   # Options(): record_traces
     dict(record_traces=False, batched_solver="vmap"),
-    dict(record_traces=False, live_progress=True),
 ])
-def test_vmap_route_is_not_ported(kw):
+def test_vmap_route_runs_and_matches(inputs, kw):
+    """Options the SL solver does not take go to the per-instance solver's
+    batched form, as in the JAX package; it matches JAX's vmap route
+    (12 iterations x 3 rounds; tests/test_torch_solve.py runs the uncut
+    literal Options())."""
+    jspec, xs, us, ws = inputs
+    cut = dict(max_iterations=12, max_dual_updates=3, **kw)
+    ref = jax_make_batched_solve_fn(jspec, JaxOptions(**cut))(
+        jnp.asarray(xs), jnp.asarray(us), jnp.asarray(ws))
     tspec = build_spec(*acrobot.problem(T)[:3])
-    with pytest.raises(NotImplementedError, match="M10"):
-        make_batched_solve_fn(tspec, Options(**kw), device="cpu")
+    sol = make_batched_solve_fn(tspec, Options(**cut), device="cpu",
+                                dtype=torch.float64)(
+        *batch_from_numpy(xs, us, ws, device="cpu", dtype=torch.float64))
+    out = solution_to_numpy(sol)
+    for name in ("iterations", "al_iterations", "status", "trace_mask"):
+        np.testing.assert_array_equal(out[name], np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+    for name in ("xs", "us", "objective", "max_violation"):
+        np.testing.assert_allclose(out[name], np.asarray(getattr(ref, name)),
+                                   rtol=1e-8, atol=1e-8, err_msg=name)
+    assert out["trace_mask"].shape[1:] == ((3, 12) if not kw else (1, 1))
+
+
+def test_live_progress_needs_m13():
+    """live_progress prints from inside the JAX program (jax.debug); the
+    port has no counterpart yet."""
+    tspec = build_spec(*acrobot.problem(T)[:3])
+    with pytest.raises(NotImplementedError, match="M13"):
+        make_batched_solve_fn(
+            tspec, Options(record_traces=False, live_progress=True), device="cpu")
 
 
 def test_pallas_rollout_kernels_refuse_a_model_without_device_functions():
