@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Times the port's hand-written kernels on one CUDA card, at the shapes of
+chip_smoke.py's phases 3, 3b and 3c (B=4096; K1, K5, K6 acrobot (4, 1)
+T=101 and K6 (3, 2); K2 quadrotor T=41; K3 acrobot T=101, car T=51,
+quadrotor T=41; K4 acrobot).
+
+    python3 chip_kernel_times.py [--repeats 3] [--tree DIR ...] [--out FILE]
+
+Each ``--tree`` is a checkout of this repository (default: this one),
+timed in a child process of its own that builds that checkout's kernels
+and imports its package; trees run in the order given, so naming two
+checkouts as ``A B B A`` compares them in turns on one card.  A repeat is
+the median of 20 launches after 3 warm-ups (CUDA events around each
+launch); every case is timed once per repeat, repeats outermost.  Prints
+one line per tree and case (the repeats, their median and spread, the
+bound and its share) and each tree's ptxas report, and writes every
+number to ``--out`` as JSON where given.  The input constructors and bounds are
+chip_smoke.py's (loaded from beside this script).  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cases(cs, pk, pb, fk, torch):
+    """(name, launch, bound ms or None) of every timed case."""
+    B = cs.B_MAIN
+    cases = []
+    for dtype, dn in ((torch.float32, "f32"), (torch.float64, "f64")):
+        # B=4097: a ragged edge whose runs are not 16-byte aligned
+        for label, n, m, T, make, nb in (("K1", 4, 1, cs.T_MAIN, cs.random_stacks, B),
+                                         ("K1", 4, 1, cs.T_MAIN, cs.random_stacks, B + 1),
+                                         ("K2", 12, 4, cs.T_QUAD, cs.wide_stacks, B)):
+            if label == "K2" and dtype == torch.float64:
+                continue
+            Tm1 = T - 1
+            dev = [torch.as_tensor(a, dtype=dtype, device="cuda")
+                   for a in make(cs.SEED, nb, Tm1, n, m)]
+            kin = [a.contiguous() for a in pk.prepare_stacks(
+                *dev, torch.ones((Tm1, m), dtype=torch.bool))]
+            reg = torch.zeros(nb, dtype=dtype, device="cuda")
+            run = (lambda kin=kin, reg=reg:
+                   pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg))
+            out = run()
+            nbytes = sum(a.numel() * a.element_size() for a in (*kin, reg, *out))
+            cases.append((f"{label} ({n},{m}) T={T} {dn}" + ("" if nb == B else f" B={nb}"), run,
+                          cs.bound_ms(nbytes, cs.riccati_ops(n, m) * Tm1 * nb)[0]))
+        for label in ("K5", "K6a", "K6b"):
+            for n, m in ((4, 1), (3, 2)):
+                if (label == "K5" and m > 1) or (dtype == torch.float64 and m > 1):
+                    continue
+                st, um, reg, _ = cs.masked_case(cs.SEED, B, cs.T_MAIN - 1, n, m,
+                                                "well_conditioned", dtype)
+                kern, _, _, kin = cs.packed_masked_runs(pk, pb, label, st, um, reg)
+                out = kern()
+                nbytes = sum(a.numel() * a.element_size() for a in (*kin, *out))
+                ops = cs.riccati_ops(n, m) * (cs.T_MAIN - 1) * B
+                cases.append((f"{label} ({n},{m}) T={cs.T_MAIN} {dn}", kern,
+                              cs.bound_ms(nbytes, ops)[0]))
+        for name, T in (("acrobot", cs.T_MAIN), ("car", cs.T_CAR), ("quadrotor", cs.T_QUAD)):
+            if dtype == torch.float64 and name != "acrobot":
+                continue
+            r, live, alpha = cs.rollout_case(fk, name, T, B, dtype, cs.SEED)
+            size = torch.finfo(dtype).bits // 8
+            runs = [("K3 head j0=0 nb=8", lambda r=r, live=live: fk.score_rollout(r, 0, 8, *live), 8),
+                    ("K3 tail j0=8 nb=9", lambda r=r, live=live: fk.score_rollout(r, 8, 9, *live), 9)]
+            if name == "acrobot":
+                runs.append(("K4 per-lane alpha",
+                             lambda r=r, live=live, alpha=alpha: fk.winner_reroll(r, alpha, *live),
+                             None))
+            for what, run, nb in runs:
+                nbytes = cs.rollout_bytes(r.spec, B, size, nb)
+                ops = cs.OPS_PER_STEP[name] * (T - 1) * B * (nb or 1)
+                cases.append((f"{what} {name} T={T} {dn}", run, cs.bound_ms(nbytes, ops)[0]))
+    torch.cuda.synchronize()
+    return cases
+
+
+def child(tree: Path, label: str, repeats: int):
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import iterativelqr_tpu_torch as P
+    from iterativelqr_tpu_torch import _build
+    from iterativelqr_tpu_torch.ops import packed_backward as pk
+    from iterativelqr_tpu_torch.ops import pallas_backward as pb
+    from iterativelqr_tpu_torch.ops import sl_forward_kernel as fk
+
+    if not Path(P.__file__).resolve().is_relative_to(tree):
+        raise SystemExit(f"imported {P.__file__}, not the package of {tree}")
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_kernel_times.py needs a CUDA card")
+    cs = _smoke()
+    t0 = time.perf_counter()
+    _build.load_library()
+    build_s = time.perf_counter() - t0
+    cases = _cases(cs, pk, pb, fk, torch)
+    times = {name: [] for name, _, _ in cases}
+    for _ in range(repeats):
+        for name, run, _ in cases:
+            times[name].append(cs.cuda_ms(run, reps=20, warmup=3))
+    res = {"tree": label, "build_s": build_s, "ptxas": _build.ptxas_report(),
+           "cases": {name: {"ms": times[name], "median_ms": statistics.median(times[name]),
+                            "bound_ms": bound}
+                     for name, _, bound in cases}}
+    print("RESULT " + json.dumps(res), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--tree", action="append", default=None,
+                    help="a checkout of the repository (repeatable; default: this one)")
+    ap.add_argument("--out", help="write every number here as JSON")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--label", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        return child(Path(args.child).resolve(), args.label, args.repeats)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"[id] {smi}", flush=True)
+    results = []
+    for tree in args.tree or [str(HERE)]:
+        label = os.path.relpath(Path(tree).resolve(), HERE)
+        proc = subprocess.run([sys.executable, __file__, "--child", tree, "--label", label,
+                               "--repeats", str(args.repeats)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stdout + proc.stderr)
+            raise SystemExit(f"timing {tree} failed ({proc.returncode})")
+        res = json.loads(next(ln for ln in proc.stdout.splitlines()
+                              if ln.startswith("RESULT "))[len("RESULT "):])
+        results.append(res)
+        print(f"[tree] {label}: built in {res['build_s']:.1f} s", flush=True)
+        for line in res["ptxas"]:
+            print(f"[ptxas] {label}: {line}", flush=True)
+        for name, c in res["cases"].items():
+            spread = max(c["ms"]) - min(c["ms"])
+            print(f"[time] {label}: {name}: median {c['median_ms']:.4f} ms "
+                  f"(repeats {', '.join(f'{t:.4f}' for t in c['ms'])}; spread {spread:.4f}); "
+                  f"bound {c['bound_ms']:.4f} ms, {c['bound_ms'] / c['median_ms']:.1%} of it",
+                  flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps({"card": smi, "results": results}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

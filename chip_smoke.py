@@ -13,37 +13,40 @@ Phases, each of which raises (non-zero exit) when it fails:
    card at the main path's shapes (acrobot n=4, m=1, T=101, B=4096), and K2
    (csrc/riccati_backward_wide.cu) at the quadrotor's (n=12, m=4, T=41,
    B=4096), in f64 and f32, each plus a batch with indefinite Quu on some
-   lanes (ok = 0); median times of both and the bounds;
+   lanes (ok = 0); median times of both, the bounds and the kernel's share
+   of its bound, and K1's ring of step tiles (tiles, dynamic shared memory
+   a block);
 3b. K3 and K4 (csrc/sl_forward.cu) against their plain versions on the
    card: acrobot T=101, car T=51 and quadrotor T=41, B=4096, f64 and f32,
    K3 for the 8-candidate head (j0=0) and the 9-candidate tail (j0=8), K4
    at per-lane step sizes; random non-converged gains from a numpy seed,
    car and quadrotor with inactive (c < 0, lam = 0) and active inequality
-   rows; median times of both and the byte and operation bounds;
+   rows; median times of both, the byte and operation bounds and the
+   share of the bound, and K3's ring;
 3c. K5, K6a and K6b (csrc/riccati_backward.cu) against their plain versions
    at T=101, B=4096, f64 and f32: (4, 1), and for K6a/K6b also (3, 2) with
    the last action masked and its derivative entries nonzero; a per-lane
    regularizer; each with a batch whose Quu is indefinite on every 61st
    lane; the kernel's median time, its batch-leading entry's (with the
    transposes or packing; K5's launches are those of this entry), the plain
-   version's and the bound;
+   version's, the bound and its share, and the ring (K1's);
 4. the slice end to end: make_batched_solve_fn + batch_stats on acrobot
    T=101, f32, under the bench.py presets "tuned" and "parity", with
    bench.py's initial-guess protocol, each with the loop rollouts
    (forward_kernel="scan") and the rollout kernels ("pallas") on the same
-   lanes in one run (tuned B=4096, parity B=B_LOOP), and parity's kernels
-   at B=4096; then car T=51 and quadrotor T=41
+   lanes in one run (tuned B=B_LOOP_TUNED=64, parity B=B_LOOP=12), and
+   both presets' kernels at B=4096; then car T=51 and quadrotor T=41
    (benchmarks/measure_all.py's protocol), B=4096, f32, under both; solved
    fraction from batch_stats and recomputed from the returned trajectories
    with constraint_values; K1 (acrobot, car) or K2 (quadrotor), K3 and K4
    launches counted over each timed solve; the per-iteration split of
    derive+backward against line search in each;
-4c. the per-instance solver's vmap route at acrobot T=101, B=4096, f32
-   (bench.py's initial guess): the literal make_batched_solve_fn(spec,
-   Options()) (traces on, the "auto" backward = the reverse scan, loop
-   rollouts), and the tuned preset with traces through make_solve_fn(...,
-   backward_impl=make_backward_dispatch(variant="v1" | "v2")).vmap() (K6a,
-   K6b); solved fraction from batch_stats and recomputed, iterations, wall,
+4c. the per-instance solver's vmap route at acrobot T=101, f32 (bench.py's
+   initial guess): the literal make_batched_solve_fn(spec, Options())
+   (traces on, the "auto" backward = the reverse scan, loop rollouts) at
+   B=B_VMAP_LOOP=64, and at B=4096 the tuned preset with traces through
+   make_solve_fn(..., backward_impl=make_backward_dispatch(variant="v1" |
+   "v2")).vmap() (K6a, K6b); solved fraction from batch_stats and recomputed, iterations, wall,
    K6 launches, loop trips and host syncs, every iteration's trace write
    (trace_mask's count plus the slots a truncated round's successor wrote
    again = iterations), and a per-iteration split of derive, backward and
@@ -56,6 +59,11 @@ Phases, each of which raises (non-zero exit) when it fails:
    T=101, car and quadrotor solutions (tests/fixtures/golden_*.npz) solved
    on the card through "pallas" in f64, and the golden acrobot T=101
    through the per-instance solver.
+
+Budget: the whole run stays under 800 s (1200 s limit).  For that,
+parity's loop cell runs on 12 lanes, tuned's loop cell and phase 4c's cell
+(a) on 64 (each was 4096), and the splits time 5 iterations (were 20): the
+reasons and trip counts stand beside B_LOOP.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -78,14 +86,25 @@ import numpy as np
 import torch
 
 T_MAIN, B_MAIN = 101, 4096
-# Cut to keep the whole run inside its time: parity's loop-rollout cell runs
-# on the first B_LOOP lanes of the protocol batch (launch-bound, so its time
-# is the slowest lane's trips, which fall with fewer lanes: 213 at B=4096,
-# 204 at 1024, 140 at 64; the first 12 lanes' slowest took 105 iterations
-# on the port's CPU path in f32), paired with the rollout kernels on the
-# same lanes; parity's kernel cell also runs at B=4096.  Every split times
-# the first SPLIT_ITERATIONS.
+# Cuts that keep the whole run inside its time.  Each cuts the lanes of a
+# launch-bound loop-rollout cell (its time is its slowest lane's trips times
+# a per-trip host cost that also falls with fewer lanes); each loop cell is
+# paired with the rollout kernels on the same lanes, and the kernel cells
+# also run at B=4096:
+# - B_LOOP (was 4096): parity's loop cell, 213 trips at B=4096, 204 at
+#   1024, 140 at 64, 117 at 12 (the first 12 lanes' slowest took 105
+#   iterations on the port's CPU path in f32);
+# - B_LOOP_TUNED (was 4096: 86 trips, 79-102 s of the run): tuned's loop
+#   cell, 84 trips at B=64;
+# - B_VMAP_LOOP (was 4096: 208 trips, 141-250 s of the run): phase 4c's
+#   cell (a), the literal Options() on the loop rollouts, 134 trips and 84
+#   s at B=64 (NVIDIA H100 80GB HBM3, 700 W).  Not below 15 at T=101:
+#   there the "auto" backward takes the associative branch (B <= T // 7),
+#   which raises until M11 is ported.
+# Every split times the first SPLIT_ITERATIONS.
 B_LOOP = 12
+B_LOOP_TUNED = 64
+B_VMAP_LOOP = 64
 SEED = 0
 SPLIT_ITERATIONS = 5
 
@@ -132,6 +151,10 @@ def bound_ms(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ring_line(ring):
+    return f"; ring of {ring[0]} step tiles, {ring[1]} B of dynamic shared memory a block"
 
 
 # the plain versions take 0.1-0.4 s a call: timed over fewer runs
@@ -280,8 +303,11 @@ def check_riccati(pk, label):
                     b_ms, b_by = bound_ms(nbytes, ops)
                     line += (f"; bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
                              f"{ops / 1e9:.3f} G operations)")
+                    line += f"; {b_ms / k_ms:.1%} of the bound"
                     record = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
                                   bound_ms=b_ms, bound_by=b_by)
+                if label == "K1":
+                    line += ring_line(pk.riccati_ring(n, m, dtype, False))
             log(line)
     return record
 
@@ -418,12 +444,13 @@ def check_packed_masked(pk, pb, label):
                         ops = riccati_ops(n, m) * Tm1 * B
                         b_ms, b_by = bound_ms(nbytes, ops)
                         line += (f"; bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.4f} MB, "
-                                 f"{ops / 1e9:.3f} G operations)")
+                                 f"{ops / 1e9:.3f} G operations); {b_ms / k_ms:.1%} of the bound")
                         if (n, m) == (4, 1):
                             record = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
                                           bound_ms=b_ms, bound_by=b_by, entry_ms=e_ms)
                             if label == "K5":
                                 record["launches"] = path[kname]
+                    line += ring_line(pk.riccati_ring(n, m, dtype, label != "K5"))
                 log(line)
     return record
 
@@ -553,10 +580,12 @@ def check_rollouts(fk):
                 if dtype == torch.float32:
                     b_ms, b_by = bound_ms(nbytes, ops)
                     line += (f"; bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
-                             f"{ops / 1e9:.3f} G operations)")
+                             f"{ops / 1e9:.3f} G operations); {b_ms / k_ms:.1%} of the bound")
                     if name == "acrobot" and what != "tail j0=8 nb=9":
                         records[kname] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                                               bound_ms=b_ms, bound_by=b_by)
+                if kname == "sl_score_rollout":
+                    line += ring_line(fk.score_ring(r.model, dtype))
                 log(line)
     return records
 
@@ -871,11 +900,11 @@ def trace_writes(tally):
         solve_mod.while_lanes = plain
 
 
-def run_vmap_cell(P, variant):
-    """One phase 4c cell at acrobot T=101, B=4096, f32 with bench.py's
-    initial guess: a warm-up cut to one iteration, the timed solve with
-    every count set to 0 just before, the checks, and a split of the first
-    SPLIT_ITERATIONS_VMAP iterations.  The timed solve runs under
+def run_vmap_cell(P, variant, B):
+    """One phase 4c cell at acrobot T=101 on the first B lanes, f32, with
+    bench.py's initial guess: a warm-up cut to one iteration, the timed
+    solve with every count set to 0 just before, the checks, and a split of
+    the first SPLIT_ITERATIONS_VMAP iterations.  The timed solve runs under
     ``trace_writes`` (a few element-wise ops a trip on the card): every
     iteration must write one trace slot, and trace_mask's count plus the
     slots written again must equal the iterations, per lane.  Returns
@@ -886,16 +915,16 @@ def run_vmap_cell(P, variant):
     name = {"auto": "vmap/Options()", "v1": "vmap/tuned+K6a", "v2": "vmap/tuned+K6b"}[variant]
     device = torch.device("cuda")
     spec = P.build_spec(*acrobot.problem(T_MAIN)[:3])
-    xs, us, ws = bench_inputs(B_MAIN, T_MAIN, torch.float32, device)
+    xs, us, ws = bench_inputs(B, T_MAIN, torch.float32, device)
     vmap_solver(P, spec, variant, device, max_total_iterations=1)(xs, us, ws)
     torch.cuda.synchronize()
     solve = vmap_solver(P, spec, variant, device)
     LOOP_TESTS.clear()
-    tally = collections.defaultdict(lambda: torch.zeros(B_MAIN, dtype=torch.long, device=device))
+    tally = collections.defaultdict(lambda: torch.zeros(B, dtype=torch.long, device=device))
     with trace_writes(tally):
         sol, stats, wall, counts = counted_solve(P, solve, (xs, us, ws))
     tests = dict(LOOP_TESTS)
-    frac, frac_true = integrity(name, spec, sol, stats, ws, 5.0e-3, B_MAIN, T_MAIN, 4, 1)
+    frac, frac_true = integrity(name, spec, sol, stats, ws, 5.0e-3, B, T_MAIN, 4, 1)
     if frac_true != frac:
         raise AssertionError(f"{name}: batch_stats solved {frac} != recomputed {frac_true}")
     k6 = {"auto": None, "v1": "riccati_masked", "v2": "riccati_masked_packed"}[variant]
@@ -913,15 +942,15 @@ def run_vmap_cell(P, variant):
     if bool(((tally["rewrites"] > 0) & (tally["truncated"] == 0)).any()):
         raise AssertionError(f"{name}: trace slots written again on a lane with no truncated round")
     trips = int(its.max())
-    log(f"[vmap] {name}: B={B_MAIN} T={T_MAIN} f32 candidates "
+    log(f"[vmap] {name}: B={B} T={T_MAIN} f32 candidates "
         f"{P.Options(**(TUNED if variant != 'auto' else {})).num_step_sizes}: solved_fraction batch_stats {frac:.4f} "
         f"recomputed {frac_true:.4f}; iterations mean {float(its.float().mean()):.2f} max {trips}; "
         f"mean objective {float(stats.mean_objective):.4f}; max violation {float(stats.max_violation):.3e}")
-    log(f"[vmap] {name}: wall {wall:.3f} s after a warm-up ({B_MAIN * frac_true / wall:.1f} solved/s); "
+    log(f"[vmap] {name}: wall {wall:.3f} s after a warm-up ({B * frac_true / wall:.1f} solved/s); "
         f"launches {k6 or 'none (scan backward)'} {counts.get(k6, 0) if k6 else 0}; loop tests (host syncs) "
         f"{sum(tests.values())}: solve loop {tests.get('solve', 0)} (trips {trips}), "
         f"regularization retries {tests.get('regularization', 0)}; trace_mask count = iterations on "
-        f"{int((marks == its).sum())} of {B_MAIN} lanes; truncated rounds {int(tally['truncated'].sum())} "
+        f"{int((marks == its).sum())} of {B} lanes; truncated rounds {int(tally['truncated'].sum())} "
         f"on {int((tally['truncated'] > 0).sum())} lanes, trace slots written again "
         f"{int(tally['rewrites'].sum())}, dropped {int(tally['dropped'].sum())}: "
         f"count + written again + dropped = iterations on every lane")
@@ -1133,7 +1162,9 @@ def main():
 
     launches = collections.Counter()
     pairs = collections.defaultdict(dict)
-    for name, kw, fkm, B in (("tuned", TUNED, "scan", B_MAIN), ("tuned", TUNED, "pallas", B_MAIN),
+    for name, kw, fkm, B in (("tuned", TUNED, "scan", B_LOOP_TUNED),
+                             ("tuned", TUNED, "pallas", B_LOOP_TUNED),
+                             ("tuned", TUNED, "pallas", B_MAIN),
                              ("parity", PARITY, "scan", B_LOOP), ("parity", PARITY, "pallas", B_LOOP),
                              ("parity", PARITY, "pallas", B_MAIN)):
         counts, wall, trips = run_preset(P, name, kw, fkm, B)
@@ -1159,8 +1190,8 @@ def main():
         at(f"phase 4 {model}")
 
     sols = {}
-    for variant in ("auto", "v1", "v2"):
-        sols[variant], counts = run_vmap_cell(P, variant)
+    for variant, B in (("auto", B_VMAP_LOOP), ("v1", B_MAIN), ("v2", B_MAIN)):
+        sols[variant], counts = run_vmap_cell(P, variant, B)
         launches.update(counts)
         at(f"phase 4c {variant}")
     its_a, its_b = sols["v1"].iterations, sols["v2"].iterations

@@ -24,7 +24,7 @@
 // (46 at (4, 1)), slots in the order fx, fu, gx, gu, gxx, guu, gux.  Mask
 // policies: NoMask (K1, K5) factors Quu + reg*I and updates the value with
 // Quu; StepMask (K6a, K6b) reads the step's action mask um[t, a], shared by
-// all lanes (one [Tm1, m] array), and forms
+// all lanes (one [Tm1, m] array, copied into the step's tile), and forms
 //   Quu_eff = Quu .* (um um^T) + diag(1 - um),  Quu_reg = Quu_eff + diag(reg um)
 // with gains scaled by um and the value update on Quu_eff; K6b's order then
 // recomputes Quu_eff = Quu_reg - diag(reg um), which floating point does not
@@ -32,35 +32,88 @@
 // exact (um is 0 or 1), so FMA contraction leaves them as the TPU kernel
 // rounds them.
 //
-// Layout and threads: one thread owns one batch lane and walks the horizon;
-// the 32 threads of a warp read 32 neighbouring values, so every load and
-// store coalesces (in the packed buffer too: a slot is a run of B values).
-// The ragged edge (b >= B) is masked; no batch padding and no horizon
-// padding (the TPU kernels' pass-through steps) is needed.
+// Layout and threads: a block owns 32 neighbouring batch lanes.  Each lane
+// has a team of kTeam = 4 threads in its compute warps: thread `row` forms
+// row `row` of fx^T P, Qxx and the P update and solves gain column `row`
+// (and `row` + 4), the team shares them by shuffles, and every thread of the
+// team forms the small rest (Qx, Qu, fu^T P, Quu, Qux, the Cholesky, the
+// symmetrized P, p) itself; (3, 2) leaves the fourth row idle.  The
+// block's kProducerWarps = 2 producer warps stream the steps' inputs into a
+// ring of kDepth = 8 tiles in shared memory (async_ring.cuh).  Every array is
+// batch-last, so slot f of step t for the block's lanes is one contiguous
+// run of 32 values (128 B in f32, 256 B in f64): in SevenArrays at
+// arr + ((t*E + e)*B + b0), in PackedBuffer at packed + ((t*F + f)*B + b0).
+// A load policy is only "where the runs of step t are"; the copy is one
+// pipeline shared by all four instantiations.  The ragged edge (b >= B)
+// computes on the zero-filled tile with its team (the shuffles need every
+// thread) and stores nothing; no batch padding and no horizon padding (the
+// TPU kernels' pass-through steps) is needed.  Every element is formed by
+// the same operations in the same order as with one thread a lane.
 //
-// What bounds it: bytes.  Per step and lane it reads 46 values at (4, 1) and
-// writes mn+m+n+m+n (14), against a few hundred flops.  At B=4096, T=101 in
-// f32 that is about 98.7 MB a sweep for every variant (K6a's mask adds
-// Tm1*m values, 400 B), 0.0295 ms at 3.35 TB/s; but 4096 lanes are only 128
-// warps, about one per SM, so a sweep is bound by the latency of each step's
-// loads rather than by bandwidth.  The design answers that in one way: the
-// next step's inputs (and mask) are loaded into registers before the current
-// step is computed, so one step's memory latency overlaps the previous
-// step's arithmetic.  Left for later work: several lanes per cooperative
-// group, deeper prefetch (cp.async), larger batches per launch.
+// What bounds it.  Per step and lane it reads 46 values at (4, 1) and writes
+// mn+m+n+m+n (14), against a few hundred flops: at B=4096, T=101 in f32
+// about 98.7 MB a sweep for every variant (K6a's mask adds Tm1*m values,
+// 400 B), 0.0295 ms at 3.35 TB/s.  But 4096 lanes are 128 blocks, about one
+// per SM, so the bytes in flight, not the bandwidth, set what the loads can
+// draw (Little's law): a one-step register prefetch in the computing thread
+// keeps 46 loads a lane in flight, 0.75 MB over the card, and pays a memory
+// latency every step.  The ring keeps up to kDepth steps a block in flight
+// (8 x 5,888 B in f32 at (4, 1), 6 MB over the card), as the TPU kernel
+// _kernel_mr streams chunks into VMEM with double-buffered async copies.
+// The copies have warps of their own: a warp that issues its own cp.async's
+// stalls in the issue once the SM's outstanding requests are full, about as
+// long as its arithmetic takes, so the ring pays only once the copying
+// leaves the computing warps.  Then the step's dependent arithmetic sets the
+// pace: one warp a lane group on each warp scheduler, so little of its
+// latency is hidden.  The team spreads the n^3 products over four warp
+// schedulers, but the parts each thread repeats keep most of the step's
+// instructions (cycle-counter probes on the H100: the compute warps' step
+// shrank a little, and one producer warp then only just kept up, hence
+// two).
+// Dynamic shared memory: 8 tiles of F*32 values (+ the step mask) and 16
+// mbarriers, 47,232 B in f32 and 94,336 B in f64 at (4, 1);
+// cudaFuncSetAttribute raises the 48 KB limit once per kernel and device.
+// Runs that are not 16-byte aligned (B * sizeof(T) not a multiple of 16, as
+// B = 4097) go one value a copy, which the producers issue more slowly.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (iterativelqr_tpu_torch/_build.py).  Plain C entry points
 // below, one per kernel and instantiated (n, m, dtype); each returns
-// cudaGetLastError().
+// cudaGetLastError() (or the attribute call's error).
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "async_ring.cuh"
 
 namespace {
 
-constexpr int kThreads = 32;
+// a block: a team of kTeam threads for each of its 32 lanes (the compute
+// warps; the team's thread `row` owns row `row` of the lane's fx^T P, Qxx
+// and P update), then kProducerWarps warps that copy the step tiles
+constexpr int kTeam = 4;
+constexpr int kCompute = ring::kLanes * kTeam;
+constexpr int kProducerWarps = 2;
+constexpr int kProducers = kProducerWarps * ring::kLanes;
+constexpr int kThreads = kCompute + kProducers;
+
+// v of thread `src` of this thread's team
+template <typename T>
+__device__ __forceinline__ T team(T v, int src) {
+  return __shfl_sync(0xffffffffu, v, src, kTeam);
+}
+
+// x[i] for an index known at run time, by selects (no local memory)
+template <int N, typename T>
+__device__ __forceinline__ T pick(const T (&x)[N], int i) {
+  T v = x[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) v = (i == j) ? x[j] : v;
+  return v;
+}
+constexpr int kDepth = 8;                // tiles in the ring
 
 template <int N, int M, typename T>
 struct StepInputs {
@@ -68,13 +121,67 @@ struct StepInputs {
   T fu[N][M];
   T gx[N];
   T gu[M];
-  T gxx[N][N];
   T guu[M][M];
   T gux[M][N];
   T um[M];  // the step's action mask (StepMask only)
 };
 
-// ---- load policies ---------------------------------------------------------
+// A tile: the step's slots [kF][32 lanes] in the packed order fx, fu, gx,
+// gu, gxx, guu, gux, then (StepMask only) the step's mask, padded to 16 B.
+template <int N, int M, typename T, bool kMasked>
+struct Tile {
+  static constexpr int kFx = 0, kFu = kFx + N * N, kGx = kFu + N * M, kGu = kGx + N,
+                       kGxx = kGu + M, kGuu = kGxx + N * N, kGux = kGuu + M * M,
+                       kF = kGux + M * N;
+  static constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kUm = kMasked ? (M + kPer16 - 1) / kPer16 * kPer16 : 0;
+  static constexpr int kValues = kF * ring::kLanes + kUm;   // a multiple of 16 B
+  // the tiles, then each tile's full and empty mbarriers
+  static constexpr int kBytes = kDepth * kValues * static_cast<int>(sizeof(T)) + 2 * kDepth * 8;
+
+  // the step's inputs of this thread's lane, from the tile (but gxx: a
+  // thread needs only its row, read_row)
+  static __device__ __forceinline__ void read(StepInputs<N, M, T>& s, const T* tile, int lane) {
+    const T* v = tile + lane;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) s.fx[i][j] = v[(kFx + i * N + j) * ring::kLanes];
+#pragma unroll
+      for (int a = 0; a < M; ++a) s.fu[i][a] = v[(kFu + i * M + a) * ring::kLanes];
+      s.gx[i] = v[(kGx + i) * ring::kLanes];
+    }
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+      s.gu[a] = v[(kGu + a) * ring::kLanes];
+#pragma unroll
+      for (int c = 0; c < M; ++c) s.guu[a][c] = v[(kGuu + a * M + c) * ring::kLanes];
+#pragma unroll
+      for (int j = 0; j < N; ++j) s.gux[a][j] = v[(kGux + a * N + j) * ring::kLanes];
+    }
+    if constexpr (kMasked) {
+#pragma unroll
+      for (int a = 0; a < M; ++a) s.um[a] = tile[kF * ring::kLanes + a];
+    }
+  }
+
+  // row `row` of gxx and column `row` of fx of this thread's lane
+  static __device__ __forceinline__ void read_row(T (&gxx_row)[N], T (&fx_col)[N], const T* tile,
+                                                  int lane, int row) {
+    const T* v = tile + lane;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      gxx_row[j] = v[(kGxx + row * N + j) * ring::kLanes];
+      fx_col[j] = v[(kFx + j * N + row) * ring::kLanes];
+    }
+  }
+};
+
+// ---- load policies: where the runs of step t are ---------------------------
+//
+// copy: the producer thread tid's share of the async copies of step t's
+// slots for lanes [b0, b0+32) into a tile; aligned: may they go as 16-byte
+// chunks (host side).
 
 template <int N, int M, typename T>
 struct SevenArrays {
@@ -86,28 +193,21 @@ struct SevenArrays {
   const T* __restrict__ guu;
   const T* __restrict__ gux;
 
-  __device__ __forceinline__ void load(StepInputs<N, M, T>& s, int t, size_t b,
-                                       size_t B) const {
-    const size_t tt = static_cast<size_t>(t);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        s.fx[i][j] = __ldg(fx + ((tt * N + i) * N + j) * B + b);
-        s.gxx[i][j] = __ldg(gxx + ((tt * N + i) * N + j) * B + b);
-      }
-#pragma unroll
-      for (int a = 0; a < M; ++a) s.fu[i][a] = __ldg(fu + ((tt * N + i) * M + a) * B + b);
-      s.gx[i] = __ldg(gx + (tt * N + i) * B + b);
-    }
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-      s.gu[a] = __ldg(gu + (tt * M + a) * B + b);
-#pragma unroll
-      for (int c = 0; c < M; ++c) s.guu[a][c] = __ldg(guu + ((tt * M + a) * M + c) * B + b);
-#pragma unroll
-      for (int j = 0; j < N; ++j) s.gux[a][j] = __ldg(gux + ((tt * M + a) * N + j) * B + b);
-    }
+  template <class L>
+  __device__ __forceinline__ void copy(T* tile, size_t t, size_t B, size_t b0, int tid,
+                                       bool vec) const {
+    constexpr int W = ring::kLanes, P = kProducers;
+    ring::copy_rows<N * N, N * N, P>(tile + L::kFx * W, fx, t, B, b0, tid, vec);
+    ring::copy_rows<N * M, N * M, P>(tile + L::kFu * W, fu, t, B, b0, tid, vec);
+    ring::copy_rows<N, N, P>(tile + L::kGx * W, gx, t, B, b0, tid, vec);
+    ring::copy_rows<M, M, P>(tile + L::kGu * W, gu, t, B, b0, tid, vec);
+    ring::copy_rows<N * N, N * N, P>(tile + L::kGxx * W, gxx, t, B, b0, tid, vec);
+    ring::copy_rows<M * M, M * M, P>(tile + L::kGuu * W, guu, t, B, b0, tid, vec);
+    ring::copy_rows<M * N, M * N, P>(tile + L::kGux * W, gux, t, B, b0, tid, vec);
+  }
+
+  bool aligned(size_t B) const {
+    return ring::runs_aligned<T>(B, {fx, fu, gx, gu, gxx, guu, gux});
   }
 };
 
@@ -116,50 +216,26 @@ struct PackedBuffer {
   static constexpr int kF = N * N + N * M + N + M + N * N + M * M + M * N;
   const T* __restrict__ packed;
 
-  __device__ __forceinline__ void load(StepInputs<N, M, T>& s, int t, size_t b,
-                                       size_t B) const {
-    const T* base = packed + static_cast<size_t>(t) * kF * B + b;
-    int f = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) s.fx[i][j] = __ldg(base + (f++) * B);
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int a = 0; a < M; ++a) s.fu[i][a] = __ldg(base + (f++) * B);
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) s.gx[i] = __ldg(base + (f++) * B);
-#pragma unroll
-    for (int a = 0; a < M; ++a) s.gu[a] = __ldg(base + (f++) * B);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) s.gxx[i][j] = __ldg(base + (f++) * B);
-    }
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-#pragma unroll
-      for (int c = 0; c < M; ++c) s.guu[a][c] = __ldg(base + (f++) * B);
-    }
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) s.gux[a][j] = __ldg(base + (f++) * B);
-    }
+  template <class L>
+  __device__ __forceinline__ void copy(T* tile, size_t t, size_t B, size_t b0, int tid,
+                                       bool vec) const {
+    static_assert(L::kF == kF, "the tile holds the packed slots in their order");
+    ring::copy_rows<kF, kF, kProducers>(tile, packed, t, B, b0, tid, vec);
   }
+
+  bool aligned(size_t B) const { return ring::runs_aligned<T>(B, {packed}); }
 };
 
 // ---- mask policies ---------------------------------------------------------
 //
-// load: the step's mask into s.um; form: Quu_reg (factored) and Quu_eff (the
-// value update's) from Quu and reg; gain: a gain entry of action row a.
+// copy: the step's mask into the tile; form: Quu_reg (factored) and Quu_eff
+// (the value update's) from Quu and reg; gain: a gain entry of action row a.
 
 struct NoMask {
-  template <int N, int M, typename T>
-  __device__ __forceinline__ void load(StepInputs<N, M, T>&, int) const {}
+  static constexpr bool kMasked = false;
+
+  template <int M, typename T>
+  __device__ __forceinline__ void copy(T*, size_t, int) const {}
 
   template <int N, int M, typename T>
   __device__ __forceinline__ void form(const StepInputs<N, M, T>&, const T (&Quu)[M][M], T r,
@@ -182,12 +258,13 @@ struct NoMask {
 
 template <typename T, bool kV2Order>
 struct StepMask {
+  static constexpr bool kMasked = true;
   const T* __restrict__ um;  // [Tm1, M], shared by all lanes
 
-  template <int N, int M>
-  __device__ __forceinline__ void load(StepInputs<N, M, T>& s, int t) const {
-#pragma unroll
-    for (int a = 0; a < M; ++a) s.um[a] = __ldg(um + static_cast<size_t>(t) * M + a);
+  // producer threads tid < M copy one value each
+  template <int M>
+  __device__ __forceinline__ void copy(T* tile_um, size_t t, int tid) const {
+    if (tid < M) ring::copy<sizeof(T)>(tile_um + tid, um + t * M + tid, true);
   }
 
   template <int N, int M>
@@ -232,36 +309,73 @@ struct Outputs {
 template <int N, int M, typename T, class Load, class Mask>
 __global__ void __launch_bounds__(kThreads) riccati_kernel(
     Load load, Mask mask, const T* __restrict__ gxxT, const T* __restrict__ gxT,
-    const T* __restrict__ reg, Outputs<T> out, int Tm1, int B_int) {
-  const size_t b = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    const T* __restrict__ reg, Outputs<T> out, int Tm1, int B_int, bool vec) {
+  static_assert(N <= kTeam, "a team has a thread for each row of P");
+  using L = Tile<N, M, T, Mask::kMasked>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const tiles = reinterpret_cast<T*>(smem);
+  std::uint64_t* const full = reinterpret_cast<std::uint64_t*>(tiles + kDepth * L::kValues);
+  std::uint64_t* const empty = full + kDepth;
+  const size_t b0 = static_cast<size_t>(blockIdx.x) * ring::kLanes;
   const size_t B = static_cast<size_t>(B_int);
-  if (b >= B) return;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDepth; ++s) {
+      // full: each producer thread arrives when its copies have landed;
+      // empty: each compute thread once it has read the tile
+      ring::bar_init(&full[s], kProducers);
+      ring::bar_init(&empty[s], kCompute);
+    }
+    ring::bar_init_fence();
+  }
+  __syncthreads();
 
+  if (threadIdx.x >= kCompute) {
+    // the producer warps: step Tm1-1-i into tile i % kDepth once the
+    // compute warps have read what the tile held kDepth steps before
+    const int tid = threadIdx.x - kCompute;
+    for (int i = 0; i < Tm1; ++i) {
+      const int s = i % kDepth;
+      if (i >= kDepth) ring::bar_wait(&empty[s], ((i / kDepth) + 1) & 1);
+      const size_t t = static_cast<size_t>(Tm1 - 1 - i);
+      T* tile = tiles + s * L::kValues;
+      load.template copy<L>(tile, t, B, b0, tid, vec);
+      mask.template copy<M>(tile + L::kF * ring::kLanes, t, tid);
+      ring::bar_arrive_on_copies(&full[s]);
+    }
+    ring::wait_all();
+    return;
+  }
+
+  // the compute warps: thread `row` of lane `lane`'s team.  A lane past the
+  // edge computes on the zero-filled tile (a unit regularizer keeps it
+  // finite) with its team, as the shuffles need, and stores nothing.
+  const int lane = threadIdx.x / kTeam, row = threadIdx.x % kTeam;
+  const int rr = row < N ? row : N - 1;   // a thread past the last row reads row N-1
+  const size_t b = b0 + lane;
+  const bool live = b < B;
   T P[N][N], p[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    p[i] = gxT[i * B + b];
+    p[i] = live ? gxT[i * B + b] : T(0);
 #pragma unroll
-    for (int j = 0; j < N; ++j) P[i][j] = gxxT[(i * N + j) * B + b];
+    for (int j = 0; j < N; ++j) P[i][j] = live ? gxxT[(i * N + j) * B + b] : T(0);
   }
-  const T r = reg[b];
+  const T r = live ? reg[b] : T(1);
   bool ok = true;
+  constexpr int kRounds = (N + 1 + kTeam - 1) / kTeam;   // gain columns a thread solves
 
-  StepInputs<N, M, T> cur, nxt;
-  if (Tm1 > 0) {
-    load.load(cur, Tm1 - 1, b, B);
-    mask.load(cur, Tm1 - 1);
-  }
+  for (int step = 0; step < Tm1; ++step) {
+    const int t = Tm1 - 1 - step;
+    const int slot = step % kDepth;
+    ring::bar_wait(&full[slot], (step / kDepth) & 1);
+    StepInputs<N, M, T> s;
+    T gxx_row[N], fx_col[N];
+    L::read(s, tiles + slot * L::kValues, lane);
+    L::read_row(gxx_row, fx_col, tiles + slot * L::kValues, lane, rr);
+    ring::bar_arrive(&empty[slot]);
 
-  for (int t = Tm1 - 1; t >= 0; --t) {
-    // prefetch step t-1 while step t is computed
-    if (t > 0) {
-      load.load(nxt, t - 1, b, B);
-      mask.load(nxt, t - 1);
-    }
-    const StepInputs<N, M, T>& s = cur;
-
-    // Qx = gx + fx^T p, Qu = gu + fu^T p
+    // Qx = gx + fx^T p, Qu = gu + fu^T p (every thread: the p update needs
+    // them all)
     T Qx[N], Qu[M];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -278,17 +392,14 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
       Qu[a] = s.gu[a] + acc;
     }
 
-    // fx^T P, fu^T P
-    T fxTP[N][N], fuTP[M][N];
+    // row `row` of fx^T P; fu^T P whole
+    T fxTP_row[N], fuTP[M][N];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
+    for (int j = 0; j < N; ++j) {
+      T acc = T(0);
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        T acc = T(0);
-#pragma unroll
-        for (int k = 0; k < N; ++k) acc += s.fx[k][i] * P[k][j];
-        fxTP[i][j] = acc;
-      }
+      for (int k = 0; k < N; ++k) acc += fx_col[k] * P[k][j];
+      fxTP_row[j] = acc;
     }
 #pragma unroll
     for (int a = 0; a < M; ++a) {
@@ -301,17 +412,15 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
       }
     }
 
-    // Qxx = gxx + fx^T P fx, Quu = guu + fu^T P fu, Qux = gux + fu^T P fx
-    T Qxx[N][N], Quu[M][M], Qux[M][N];
+    // row `row` of Qxx = gxx + fx^T P fx; Quu = guu + fu^T P fu and
+    // Qux = gux + fu^T P fx whole
+    T Qxx_row[N], Quu[M][M], Qux[M][N];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
+    for (int j = 0; j < N; ++j) {
+      T acc = T(0);
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        T acc = T(0);
-#pragma unroll
-        for (int k = 0; k < N; ++k) acc += fxTP[i][k] * s.fx[k][j];
-        Qxx[i][j] = s.gxx[i][j] + acc;
-      }
+      for (int k = 0; k < N; ++k) acc += fxTP_row[k] * s.fx[k][j];
+      Qxx_row[j] = gxx_row[j] + acc;
     }
 #pragma unroll
     for (int a = 0; a < M; ++a) {
@@ -350,14 +459,17 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
 #pragma unroll
     for (int a = 0; a < M; ++a) ok = ok && isfinite(L[a][a]) && (L[a][a] > T(0));
 
-    // solve (L L^T) X = [Qux | Qu]; K = -X[:, :N], k = -X[:, N]
-    T K[M][N], kff[M];
+    // solve (L L^T) X = [Qux | Qu]; K = -X[:, :N], k = -X[:, N]: thread
+    // `row` solves columns row, row + kTeam, ...; then every column to the
+    // whole team
+    T v[kRounds][M];
 #pragma unroll
-    for (int col = 0; col <= N; ++col) {
+    for (int q = 0; q < kRounds; ++q) {
+      const int col = row + q * kTeam;
       T y[M], x[M];
 #pragma unroll
       for (int i = 0; i < M; ++i) {
-        T acc = (col < N) ? Qux[i][col] : Qu[i];
+        T acc = (col < N) ? pick(Qux[i], col) : Qu[i];
 #pragma unroll
         for (int k = 0; k < i; ++k) acc -= L[i][k] * y[k];
         y[i] = acc / L[i][i];
@@ -370,9 +482,15 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
         x[i] = acc / L[i][i];
       }
 #pragma unroll
+      for (int i = 0; i < M; ++i) v[q][i] = mask.gain(s, -x[i], i);
+    }
+    T K[M][N], kff[M];
+#pragma unroll
+    for (int col = 0; col <= N; ++col) {
+#pragma unroll
       for (int i = 0; i < M; ++i) {
-        const T v = mask.gain(s, -x[i], i);
-        if (col < N) K[i][col] = v; else kff[i] = v;
+        const T g = team(v[col / kTeam][i], col % kTeam);
+        if (col < N) K[i][col] = g; else kff[i] = g;
       }
     }
 
@@ -389,21 +507,26 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
       }
     }
 
-    // P = Qxx + K^T Quu K + K^T Qux + Qux^T K, then symmetrized
+    // row `row` of P = Qxx + K^T Quu K + K^T Qux + Qux^T K; the whole
+    // matrix to every thread of the team, then symmetrized
+    T Pn_row[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      T t1 = T(0), t2 = T(0), t3 = T(0);
+#pragma unroll
+      for (int a = 0; a < M; ++a) {
+        const T K_ar = pick(K[a], rr), Qux_ar = pick(Qux[a], rr);
+        t1 += K_ar * QuuK[a][j];
+        t2 += K_ar * Qux[a][j];
+        t3 += Qux_ar * K[a][j];
+      }
+      Pn_row[j] = ((Qxx_row[j] + t1) + t2) + t3;
+    }
     T Pn[N][N];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        T t1 = T(0), t2 = T(0), t3 = T(0);
-#pragma unroll
-        for (int a = 0; a < M; ++a) {
-          t1 += K[a][i] * QuuK[a][j];
-          t2 += K[a][i] * Qux[a][j];
-          t3 += Qux[a][i] * K[a][j];
-        }
-        Pn[i][j] = ((Qxx[i][j] + t1) + t2) + t3;
-      }
+      for (int j = 0; j < N; ++j) Pn[i][j] = team(Pn_row[j], i);
     }
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -424,23 +547,24 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
       p[i] = ((Qx[i] + t1) + t2) + t3;
     }
 
-    const size_t tt = static_cast<size_t>(t);
+    // thread `row` stores column `row` of K and row `row` of Qx and p;
+    // thread 0 also k and Qu
+    if (live && row < N) {
+      const size_t tt = static_cast<size_t>(t);
 #pragma unroll
-    for (int a = 0; a < M; ++a) {
+      for (int a = 0; a < M; ++a) out.K[((tt * M + a) * N + row) * B + b] = pick(K[a], row);
+      out.Qx[(tt * N + row) * B + b] = pick(Qx, row);
+      out.p[(tt * N + row) * B + b] = pick(p, row);
+      if (row == 0) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) out.K[((tt * M + a) * N + j) * B + b] = K[a][j];
-      out.k[(tt * M + a) * B + b] = kff[a];
-      out.Qu[(tt * M + a) * B + b] = Qu[a];
+        for (int a = 0; a < M; ++a) {
+          out.k[(tt * M + a) * B + b] = kff[a];
+          out.Qu[(tt * M + a) * B + b] = Qu[a];
+        }
+      }
     }
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      out.Qx[(tt * N + i) * B + b] = Qx[i];
-      out.p[(tt * N + i) * B + b] = p[i];
-    }
-
-    if (t > 0) cur = nxt;
   }
-  out.ok[b] = ok ? T(1) : T(0);
+  if (live && row == 0) out.ok[b] = ok ? T(1) : T(0);
 }
 
 template <int N, int M, typename T, class Load, class Mask>
@@ -448,15 +572,28 @@ int launch(Load load, Mask mask, const void* gxxT, const void* gxT, const void* 
            void* K, void* k, void* Qx, void* Qu, void* p, void* ok, int Tm1, int B,
            void* stream) {
   if (B > 0) {
-    const int blocks = (B + kThreads - 1) / kThreads;
+    auto* const kernel = riccati_kernel<N, M, T, Load, Mask>;
+    constexpr int bytes = Tile<N, M, T, Mask::kMasked>::kBytes;
+    static unsigned long long shared_set = 0;
+    const cudaError_t err = ring::allow_shared(kernel, bytes, shared_set);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int blocks = (B + ring::kLanes - 1) / ring::kLanes;
     const Outputs<T> out{static_cast<T*>(K), static_cast<T*>(k), static_cast<T*>(Qx),
                          static_cast<T*>(Qu), static_cast<T*>(p), static_cast<T*>(ok)};
-    riccati_kernel<N, M, T, Load, Mask>
-        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            load, mask, static_cast<const T*>(gxxT), static_cast<const T*>(gxT),
-            static_cast<const T*>(reg), out, Tm1, B);
+    kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+        load, mask, static_cast<const T*>(gxxT), static_cast<const T*>(gxT),
+        static_cast<const T*>(reg), out, Tm1, B, load.aligned(static_cast<size_t>(B)));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// the ring of an instantiation: its depth and its dynamic shared memory a
+// block
+template <int N, int M, typename T, bool kMasked>
+int ring_info(int* depth, int* bytes) {
+  *depth = kDepth;
+  *bytes = Tile<N, M, T, kMasked>::kBytes;
+  return 0;
 }
 
 template <int N, int M, typename T>
@@ -524,7 +661,17 @@ SevenArrays<N, M, T> seven(const void* fx, const void* fu, const void* gx, const
         Qx, Qu, p, ok, Tm1, B, stream);                                       \
   }
 
+// The ring of (n, m, dtype), masked (K6a, K6b) or not (K1, K5): its depth and
+// dynamic shared memory a block.
+#define RICCATI_RING_ENTRY(NAME, N, M, T)                          \
+  extern "C" int NAME(int masked, int* depth, int* bytes) {        \
+    return masked ? ring_info<N, M, T, true>(depth, bytes)         \
+                  : ring_info<N, M, T, false>(depth, bytes);       \
+  }
+
 #define RICCATI_FAMILY(N, M)                                                      \
+  RICCATI_RING_ENTRY(riccati_ring_f32_n##N##_m##M, N, M, float)                   \
+  RICCATI_RING_ENTRY(riccati_ring_f64_n##N##_m##M, N, M, double)                  \
   RICCATI_ENTRY(riccati_backward_f32_n##N##_m##M, N, M, float)                    \
   RICCATI_ENTRY(riccati_backward_f64_n##N##_m##M, N, M, double)                   \
   RICCATI_PACKED_ENTRY(riccati_packed_f32_n##N##_m##M, N, M, float)               \

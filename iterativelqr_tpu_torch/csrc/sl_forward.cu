@@ -23,10 +23,8 @@
 //
 // Layout: batch-last and contiguous, [T, *dims, B], as K1.  K3: threadIdx.x
 // walks 32 neighbouring lanes and the candidate rides threadIdx.y (and
-// blockIdx.y past 16 candidates), so the warps of a block read the same step
-// inputs (L1 serves the repeats) and every load of a warp coalesces.  K4:
-// one thread per lane; its stores of xs, us and c coalesce across the warp.
-// The ragged lane edge is masked.
+// blockIdx.y past 16 candidates).  K4: one thread per lane; its stores of
+// xs, us and c coalesce across the warp.  The ragged lane edge is masked.
 //
 // What bounds them.  Bytes: K3 reads xbar, ubar, K, k (and the stage duals
 // and penalties where the model has stage constraints) once per step and
@@ -39,23 +37,40 @@
 // acrobot's dynamics take four sin/cos each, so a step is a dependent chain
 // of several hundred instructions (chip_smoke.py counts them); 100 dependent
 // steps per lane make both kernels latency-bound, far above the byte bound.
-// This first design answers that only with K3's candidate warps (8-9 times
-// more warps than one thread per lane).  Staging the step inputs in shared
-// memory and prefetching them (cp.async, or registers as K1 does) is later
-// work.
+//
+// K3's design.  Loading each step's inputs inside the step (up to 10
+// __ldg's for acrobot; car and the quadrotor also read duals and penalty)
+// puts a full memory latency on every step's chain before its RK2 update,
+// with the candidate warps of a block waiting on the same lines at the same
+// time.  So a producer warp streams the block's step inputs into a ring of
+// tiles in shared memory ([slot][32 lanes], async_ring.cuh) up to kDepth
+// steps ahead, and every candidate warp reads them there: one copy a block
+// instead of one a candidate warp, and no global load on a step's chain.  A
+// tile is 10 slots x 128 B for acrobot in f32 (1.3 KB), 23 for car, 84 for
+// the quadrotor (10.8 KB; 21.5 KB in f64); kDepth is as many tiles as fit
+// 64 KB, at most 8 (acrobot and car 8, the quadrotor 6 in f32 and 3 in f64).
+// A candidate warp waits only when its next tile has not landed, and the
+// producer only when a candidate warp still reads the tile it would refill:
+// no block barrier a step, so the warps may drift up to kDepth steps apart.
+// What is left per step is the RK2 chain itself: the quadrotor, with 84
+// values a step to load, gains the most; acrobot, with 10, the least.  K4
+// loads its step inputs in the step.
 //
 // Numerics: the model's device functions (sl_model_*.cuh) repeat the torch
 // functions' operations in their order; alpha = 2^-j exactly (ldexp); sin,
 // cos and division are the precise ones (the build has no --use_fast_math).
 //
-// Build: iterativelqr_tpu_torch/_build.py.  Plain C entry points below, one
-// pair per instantiated (model, dtype); each returns cudaGetLastError().
+// Build: iterativelqr_tpu_torch/_build.py.  Plain C entry points below,
+// three per instantiated (model, dtype); the kernels' return
+// cudaGetLastError() (or the shared-memory attribute call's error).
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
+#include "async_ring.cuh"
 #include "sl_model_acrobot.cuh"
 #include "sl_model_car.cuh"
 #include "sl_model_quadrotor.cuh"
@@ -64,6 +79,8 @@ namespace {
 
 constexpr int kLanes = 32;
 constexpr int kMaxCandWarps = 16;
+constexpr int kProducerWarps = 1;   // K3: warps that copy the step tiles
+constexpr int kProducers = kProducerWarps * kLanes;
 constexpr int kMaxParams = 16;   // _MAX_PARAMS in ops/sl_forward_kernel.py
 
 // model parameters, passed by value with the launch
@@ -129,18 +146,105 @@ __device__ __forceinline__ void control(
   }
 }
 
+// K3's tile: one step's inputs for the block's 32 lanes, [slot][32 lanes]:
+// xbar_t (NX), ubar_t (NU), K_t (NU*NX), k_t (NU) and, where the model has
+// stage constraints, the stage rows of duals_t and penalty_t.  The ring
+// holds kDepth tiles, as many as fit kRingBudget (2 to 8).
+constexpr int kRingBudget = 64 * 1024;
+
 template <typename M, typename T>
-__global__ void __launch_bounds__(kLanes * kMaxCandWarps) sl_score_kernel(
+struct ScoreTile {
+  static constexpr int kXbar = 0, kUbar = kXbar + M::NX, kK = kUbar + M::NU,
+                       kKff = kK + M::NU * M::NX, kDuals = kKff + M::NU,
+                       kPen = kDuals + M::NC_STAGE, kSlots = kPen + M::NC_STAGE;
+  static constexpr int kValues = kSlots * kLanes;
+  static constexpr int kTileBytes = kValues * static_cast<int>(sizeof(T));
+  static constexpr int kFit = kRingBudget / kTileBytes;
+  static constexpr int kDepth = kFit < 2 ? 2 : (kFit > 8 ? 8 : kFit);
+  // the tiles, then each tile's full and empty mbarriers
+  static constexpr int kBytes = kDepth * kTileBytes + 2 * kDepth * 8;
+};
+
+// control() reading step t's xbar, ubar, K, k from this lane's column v of
+// the tile: the same operations in the same order
+template <typename M, typename T>
+__device__ __forceinline__ void control_tile(const T* x, const T* v, T alpha, T* u) {
+  using L = ScoreTile<M, T>;
+  T dx[M::NX];
+#pragma unroll
+  for (int j = 0; j < M::NX; ++j) dx[j] = x[j] - v[(L::kXbar + j) * kLanes];
+#pragma unroll
+  for (int a = 0; a < M::NU; ++a) {
+    T acc = T(0);
+#pragma unroll
+    for (int j = 0; j < M::NX; ++j) acc += v[(L::kK + a * M::NX + j) * kLanes] * dx[j];
+    u[a] = (v[(L::kUbar + a) * kLanes] + acc) + alpha * v[(L::kKff + a) * kLanes];
+  }
+}
+
+template <typename M, typename T>
+__global__ void __launch_bounds__(kLanes * kMaxCandWarps + kProducers) sl_score_kernel(
     const T* __restrict__ xbar, const T* __restrict__ ubar,
     const T* __restrict__ K, const T* __restrict__ k,
     const T* __restrict__ duals, const T* __restrict__ penalty,
     T* __restrict__ J_out, int horizon, int B_int, int j0, int nb,
-    Params params) {
-  const size_t b = static_cast<size_t>(blockIdx.x) * kLanes + threadIdx.x;
-  const int cand = blockIdx.y * blockDim.y + threadIdx.y;
+    Params params, bool vec) {
+  using L = ScoreTile<M, T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const tiles = reinterpret_cast<T*>(smem);
+  std::uint64_t* const full = reinterpret_cast<std::uint64_t*>(tiles + L::kDepth * L::kValues);
+  std::uint64_t* const empty = full + L::kDepth;
+  const int lane = threadIdx.x;
+  const int wy = blockDim.y - kProducerWarps;     // candidate warps; then the producers
+  const int cand0 = blockIdx.y * wy;
+  const int warps = nb - cand0 < wy ? nb - cand0 : wy;   // those with a candidate
+  const size_t b0 = static_cast<size_t>(blockIdx.x) * kLanes;
   const size_t B = static_cast<size_t>(B_int);
-  if (b >= B || cand >= nb) return;
   const int Tm1 = horizon - 1;
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    for (int s = 0; s < L::kDepth; ++s) {
+      // full: each producer thread arrives when its copies have landed;
+      // empty: each candidate thread once it has read the tile
+      ring::bar_init(&full[s], kProducers);
+      ring::bar_init(&empty[s], kLanes * warps);
+    }
+    ring::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (static_cast<int>(threadIdx.y) >= wy) {
+    // the producer warps: step t into tile t % kDepth once every candidate
+    // warp has read what the tile held kDepth steps before
+    const int tid = (threadIdx.y - wy) * kLanes + lane;
+    constexpr int P = kProducers;
+    for (int t = 0; t < Tm1; ++t) {
+      const int s = t % L::kDepth;
+      if (t >= L::kDepth) ring::bar_wait(&empty[s], ((t / L::kDepth) + 1) & 1);
+      T* tile = tiles + s * L::kValues;
+      const size_t tt = static_cast<size_t>(t);
+      ring::copy_rows<M::NX, M::NX, P>(tile + L::kXbar * kLanes, xbar, tt, B, b0, tid, vec);
+      ring::copy_rows<M::NU, M::NU, P>(tile + L::kUbar * kLanes, ubar, tt, B, b0, tid, vec);
+      ring::copy_rows<M::NU * M::NX, M::NU * M::NX, P>(tile + L::kK * kLanes, K, tt, B, b0, tid,
+                                                       vec);
+      ring::copy_rows<M::NU, M::NU, P>(tile + L::kKff * kLanes, k, tt, B, b0, tid, vec);
+      if constexpr (M::NC_STAGE > 0) {
+        ring::copy_rows<M::NC_STAGE, M::NC, P>(tile + L::kDuals * kLanes, duals, tt, B, b0, tid,
+                                               vec);
+        ring::copy_rows<M::NC_STAGE, M::NC, P>(tile + L::kPen * kLanes, penalty, tt, B, b0, tid,
+                                               vec);
+      }
+      ring::bar_arrive_on_copies(&full[s]);
+    }
+    ring::wait_all();
+    return;
+  }
+  if (static_cast<int>(threadIdx.y) >= warps) return;   // past the last candidate
+
+  // a candidate warp: a lane past the edge reads the tiles (zeros) and
+  // releases them, but computes and stores nothing
+  const size_t b = b0 + lane;
+  const int cand = cand0 + threadIdx.y;
+  const bool live = b < B;
 
   T prm[at_least_one<M::NP>()];
   load_params<M>(params, prm);
@@ -148,25 +252,38 @@ __global__ void __launch_bounds__(kLanes * kMaxCandWarps) sl_score_kernel(
 
   T x[M::NX];
 #pragma unroll
-  for (int i = 0; i < M::NX; ++i) x[i] = __ldg(xbar + i * B + b);
+  for (int i = 0; i < M::NX; ++i) x[i] = live ? __ldg(xbar + i * B + b) : T(0);
   T J = T(0);
+
   for (int t = 0; t < Tm1; ++t) {
-    const size_t tt = static_cast<size_t>(t);
-    T u[M::NU];
-    control<M>(x, xbar, ubar, K, k, tt, b, B, alpha, u);
-    J += M::stage_cost(x, u, prm);
-    if constexpr (M::NC_STAGE > 0) {
-      T c[at_least_one<M::NC_STAGE>()], lam[at_least_one<M::NC_STAGE>()],
-          rho[at_least_one<M::NC_STAGE>()];
-      M::stage_con(x, u, prm, c);
-      load_al<M, M::NC_STAGE>(duals, penalty, tt, b, B, lam, rho);
-      J += al_term<M::NC_STAGE>(c, lam, rho, M::INEQ_STAGE);
-    }
-    T xn[M::NX];
-    M::dyn(x, u, prm, xn);
+    const int s = t % L::kDepth;
+    ring::bar_wait(&full[s], (t / L::kDepth) & 1);
+    if (live) {
+      const T* v = tiles + s * L::kValues + lane;
+      T u[M::NU];
+      control_tile<M>(x, v, alpha, u);
+      J += M::stage_cost(x, u, prm);
+      if constexpr (M::NC_STAGE > 0) {
+        T c[at_least_one<M::NC_STAGE>()], lam[at_least_one<M::NC_STAGE>()],
+            rho[at_least_one<M::NC_STAGE>()];
+        M::stage_con(x, u, prm, c);
 #pragma unroll
-    for (int i = 0; i < M::NX; ++i) x[i] = xn[i];
+        for (int i = 0; i < M::NC_STAGE; ++i) {
+          lam[i] = v[(L::kDuals + i) * kLanes];
+          rho[i] = v[(L::kPen + i) * kLanes];
+        }
+        J += al_term<M::NC_STAGE>(c, lam, rho, M::INEQ_STAGE);
+      }
+      ring::bar_arrive(&empty[s]);
+      T xn[M::NX];
+      M::dyn(x, u, prm, xn);
+#pragma unroll
+      for (int i = 0; i < M::NX; ++i) x[i] = xn[i];
+    } else {
+      ring::bar_arrive(&empty[s]);
+    }
   }
+  if (!live) return;
   J += M::term_cost(x, prm);
   if constexpr (M::NC_TERM > 0) {
     T c[at_least_one<M::NC_TERM>()], lam[at_least_one<M::NC_TERM>()],
@@ -255,14 +372,23 @@ int launch_score(const void* xbar, const void* ubar, const void* K,
                  const void* params, void* stream) {
   static_assert(M::NP <= kMaxParams, "too many model parameters");
   if (B > 0 && nb > 0 && horizon > 0) {
+    auto* const kernel = sl_score_kernel<M, T>;
+    constexpr int bytes = ScoreTile<M, T>::kBytes;
+    static unsigned long long shared_set = 0;
+    const cudaError_t err = ring::allow_shared(kernel, bytes, shared_set);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t Bs = static_cast<size_t>(B);
+    const bool vec = M::NC_STAGE > 0
+                         ? ring::runs_aligned<T>(Bs, {xbar, ubar, K, k, duals, penalty})
+                         : ring::runs_aligned<T>(Bs, {xbar, ubar, K, k});
     const int wy = nb < kMaxCandWarps ? nb : kMaxCandWarps;
-    const dim3 block(kLanes, wy);
+    const dim3 block(kLanes, wy + kProducerWarps);   // candidate warps, then the producers
     const dim3 grid((B + kLanes - 1) / kLanes, (nb + wy - 1) / wy);
-    sl_score_kernel<M, T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<grid, block, bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(xbar), static_cast<const T*>(ubar),
         static_cast<const T*>(K), static_cast<const T*>(k),
         static_cast<const T*>(duals), static_cast<const T*>(penalty),
-        static_cast<T*>(J), horizon, B, j0, nb, copy_params<M>(params));
+        static_cast<T*>(J), horizon, B, j0, nb, copy_params<M>(params), vec);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -288,8 +414,8 @@ int launch_reroll(const void* alpha, const void* xbar, const void* ubar,
 
 }  // namespace
 
-// One pair of C entry points per (model, dtype): sl_score_<name> and
-// sl_reroll_<name>, named as ops/sl_forward_kernel.py::_kernel_fn looks
+// C entry points per (model, dtype): sl_score_<name>, sl_reroll_<name> and
+// sl_score_ring_<name> (K3's ring depth and shared memory a block), named as ops/sl_forward_kernel.py::_kernel_fn looks
 // them up (<name> = <DeviceModel.name>_<f32|f64>).
 #define SL_ENTRIES(NAME, MODEL, T)                                             \
   extern "C" int sl_score_##NAME(                                              \
@@ -306,6 +432,11 @@ int launch_reroll(const void* alpha, const void* xbar, const void* ubar,
       void* stream) {                                                          \
     return launch_reroll<MODEL, T>(alpha, xbar, ubar, K, k, duals, penalty,    \
                                    xs, us, J, c, horizon, B, params, stream);  \
+  }                                                                            \
+  extern "C" int sl_score_ring_##NAME(int* depth, int* bytes) {                \
+    *depth = ScoreTile<MODEL, T>::kDepth;                                      \
+    *bytes = ScoreTile<MODEL, T>::kBytes;                                      \
+    return 0;                                                                  \
   }
 
 SL_ENTRIES(acrobot_f32, sl_models::Acrobot, float)

@@ -26,6 +26,7 @@ of ``pad_stacks_sl``, and ``pack_stacks``).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -271,6 +272,30 @@ def _kernel_fn(symbol: str, n_pointers: int):
     return fn
 
 
+def ring_entry(symbol: str, *args) -> tuple:
+    """(tiles, bytes of dynamic shared memory a block) from a C entry of the
+    kernel library that reports a kernel's ring of step tiles
+    (``csrc/async_ring.cuh``); ``args`` are its int arguments."""
+    fn = getattr(_build.load_library(), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
+    depth, nbytes = ctypes.c_int(), ctypes.c_int()
+    if fn(*args, ctypes.byref(depth), ctypes.byref(nbytes)) != 0:
+        raise RuntimeError(f"{symbol} failed")
+    return depth.value, nbytes.value
+
+
+def riccati_ring(n: int, m: int, dtype: torch.dtype, masked: bool) -> tuple:
+    """The ring of K1's recursion template at (n, m, dtype), masked (K6a,
+    K6b) or not (K1, K5): (tiles, bytes of shared memory a block).  Builds
+    the kernels on first use."""
+    name = _symbol("riccati_ring", _INSTANTIATIONS,
+                   "riccati_backward.cu (RICCATI_FAMILY) and _INSTANTIATIONS",
+                   n, m, dtype)
+    return ring_entry(name, int(masked))
+
+
 def new_outputs(Tm1, n, m, B, dtype, device):
     """Empty batch-last (K, k, Qx, Qu, p, ok) for a kernel to write."""
     shapes = ((Tm1, m, n, B), (Tm1, m, B), (Tm1, n, B), (Tm1, m, B),
@@ -382,7 +407,8 @@ def pack_slots(stacks):
     [Tm1, *dims, B]) -> one contiguous [Tm1, F, B] buffer, slots in that
     order (``_offsets``)."""
     Tm1, B = stacks[0].shape[0], stacks[0].shape[-1]
-    return torch.cat([a.reshape(Tm1, -1, B) for a in stacks], dim=1)
+    # slot counts from the shapes, not -1: an empty horizon (Tm1 = 0) too
+    return torch.cat([a.reshape(Tm1, math.prod(a.shape[1:-1]), B) for a in stacks], dim=1)
 
 
 def pack_stacks(fx, fu, gx, gu, gxx, guu, gux, u_mask):

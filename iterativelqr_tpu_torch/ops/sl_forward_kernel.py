@@ -45,7 +45,7 @@ from torch.func import vmap
 from .. import _build
 from ..core.spec import ProblemSpec
 from ..models import acrobot, car, quadrotor
-from .packed_backward import LaunchCounter, _check
+from .packed_backward import LaunchCounter, _check, ring_entry
 from .packed_pipeline import map2
 
 SCORE_LAUNCHES = LaunchCounter()
@@ -372,6 +372,12 @@ def _kernel_fn(kind: str, model: DeviceModel, dtype):
                        + [ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn, symbol
+
+
+def score_ring(model: DeviceModel, dtype) -> tuple:
+    """K3's ring of step tiles for a device model and dtype: (tiles, bytes
+    of shared memory a block).  Builds the kernels on first use."""
+    return ring_entry(f"sl_score_ring_{model.name}_{_DTYPES[dtype]}")
 
 
 def _check_inputs(r: Rollouts, xbar, ubar, ws, K, k, duals, penalty):

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from iterativelqr_tpu_torch import Cost, build_spec
+from iterativelqr_tpu_torch import Constraint, Cost, build_spec
 from iterativelqr_tpu_torch.models import acrobot, car, quadrotor
 from iterativelqr_tpu_torch.ops import packed_backward as pk
 from iterativelqr_tpu_torch.ops import sl_forward_kernel as fk
@@ -32,34 +32,55 @@ def _stacks(rng, B, Tm1, n, m):
     return [fx, fu, gx, gu, gxx, guu, gux]
 
 
+def _assert_close_scaled(out, ref, tol):
+    """Every output within tol relative to its largest value (NaN where the
+    plain version has NaN)."""
+    for a, b in zip(out, ref):
+        finite = b[~torch.isnan(b)]
+        scale = float(finite.abs().max()) if finite.numel() else 1.0
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol * max(scale, 1.0),
+                                   equal_nan=True)
+
+
+def _ring_edges(depth):
+    """(B, Tm1) cases around K1's ring of ``depth`` step tiles: the main
+    path's shape, a ragged lane edge on the 16-byte copies (1000), one whose
+    runs are not 16-byte aligned (4097: the one-value copies), a single
+    partial block (31), and horizons shorter than, just under and just over
+    the ring (Tm1 = 0 runs no step)."""
+    return ((4096, 100), (1000, 100), (4097, 100), (31, 100),
+            (64, 0), (64, 1), (64, depth - 1), (64, depth + 1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 def test_riccati_kernel_matches_plain(dtype, tol):
-    """K1 at the main path's shapes (acrobot n=4, m=1, T=101, B=4096), with
+    """K1 at the main path's shapes (acrobot n=4, m=1, T=101, B=4096) and
+    at the edges of its ring of step tiles (``_ring_edges``), with
     indefinite Quu on every 61st lane.  Tolerance relative to the largest
     value: the two sum in other orders (and the kernel contracts to FMA)
     through a 100-step recursion."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    B, Tm1, n, m = 4096, 100, 4, 1
-    st = _stacks(np.random.default_rng(5), B, Tm1, n, m)
-    bad = np.zeros(B, bool)
-    bad[::61] = True
-    st[5][50, 0, 0, bad] = -1.0e3
-    dev = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in st]
-    kin = [a.contiguous() for a in pk.prepare_stacks(
-        *dev, torch.ones((Tm1, m), dtype=torch.bool))]
-    reg = torch.zeros(B, dtype=dtype, device="cuda")
-    before = pk.RICCATI_LAUNCHES.launches
-    out = pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
-    torch.cuda.synchronize()
-    assert pk.RICCATI_LAUNCHES.launches == before + 1
-    ref = pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg)
-    for a, b in zip(out, ref):
-        scale = float(b[~torch.isnan(b)].abs().max())
-        torch.testing.assert_close(a, b, rtol=tol, atol=tol * max(scale, 1.0),
-                                   equal_nan=True)
-    assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad))
+    n, m = 4, 1
+    depth, _ = pk.riccati_ring(n, m, dtype, masked=False)
+    for B, Tm1 in _ring_edges(depth):
+        st = _stacks(np.random.default_rng(5), B, Tm1, n, m)
+        bad = np.zeros(B, bool)
+        if Tm1 > 0:
+            bad[::61] = True
+            st[5][Tm1 // 2, 0, 0, bad] = -1.0e3
+        dev = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in st]
+        kin = [a.contiguous() for a in pk.prepare_stacks(
+            *dev, torch.ones((Tm1, m), dtype=torch.bool))]
+        reg = torch.zeros(B, dtype=dtype, device="cuda")
+        before = pk.RICCATI_LAUNCHES.launches
+        out = pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
+        torch.cuda.synchronize()
+        assert pk.RICCATI_LAUNCHES.launches == before + 1
+        ref = pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg)
+        _assert_close_scaled(out, ref, tol)
+        assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad)), (B, Tm1)
 
 
 def _wide_stacks(rng, B, Tm1, n, m):
@@ -145,8 +166,11 @@ def _rollout_case(name, T, B, dtype, seed):
     lam = 0 on half the lanes (there an inequality row with c < 0 is
     inactive) and, for car and the quadrotor, lanes that head through the
     obstacle or push a control past its bound (active rows)."""
-    mod = {"acrobot": acrobot, "car": car, "quadrotor": quadrotor}[name]
-    spec = build_spec(*mod.problem(T)[:3])
+    mod = {"acrobot": acrobot, "acrobot_nc0": acrobot, "car": car, "quadrotor": quadrotor}[name]
+    dyn, cost, con = mod.problem(T)[:3]
+    if name == "acrobot_nc0":
+        con = [Constraint() for _ in range(T)]   # the goal dropped: no constraint rows
+    spec = build_spec(dyn, cost, con)
     r = fk.Rollouts(spec, "cuda")
     rng = np.random.default_rng(seed)
     nx, nu, nc, Tm1 = spec.nx, spec.nu, spec.nc, T - 1
@@ -187,31 +211,36 @@ def _close(a, b, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,T", [("acrobot", 101), ("car", 51), ("quadrotor", 41)])
+@pytest.mark.parametrize("name,T", [("acrobot", 101), ("acrobot_nc0", 101), ("car", 51),
+                                    ("quadrotor", 41)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 def test_rollout_kernels_match_plain(name, T, dtype, tol):
     """K3 (head, tail, and 20 candidates over two block rows) and K4 against
-    their plain versions on the same card inputs, B=1000 (a ragged lane
-    edge).  Tolerance relative to the largest value, as K1's: the two sum
-    in other orders and the kernels contract to FMA, through T-1 steps."""
+    their plain versions on the same card inputs, for every registered
+    device model: B=1000 (a ragged lane edge), B=4097 (runs not 16-byte
+    aligned: K3's one-value copies), and horizons around K3's ring of D
+    step tiles (T = 2, D, D+1).  Tolerance relative to the largest value,
+    as K1's: the two sum in other orders and the kernels contract to FMA,
+    through T-1 steps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    B = 1000
-    r, live = _rollout_case(name, T, B, dtype, seed=3)
-    before = (fk.SCORE_LAUNCHES.launches, fk.REROLL_LAUNCHES.launches)
-    for j0, nb in ((0, 8), (8, 9), (0, 20)):
-        J = fk.score_rollout(r, j0, nb, *live)
+    depth, _ = fk.score_ring(_rollout_case(name, 2, 32, dtype, seed=3)[0].model, dtype)
+    for B, TT in ((1000, T), (4097, T), (4097, 2), (4097, depth), (4097, depth + 1)):
+        r, live = _rollout_case(name, TT, B, dtype, seed=3)
+        before = (fk.SCORE_LAUNCHES.launches, fk.REROLL_LAUNCHES.launches)
+        for j0, nb in ((0, 8), (8, 9), (0, 20)):
+            J = fk.score_rollout(r, j0, nb, *live)
+            torch.cuda.synchronize()
+            _close(J, fk.score_rollout_reference(r, j0, nb, *live), tol)
+        rng = np.random.default_rng(4)
+        alpha = torch.as_tensor(0.5 ** rng.integers(0, 17, B), dtype=dtype,
+                                device="cuda")
+        outs = fk.winner_reroll(r, alpha, *live)
         torch.cuda.synchronize()
-        _close(J, fk.score_rollout_reference(r, j0, nb, *live), tol)
-    rng = np.random.default_rng(4)
-    alpha = torch.as_tensor(0.5 ** rng.integers(0, 17, B), dtype=dtype,
-                            device="cuda")
-    outs = fk.winner_reroll(r, alpha, *live)
-    torch.cuda.synchronize()
-    for a, b in zip(outs, fk.winner_reroll_reference(r, alpha, *live)):
-        _close(a, b, tol)
-    assert (fk.SCORE_LAUNCHES.launches, fk.REROLL_LAUNCHES.launches) == (
-        before[0] + 3, before[1] + 1)
+        for a, b in zip(outs, fk.winner_reroll_reference(r, alpha, *live)):
+            _close(a, b, tol)
+        assert (fk.SCORE_LAUNCHES.launches, fk.REROLL_LAUNCHES.launches) == (
+            before[0] + 3, before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -240,56 +269,57 @@ def test_rollout_kernels_refuse_what_they_cannot_run():
 @pytest.mark.parametrize("kernel,n,m", [("K5", 4, 1), ("K6a", 4, 1), ("K6a", 3, 2),
                                         ("K6b", 4, 1), ("K6b", 3, 2)])
 def test_packed_and_masked_kernels_match_plain(kernel, n, m, dtype, tol):
-    """K5, K6a and K6b at T=101, B=1000 (a ragged lane edge) against their
-    plain versions, with indefinite Quu on every 61st lane; at (3, 2) the
-    last action is masked with nonzero derivative entries, so the mask is
-    what zeroes its gains.  A per-lane regularizer drawn from [1e-3, 1], so
-    K5's whole-diagonal reg and K6's reg * um (and K6b's order of adding and
+    """K5, K6a and K6b at T=101, B=1000 (a ragged lane edge) and at the
+    edges of their ring of step tiles (``_ring_edges``) against their plain
+    versions, with indefinite Quu on every 61st lane; at (3, 2) the last
+    action is masked with nonzero derivative entries, so the mask is what
+    zeroes its gains.  A per-lane regularizer drawn from [1e-3, 1], so K5's
+    whole-diagonal reg and K6's reg * um (and K6b's order of adding and
     taking it back) are held against the plain versions.  Tolerances as
     K1's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from iterativelqr_tpu_torch.ops import pallas_backward as pb
 
-    B, Tm1 = 1000, 100
+    depth, _ = pk.riccati_ring(n, m, dtype, masked=kernel != "K5")
     make = _stacks if m == 1 else _wide_stacks
-    rng = np.random.default_rng(8)
-    st = make(rng, B, Tm1, n, m)
-    bad = np.zeros(B, bool)
-    bad[::61] = True
-    st[5][50, 0, 0, bad] = -1.0e3
-    st = [torch.as_tensor(a, dtype=dtype, device="cuda").contiguous() for a in st]
-    um = torch.ones((Tm1, m), dtype=dtype, device="cuda")
-    if m > 1:
-        um[:, -1] = 0.0
-    reg = torch.as_tensor(rng.uniform(1e-3, 1.0, B), dtype=dtype, device="cuda")
-    if kernel == "K5":
-        packed, gxxT, gxT, meta = pk.pack_stacks_bt(*st, um > 0.5)
-        counter = pk.RICCATI_PACKED_LAUNCHES
-        run = lambda: pk.backward_pass_packed(packed, gxxT, gxT, reg, meta)
-        plain = lambda: pk.backward_pass_packed_reference(packed, gxxT, gxT, reg, meta)
-    elif kernel == "K6a":
-        counter = pb.RICCATI_MASKED_LAUNCHES
-        run = lambda: pb.backward_pass_masked(*st, um, reg)
-        plain = lambda: pb.backward_pass_masked_reference(*st, um, reg)
-    else:
-        packed = pk.pack_slots((st[0], st[1], st[2][:-1], st[3], st[4][:-1], st[5], st[6]))
-        gxxT, gxT, meta = st[4][-1].contiguous(), st[2][-1].contiguous(), dict(n=n, m=m)
-        counter = pb.RICCATI_MASKED_PACKED_LAUNCHES
-        run = lambda: pb.backward_pass_masked_packed(packed, gxxT, gxT, um, reg, meta)
-        plain = lambda: pb.backward_pass_masked_packed_reference(packed, gxxT, gxT, um, reg, meta)
-    before = counter.launches
-    out = run()
-    torch.cuda.synchronize()
-    assert counter.launches == before + 1
-    for a, b in zip(out, plain()):
-        scale = float(b[~torch.isnan(b)].abs().max())
-        torch.testing.assert_close(a, b, rtol=tol, atol=tol * max(scale, 1.0),
-                                   equal_nan=True)
-    assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad))
-    if m > 1 and kernel != "K5":
-        good = torch.as_tensor(~bad, device="cuda")
-        assert bool((out[0][:, -1][..., good] == 0).all())
+    for B, Tm1 in _ring_edges(depth):
+        rng = np.random.default_rng(8)
+        st = make(rng, B, Tm1, n, m)
+        bad = np.zeros(B, bool)
+        if Tm1 > 0:
+            bad[::61] = True
+            st[5][Tm1 // 2, 0, 0, bad] = -1.0e3
+        st = [torch.as_tensor(a, dtype=dtype, device="cuda").contiguous() for a in st]
+        um = torch.ones((Tm1, m), dtype=dtype, device="cuda")
+        if m > 1:
+            um[:, -1] = 0.0
+        reg = torch.as_tensor(rng.uniform(1e-3, 1.0, B), dtype=dtype, device="cuda")
+        if kernel == "K5":
+            packed, gxxT, gxT, meta = pk.pack_stacks_bt(*st, um > 0.5)
+            counter = pk.RICCATI_PACKED_LAUNCHES
+            run = lambda: pk.backward_pass_packed(packed, gxxT, gxT, reg, meta)
+            plain = lambda: pk.backward_pass_packed_reference(packed, gxxT, gxT, reg, meta)
+        elif kernel == "K6a":
+            counter = pb.RICCATI_MASKED_LAUNCHES
+            run = lambda: pb.backward_pass_masked(*st, um, reg)
+            plain = lambda: pb.backward_pass_masked_reference(*st, um, reg)
+        else:
+            packed = pk.pack_slots((st[0], st[1], st[2][:-1], st[3], st[4][:-1], st[5], st[6]))
+            gxxT, gxT, meta = st[4][-1].contiguous(), st[2][-1].contiguous(), dict(n=n, m=m)
+            counter = pb.RICCATI_MASKED_PACKED_LAUNCHES
+            run = lambda: pb.backward_pass_masked_packed(packed, gxxT, gxT, um, reg, meta)
+            plain = lambda: pb.backward_pass_masked_packed_reference(packed, gxxT, gxT, um, reg,
+                                                                     meta)
+        before = counter.launches
+        out = run()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        _assert_close_scaled(out, plain(), tol)
+        assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad)), (B, Tm1)
+        if m > 1 and kernel != "K5":
+            good = torch.as_tensor(~bad, device="cuda")
+            assert bool((out[0][:, -1][..., good] == 0).all())
 
 
 @pytest.mark.cuda
