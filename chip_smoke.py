@@ -19,17 +19,20 @@ Phases, each of which raises (non-zero exit) when it fails:
 3b. K3 and K4 (csrc/sl_forward.cu) against their plain versions on the
    card: acrobot T=101, car T=51 and quadrotor T=41, B=4096, f64 and f32,
    K3 for the 8-candidate head (j0=0) and the 9-candidate tail (j0=8), K4
-   at per-lane step sizes; random non-converged gains from a numpy seed,
+   at per-lane step sizes alpha = 2^-j, and K4's J equal to K3's J of
+   candidate j on every lane; random non-converged gains from a numpy seed,
    car and quadrotor with inactive (c < 0, lam = 0) and active inequality
    rows; median times of both, the byte and operation bounds and the
-   share of the bound, and K3's ring;
-3c. K5, K6a and K6b (csrc/riccati_backward.cu) against their plain versions
-   at T=101, B=4096, f64 and f32: (4, 1), and for K6a/K6b also (3, 2) with
-   the last action masked and its derivative entries nonzero; a per-lane
+   share of the bound, and the model's ring (or its direct loads);
+3c. K5, K6a and K6b against their plain versions at B=4096, f64 and f32:
+   on K1's template (csrc/riccati_backward.cu) at (4, 1), T=101, and for
+   K6a/K6b also (3, 2) with the last action masked and its derivative
+   entries nonzero; on K2's template (csrc/riccati_backward_wide.cu) at the
+   quadrotor's (12, 4), T=41, the last action masked too; a per-lane
    regularizer; each with a batch whose Quu is indefinite on every 61st
    lane; the kernel's median time, its batch-leading entry's (with the
    transposes or packing; K5's launches are those of this entry), the plain
-   version's, the bound and its share, and the ring (K1's);
+   version's, the bound and its share, and the template's ring;
 4. the slice end to end: make_batched_solve_fn + batch_stats on acrobot
    T=101, f32, under the bench.py presets "tuned" and "parity", with
    bench.py's initial-guess protocol, each with the loop rollouts
@@ -46,8 +49,11 @@ Phases, each of which raises (non-zero exit) when it fails:
    (traces on, the "auto" backward = the reverse scan, loop rollouts) at
    B=B_VMAP_LOOP=64, and at B=4096 the tuned preset with traces through
    make_solve_fn(..., backward_impl=make_backward_dispatch(variant="v1" |
-   "v2")).vmap() (K6a, K6b); solved fraction from batch_stats and recomputed, iterations, wall,
-   K6 launches, loop trips and host syncs, every iteration's trace write
+   "v2")).vmap() (K6a, K6b); then the same two dispatches on the quadrotor
+   at T=41, B=4096 (the wide K6a, K6b on K2's template); solved fraction
+   from batch_stats and recomputed, iterations, wall, K6 launches (equal to
+   the backward attempts, the regularization loop's tests), loop trips
+   and host syncs, every iteration's trace write
    (trace_mask's count plus the slots a truncated round's successor wrote
    again = iterations), and a per-iteration split of derive, backward and
    line search;
@@ -154,6 +160,8 @@ def bound_ms(nbytes, ops):
 
 
 def ring_line(ring):
+    if ring[0] == 0:
+        return "; no ring: the step inputs are loaded in the step"
     return f"; ring of {ring[0]} step tiles, {ring[1]} B of dynamic shared memory a block"
 
 
@@ -306,8 +314,7 @@ def check_riccati(pk, label):
                     line += f"; {b_ms / k_ms:.1%} of the bound"
                     record = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
                                   bound_ms=b_ms, bound_by=b_by)
-                if label == "K1":
-                    line += ring_line(pk.riccati_ring(n, m, dtype, False))
+                line += ring_line(pk.riccati_ring(n, m, dtype, False))
             log(line)
     return record
 
@@ -341,10 +348,13 @@ def masked_case(seed, B, Tm1, n, m, case, dtype):
             torch.as_tensor(reg, dtype=dtype, device="cuda"), bad)
 
 
-# label -> (launch counter name, (n, m) pairs)
-PACKED_MASKED_CASES = {"K5": ("riccati_packed", ((4, 1),)),
-                       "K6a": ("riccati_masked", ((4, 1), (3, 2))),
-                       "K6b": ("riccati_masked_packed", ((4, 1), (3, 2)))}
+# label -> (launch counter name, (n, m, T) cases); a wide (n, m) runs on K2's
+# template and counts on "<name>_wide"
+PACKED_MASKED_CASES = {"K5": ("riccati_packed", ((4, 1, T_MAIN), (12, 4, T_QUAD))),
+                       "K6a": ("riccati_masked", ((4, 1, T_MAIN), (3, 2, T_MAIN), (12, 4, T_QUAD))),
+                       "K6b": ("riccati_masked_packed",
+                               ((4, 1, T_MAIN), (3, 2, T_MAIN), (12, 4, T_QUAD)))}
+WIDE = (12, 4)
 
 
 def packed_masked_runs(pk, pb, label, st, um, reg):
@@ -376,16 +386,19 @@ def packed_masked_runs(pk, pb, label, st, um, reg):
 def check_packed_masked(pk, pb, label):
     """K5, K6a or K6b = plain within K1's tolerances, NaN positions and ok
     equal, ok = 0 exactly on the indefinite lanes, masked gains exactly 0;
-    f64 and f32 at T=101, B=4096.  Every call of the batch-leading entry
-    runs with the launch counts set to 0 just before and read just after: it
-    must launch its kernel once and nothing else.  Returns the f32 (4, 1)
-    record; K5's holds the launches of its entry at those shapes (K5 runs in
-    no solve of the JAX package: this call is its path)."""
-    kname, dims = PACKED_MASKED_CASES[label]
-    B, Tm1 = B_MAIN, T_MAIN - 1
+    f64 and f32 at B=4096, T=101 on K1's template and T=41 on K2's.  Every
+    call of the batch-leading entry runs with the launch counts set to 0
+    just before and read just after: it must launch its kernel once and
+    nothing else.  Returns the f32 records of (4, 1) and (12, 4), keyed by
+    counter name; K5's hold the launches of its entry at those shapes (K5
+    runs in no solve of the JAX package: this call is its path)."""
+    base, dims = PACKED_MASKED_CASES[label]
+    B = B_MAIN
     tols = {torch.float64: 1e-10, torch.float32: 1e-4}
-    record = {}
-    for n, m in dims:
+    records = {}
+    for n, m, T in dims:
+        Tm1 = T - 1
+        kname = base + ("_wide" if (n, m) == WIDE else "")
         for case in ("well_conditioned", "indefinite_lanes"):
             for dtype, tol in tols.items():
                 st, um, reg, bad = masked_case(SEED, B, Tm1, n, m, case, dtype)
@@ -430,7 +443,7 @@ def check_packed_masked(pk, pb, label):
                     if not bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()):
                         raise AssertionError(f"{label} {case} {dtype}: the entry's {name} differs from the kernel's")
                 dn = str(dtype).split(".")[-1]
-                line = (f"[{label.lower()}] {kname} n={n} m={m} T={T_MAIN} B={B} {case} {dn}: "
+                line = (f"[{label.lower()}] {kname} n={n} m={m} T={T} B={B} {case} {dn}: "
                         f"max |kernel - plain| {max_abs:.3e} (tol {tol:g} relative), ok equal, "
                         f"{int((ok == 0).sum())} lanes ok=0" + ("; masked gains 0" if m > 1 and label != "K5" else ""))
                 if case == "well_conditioned":
@@ -445,14 +458,14 @@ def check_packed_masked(pk, pb, label):
                         b_ms, b_by = bound_ms(nbytes, ops)
                         line += (f"; bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.4f} MB, "
                                  f"{ops / 1e9:.3f} G operations); {b_ms / k_ms:.1%} of the bound")
-                        if (n, m) == (4, 1):
-                            record = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
-                                          bound_ms=b_ms, bound_by=b_by, entry_ms=e_ms)
+                        if (n, m) in ((4, 1), WIDE):
+                            records[kname] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
+                                                  bound_ms=b_ms, bound_by=b_by, entry_ms=e_ms)
                             if label == "K5":
-                                record["launches"] = path[kname]
+                                records[kname]["launches"] = path[kname]
                     line += ring_line(pk.riccati_ring(n, m, dtype, label != "K5"))
                 log(line)
-    return record
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -566,6 +579,16 @@ def check_rollouts(fk):
                  lambda: fk.winner_reroll(r, alpha, *live),
                  lambda: fk.winner_reroll_reference(r, alpha, *live), None),
             )
+            # K4 at alpha = 2^-j on each lane: its J must be K3's J of candidate j
+            j = torch.round(-torch.log2(alpha)).long()
+            J3 = fk.score_rollout(r, 0, 17, *live)[j, torch.arange(B_MAIN, device="cuda")]
+            J4 = fk.winner_reroll(r, alpha, *live)[2]
+            same = (J4 == J3) | (torch.isnan(J4) & torch.isnan(J3))
+            if not bool(same.all()):
+                raise AssertionError(f"K4's J differs from K3's at the same alpha on "
+                                     f"{int((~same).sum())} lanes ({name} {dn})")
+            log(f"[rollout] {name} T={T} B={B_MAIN} {dn}: K4's J equals K3's J at the same alpha "
+                f"on every lane")
             for kname, what, kern, plain, nb in runs:
                 outs = kern()
                 torch.cuda.synchronize()
@@ -584,8 +607,7 @@ def check_rollouts(fk):
                     if name == "acrobot" and what != "tail j0=8 nb=9":
                         records[kname] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                                               bound_ms=b_ms, bound_by=b_by)
-                if kname == "sl_score_rollout":
-                    line += ring_line(fk.score_ring(r.model, dtype))
+                line += ring_line(fk.rollout_ring(r.model, dtype))
                 log(line)
     return records
 
@@ -643,7 +665,8 @@ def recomputed_solved_fraction(spec, sol, ws, tol):
 
 LAUNCH_NAMES = ("riccati_backward", "riccati_backward_wide", "sl_score_rollout",
                 "sl_winner_reroll", "riccati_packed", "riccati_masked",
-                "riccati_masked_packed")
+                "riccati_masked_packed", "riccati_packed_wide", "riccati_masked_wide",
+                "riccati_masked_packed_wide")
 
 
 def counters():
@@ -655,7 +678,10 @@ def counters():
                                    fk.SCORE_LAUNCHES, fk.REROLL_LAUNCHES,
                                    pk.RICCATI_PACKED_LAUNCHES,
                                    pb.RICCATI_MASKED_LAUNCHES,
-                                   pb.RICCATI_MASKED_PACKED_LAUNCHES)))
+                                   pb.RICCATI_MASKED_PACKED_LAUNCHES,
+                                   pk.RICCATI_PACKED_WIDE_LAUNCHES,
+                                   pb.RICCATI_MASKED_WIDE_LAUNCHES,
+                                   pb.RICCATI_MASKED_PACKED_WIDE_LAUNCHES)))
 
 
 def counted_solve(P, solve, args):
@@ -900,22 +926,30 @@ def trace_writes(tally):
         solve_mod.while_lanes = plain
 
 
-def run_vmap_cell(P, variant, B):
-    """One phase 4c cell at acrobot T=101 on the first B lanes, f32, with
-    bench.py's initial guess: a warm-up cut to one iteration, the timed
-    solve with every count set to 0 just before, the checks, and a split of
-    the first SPLIT_ITERATIONS_VMAP iterations.  The timed solve runs under
+def run_vmap_cell(P, variant, B, model="acrobot"):
+    """One phase 4c cell on the first B lanes, f32: acrobot T=101 with
+    bench.py's initial guess, or the quadrotor T=41 with phase 4's inputs
+    (model_inputs); a warm-up cut to one iteration, the timed solve with
+    every count set to 0 just before, the checks, and a split of the first
+    SPLIT_ITERATIONS_VMAP iterations.  The timed solve runs under
     ``trace_writes`` (a few element-wise ops a trip on the card): every
     iteration must write one trace slot, and trace_mask's count plus the
-    slots written again must equal the iterations, per lane.  Returns
-    (solution, launch counts)."""
-    from iterativelqr_tpu_torch.models import acrobot
+    slots written again must equal the iterations, per lane.  A dispatch
+    cell's K6 launches must equal its backward attempts (the regularization
+    loop's tests: one for each attempt).  Returns (solution, launch
+    counts)."""
+    from iterativelqr_tpu_torch import models
     from iterativelqr_tpu_torch.ops.batching import LOOP_TESTS
 
     name = {"auto": "vmap/Options()", "v1": "vmap/tuned+K6a", "v2": "vmap/tuned+K6b"}[variant]
     device = torch.device("cuda")
-    spec = P.build_spec(*acrobot.problem(T_MAIN)[:3])
-    xs, us, ws = bench_inputs(B, T_MAIN, torch.float32, device)
+    T = T_MAIN if model == "acrobot" else MODEL_CELLS[model][0]
+    spec = P.build_spec(*getattr(models, model).problem(T)[:3])
+    if model == "acrobot":
+        xs, us, ws = bench_inputs(B, T, torch.float32, device)
+    else:
+        name = f"{name} {model}"
+        xs, us, ws = model_inputs(model, B, T, torch.float32, device)
     vmap_solver(P, spec, variant, device, max_total_iterations=1)(xs, us, ws)
     torch.cuda.synchronize()
     solve = vmap_solver(P, spec, variant, device)
@@ -924,13 +958,21 @@ def run_vmap_cell(P, variant, B):
     with trace_writes(tally):
         sol, stats, wall, counts = counted_solve(P, solve, (xs, us, ws))
     tests = dict(LOOP_TESTS)
-    frac, frac_true = integrity(name, spec, sol, stats, ws, 5.0e-3, B, T_MAIN, 4, 1)
+    frac, frac_true = integrity(name, spec, sol, stats, ws, P.Options().constraint_tolerance,
+                                B, T, spec.nx, spec.nu)
     if frac_true != frac:
         raise AssertionError(f"{name}: batch_stats solved {frac} != recomputed {frac_true}")
+    if frac_true < 0.99:
+        raise AssertionError(f"{name}: recomputed solved fraction {frac_true} < 0.99")
     k6 = {"auto": None, "v1": "riccati_masked", "v2": "riccati_masked_packed"}[variant]
+    if k6 is not None and (spec.nx, spec.nu) == WIDE:
+        k6 += "_wide"
     others = {k: v for k, v in counts.items() if k != k6 and v}
     if (k6 is not None and counts[k6] <= 0) or others:
         raise AssertionError(f"{name}: launches {counts}, expected only {k6}")
+    if k6 is not None and counts[k6] != tests.get("regularization", 0):
+        raise AssertionError(f"{name}: {counts[k6]} K6 launches, "
+                             f"{tests.get('regularization', 0)} backward attempts")
     its = sol.iterations.long()
     marks = sol.trace_mask.sum(dim=(1, 2)).long()
     if not torch.equal(tally["writes"], its):
@@ -942,14 +984,14 @@ def run_vmap_cell(P, variant, B):
     if bool(((tally["rewrites"] > 0) & (tally["truncated"] == 0)).any()):
         raise AssertionError(f"{name}: trace slots written again on a lane with no truncated round")
     trips = int(its.max())
-    log(f"[vmap] {name}: B={B} T={T_MAIN} f32 candidates "
+    log(f"[vmap] {name}: B={B} T={T} f32 candidates "
         f"{P.Options(**(TUNED if variant != 'auto' else {})).num_step_sizes}: solved_fraction batch_stats {frac:.4f} "
         f"recomputed {frac_true:.4f}; iterations mean {float(its.float().mean()):.2f} max {trips}; "
         f"mean objective {float(stats.mean_objective):.4f}; max violation {float(stats.max_violation):.3e}")
     log(f"[vmap] {name}: wall {wall:.3f} s after a warm-up ({B * frac_true / wall:.1f} solved/s); "
         f"launches {k6 or 'none (scan backward)'} {counts.get(k6, 0) if k6 else 0}; loop tests (host syncs) "
         f"{sum(tests.values())}: solve loop {tests.get('solve', 0)} (trips {trips}), "
-        f"regularization retries {tests.get('regularization', 0)}; trace_mask count = iterations on "
+        f"regularization (backward attempts) {tests.get('regularization', 0)}; trace_mask count = iterations on "
         f"{int((marks == its).sum())} of {B} lanes; truncated rounds {int(tally['truncated'].sum())} "
         f"on {int((tally['truncated'] > 0).sum())} lanes, trace slots written again "
         f"{int(tally['rewrites'].sum())}, dropped {int(tally['dropped'].sum())}: "
@@ -1154,8 +1196,8 @@ def main():
 
     records = {"riccati_backward": check_riccati(pk, "K1"),
                "riccati_backward_wide": check_riccati(pk, "K2")}
-    for label, (kname, _) in PACKED_MASKED_CASES.items():
-        records[kname] = check_packed_masked(pk, pb, label)
+    for label in PACKED_MASKED_CASES:
+        records.update(check_packed_masked(pk, pb, label))
     at("phases 3, 3c")
     records.update(check_rollouts(fk))
     at("phase 3b")
@@ -1190,14 +1232,18 @@ def main():
         at(f"phase 4 {model}")
 
     sols = {}
-    for variant, B in (("auto", B_VMAP_LOOP), ("v1", B_MAIN), ("v2", B_MAIN)):
-        sols[variant], counts = run_vmap_cell(P, variant, B)
+    for variant, B, model in (("auto", B_VMAP_LOOP, "acrobot"), ("v1", B_MAIN, "acrobot"),
+                              ("v2", B_MAIN, "acrobot"), ("v1", B_MAIN, "quadrotor"),
+                              ("v2", B_MAIN, "quadrotor")):
+        sols[variant, model], counts = run_vmap_cell(P, variant, B, model)
         launches.update(counts)
-        at(f"phase 4c {variant}")
-    its_a, its_b = sols["v1"].iterations, sols["v2"].iterations
-    differ = torch.nonzero(its_a != its_b).flatten().tolist()
-    log(f"[vmap] tuned+K6a vs tuned+K6b (same lanes, f32): iterations differ on {len(differ)} lanes"
-        + (f" (first {differ[:8]}: {its_a[differ[:8]].tolist()} vs {its_b[differ[:8]].tolist()})" if differ else ""))
+        at(f"phase 4c {variant} {model}")
+    for model in ("acrobot", "quadrotor"):
+        its_a, its_b = sols["v1", model].iterations, sols["v2", model].iterations
+        differ = torch.nonzero(its_a != its_b).flatten().tolist()
+        log(f"[vmap] {model} tuned+K6a vs tuned+K6b (same lanes, f32): iterations differ on "
+            f"{len(differ)} lanes" + (f" (first {differ[:8]}: {its_a[differ[:8]].tolist()} vs "
+                                      f"{its_b[differ[:8]].tolist()})" if differ else ""))
 
     check_card_vs_cpu(P)
     check_vmap_card_vs_cpu(P)
@@ -1213,10 +1259,15 @@ def main():
                "sl_winner_reroll": ("sl_forward.cu", "iterativelqr_tpu/ops/sl_forward_kernel.py:426"),
                "riccati_packed": ("riccati_backward.cu", "iterativelqr_tpu/ops/packed_backward.py:102"),
                "riccati_masked": ("riccati_backward.cu", "iterativelqr_tpu/ops/pallas_backward.py:109"),
-               "riccati_masked_packed": ("riccati_backward.cu", "iterativelqr_tpu/ops/pallas_backward.py:343")}
+               "riccati_masked_packed": ("riccati_backward.cu", "iterativelqr_tpu/ops/pallas_backward.py:343"),
+               "riccati_packed_wide": ("riccati_backward_wide.cu", "iterativelqr_tpu/ops/packed_backward.py:102"),
+               "riccati_masked_wide": ("riccati_backward_wide.cu", "iterativelqr_tpu/ops/pallas_backward.py:109"),
+               "riccati_masked_packed_wide": ("riccati_backward_wide.cu",
+                                              "iterativelqr_tpu/ops/pallas_backward.py:343")}
     # K5 runs in no solve of the JAX package: its launches are those of its
     # batch-leading entry at the main shapes (phase 3c)
-    launches["riccati_packed"] = records["riccati_packed"].pop("launches")
+    for kname in ("riccati_packed", "riccati_packed_wide"):
+        launches[kname] = records[kname].pop("launches")
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [dict(
         name=name,

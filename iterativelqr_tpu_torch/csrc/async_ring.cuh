@@ -1,7 +1,8 @@
 // A ring of shared-memory tiles that a producer warp fills with the step
 // inputs of a batch-last recursion while the block's other warps compute:
-// shared by K1's recursion template (riccati_backward.cu) and K3
-// (sl_forward.cu).
+// shared by the recursion templates of K1 (riccati_backward.cu) and K2
+// (riccati_backward_wide.cu, whose last control warp doubles as the
+// producer) and the rollout body of K3/K4 (sl_forward.cu).
 //
 // A tile holds rows of one step for the 32 neighbouring lanes of a block,
 // laid out [row][32 lanes].  Row r of step t of a batch-last array

@@ -18,19 +18,11 @@
 // K = -Quu^-1 Qux, k = -Quu^-1 Qu; symmetrized P update and p update; per-lane
 // ok = every Cholesky pivot finite and > 0.
 //
-// Load policies: SevenArrays reads element (t, i, j) of lane b from seven
-// batch-last arrays [Tm1, *dims, B]; PackedBuffer reads slot f of step t from
-// one buffer [Tm1, F, B] at packed[(t*F + f)*B + b], F = n^2+nm+n+m+n^2+m^2+mn
-// (46 at (4, 1)), slots in the order fx, fu, gx, gu, gxx, guu, gux.  Mask
-// policies: NoMask (K1, K5) factors Quu + reg*I and updates the value with
-// Quu; StepMask (K6a, K6b) reads the step's action mask um[t, a], shared by
-// all lanes (one [Tm1, m] array, copied into the step's tile), and forms
-//   Quu_eff = Quu .* (um um^T) + diag(1 - um),  Quu_reg = Quu_eff + diag(reg um)
-// with gains scaled by um and the value update on Quu_eff; K6b's order then
-// recomputes Quu_eff = Quu_reg - diag(reg um), which floating point does not
-// return to K6a's Quu_eff, so both orders are kept.  The mask products are
-// exact (um is 0 or 1), so FMA contraction leaves them as the TPU kernel
-// rounds them.
+// The load policies (SevenArrays: seven batch-last arrays [Tm1, *dims, B];
+// PackedBuffer: one buffer [Tm1, F, B], F = 46 at (4, 1)) and the mask
+// policies (NoMask for K1, K5; StepMask for K6a and, in its own order, K6b)
+// are riccati_policies.cuh's, shared with K2's template
+// (riccati_backward_wide.cu), as are the C entry points.
 //
 // Layout and threads: a block owns 32 neighbouring batch lanes.  Each lane
 // has a team of kTeam = 4 threads in its compute warps: thread `row` forms
@@ -87,8 +79,11 @@
 #include <cstdint>
 
 #include "async_ring.cuh"
+#include "riccati_policies.cuh"
 
 namespace {
+
+using riccati::Outputs;
 
 // a block: a team of kTeam threads for each of its 32 lanes (the compute
 // warps; the team's thread `row` owns row `row` of the lane's fx^T P, Qxx
@@ -123,46 +118,38 @@ struct StepInputs {
   T gu[M];
   T guu[M][M];
   T gux[M][N];
-  T um[M];  // the step's action mask (StepMask only)
+  T um[M];  // the step's action mask (1 without StepMask)
 };
 
-// A tile: the step's slots [kF][32 lanes] in the packed order fx, fu, gx,
-// gu, gxx, guu, gux, then (StepMask only) the step's mask, padded to 16 B.
+// A tile (riccati::StepTile) and the ring of kDepth of them
 template <int N, int M, typename T, bool kMasked>
-struct Tile {
-  static constexpr int kFx = 0, kFu = kFx + N * N, kGx = kFu + N * M, kGu = kGx + N,
-                       kGxx = kGu + M, kGuu = kGxx + N * N, kGux = kGuu + M * M,
-                       kF = kGux + M * N;
-  static constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));
-  static constexpr int kUm = kMasked ? (M + kPer16 - 1) / kPer16 * kPer16 : 0;
-  static constexpr int kValues = kF * ring::kLanes + kUm;   // a multiple of 16 B
+struct Tile : riccati::StepTile<N, M, T, kMasked> {
+  using S = riccati::StepTile<N, M, T, kMasked>;
   // the tiles, then each tile's full and empty mbarriers
-  static constexpr int kBytes = kDepth * kValues * static_cast<int>(sizeof(T)) + 2 * kDepth * 8;
+  static constexpr int kBytes = kDepth * S::kValues * static_cast<int>(sizeof(T)) + 2 * kDepth * 8;
 
   // the step's inputs of this thread's lane, from the tile (but gxx: a
   // thread needs only its row, read_row)
+  template <class Mask>
   static __device__ __forceinline__ void read(StepInputs<N, M, T>& s, const T* tile, int lane) {
     const T* v = tile + lane;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) s.fx[i][j] = v[(kFx + i * N + j) * ring::kLanes];
+      for (int j = 0; j < N; ++j) s.fx[i][j] = v[(S::kFx + i * N + j) * ring::kLanes];
 #pragma unroll
-      for (int a = 0; a < M; ++a) s.fu[i][a] = v[(kFu + i * M + a) * ring::kLanes];
-      s.gx[i] = v[(kGx + i) * ring::kLanes];
+      for (int a = 0; a < M; ++a) s.fu[i][a] = v[(S::kFu + i * M + a) * ring::kLanes];
+      s.gx[i] = v[(S::kGx + i) * ring::kLanes];
     }
 #pragma unroll
     for (int a = 0; a < M; ++a) {
-      s.gu[a] = v[(kGu + a) * ring::kLanes];
+      s.gu[a] = v[(S::kGu + a) * ring::kLanes];
 #pragma unroll
-      for (int c = 0; c < M; ++c) s.guu[a][c] = v[(kGuu + a * M + c) * ring::kLanes];
+      for (int c = 0; c < M; ++c) s.guu[a][c] = v[(S::kGuu + a * M + c) * ring::kLanes];
 #pragma unroll
-      for (int j = 0; j < N; ++j) s.gux[a][j] = v[(kGux + a * N + j) * ring::kLanes];
+      for (int j = 0; j < N; ++j) s.gux[a][j] = v[(S::kGux + a * N + j) * ring::kLanes];
     }
-    if constexpr (kMasked) {
-#pragma unroll
-      for (int a = 0; a < M; ++a) s.um[a] = tile[kF * ring::kLanes + a];
-    }
+    riccati::read_um<M, T, S, Mask>(s.um, tile);
   }
 
   // row `row` of gxx and column `row` of fx of this thread's lane
@@ -171,140 +158,13 @@ struct Tile {
     const T* v = tile + lane;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      gxx_row[j] = v[(kGxx + row * N + j) * ring::kLanes];
-      fx_col[j] = v[(kFx + j * N + row) * ring::kLanes];
+      gxx_row[j] = v[(S::kGxx + row * N + j) * ring::kLanes];
+      fx_col[j] = v[(S::kFx + j * N + row) * ring::kLanes];
     }
-  }
-};
-
-// ---- load policies: where the runs of step t are ---------------------------
-//
-// copy: the producer thread tid's share of the async copies of step t's
-// slots for lanes [b0, b0+32) into a tile; aligned: may they go as 16-byte
-// chunks (host side).
-
-template <int N, int M, typename T>
-struct SevenArrays {
-  const T* __restrict__ fx;
-  const T* __restrict__ fu;
-  const T* __restrict__ gx;
-  const T* __restrict__ gu;
-  const T* __restrict__ gxx;
-  const T* __restrict__ guu;
-  const T* __restrict__ gux;
-
-  template <class L>
-  __device__ __forceinline__ void copy(T* tile, size_t t, size_t B, size_t b0, int tid,
-                                       bool vec) const {
-    constexpr int W = ring::kLanes, P = kProducers;
-    ring::copy_rows<N * N, N * N, P>(tile + L::kFx * W, fx, t, B, b0, tid, vec);
-    ring::copy_rows<N * M, N * M, P>(tile + L::kFu * W, fu, t, B, b0, tid, vec);
-    ring::copy_rows<N, N, P>(tile + L::kGx * W, gx, t, B, b0, tid, vec);
-    ring::copy_rows<M, M, P>(tile + L::kGu * W, gu, t, B, b0, tid, vec);
-    ring::copy_rows<N * N, N * N, P>(tile + L::kGxx * W, gxx, t, B, b0, tid, vec);
-    ring::copy_rows<M * M, M * M, P>(tile + L::kGuu * W, guu, t, B, b0, tid, vec);
-    ring::copy_rows<M * N, M * N, P>(tile + L::kGux * W, gux, t, B, b0, tid, vec);
-  }
-
-  bool aligned(size_t B) const {
-    return ring::runs_aligned<T>(B, {fx, fu, gx, gu, gxx, guu, gux});
-  }
-};
-
-template <int N, int M, typename T>
-struct PackedBuffer {
-  static constexpr int kF = N * N + N * M + N + M + N * N + M * M + M * N;
-  const T* __restrict__ packed;
-
-  template <class L>
-  __device__ __forceinline__ void copy(T* tile, size_t t, size_t B, size_t b0, int tid,
-                                       bool vec) const {
-    static_assert(L::kF == kF, "the tile holds the packed slots in their order");
-    ring::copy_rows<kF, kF, kProducers>(tile, packed, t, B, b0, tid, vec);
-  }
-
-  bool aligned(size_t B) const { return ring::runs_aligned<T>(B, {packed}); }
-};
-
-// ---- mask policies ---------------------------------------------------------
-//
-// copy: the step's mask into the tile; form: Quu_reg (factored) and Quu_eff
-// (the value update's) from Quu and reg; gain: a gain entry of action row a.
-
-struct NoMask {
-  static constexpr bool kMasked = false;
-
-  template <int M, typename T>
-  __device__ __forceinline__ void copy(T*, size_t, int) const {}
-
-  template <int N, int M, typename T>
-  __device__ __forceinline__ void form(const StepInputs<N, M, T>&, const T (&Quu)[M][M], T r,
-                                       T (&Qreg)[M][M], T (&Qeff)[M][M]) const {
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-#pragma unroll
-      for (int c = 0; c < M; ++c) {
-        Qreg[a][c] = Quu[a][c] + (a == c ? r : T(0));
-        Qeff[a][c] = Quu[a][c];
-      }
-    }
-  }
-
-  template <int N, int M, typename T>
-  __device__ __forceinline__ T gain(const StepInputs<N, M, T>&, T v, int) const {
-    return v;
-  }
-};
-
-template <typename T, bool kV2Order>
-struct StepMask {
-  static constexpr bool kMasked = true;
-  const T* __restrict__ um;  // [Tm1, M], shared by all lanes
-
-  // producer threads tid < M copy one value each
-  template <int M>
-  __device__ __forceinline__ void copy(T* tile_um, size_t t, int tid) const {
-    if (tid < M) ring::copy<sizeof(T)>(tile_um + tid, um + t * M + tid, true);
-  }
-
-  template <int N, int M>
-  __device__ __forceinline__ void form(const StepInputs<N, M, T>& s, const T (&Quu)[M][M], T r,
-                                       T (&Qreg)[M][M], T (&Qeff)[M][M]) const {
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-#pragma unroll
-      for (int c = 0; c < M; ++c) {
-        const T mask2 = s.um[a] * s.um[c];
-        if (a == c) {
-          const T ru = r * s.um[a];
-          Qeff[a][c] = Quu[a][c] * mask2 + (T(1) - s.um[a]);
-          Qreg[a][c] = Qeff[a][c] + ru;
-          if constexpr (kV2Order) Qeff[a][c] = Qreg[a][c] - ru;
-        } else {
-          Qeff[a][c] = Quu[a][c] * mask2;
-          Qreg[a][c] = Qeff[a][c];
-        }
-      }
-    }
-  }
-
-  template <int N, int M>
-  __device__ __forceinline__ T gain(const StepInputs<N, M, T>& s, T v, int a) const {
-    return v * s.um[a];
   }
 };
 
 // ---- the recursion ---------------------------------------------------------
-
-template <typename T>
-struct Outputs {
-  T* __restrict__ K;
-  T* __restrict__ k;
-  T* __restrict__ Qx;
-  T* __restrict__ Qu;
-  T* __restrict__ p;
-  T* __restrict__ ok;
-};
 
 template <int N, int M, typename T, class Load, class Mask>
 __global__ void __launch_bounds__(kThreads) riccati_kernel(
@@ -338,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
       if (i >= kDepth) ring::bar_wait(&empty[s], ((i / kDepth) + 1) & 1);
       const size_t t = static_cast<size_t>(Tm1 - 1 - i);
       T* tile = tiles + s * L::kValues;
-      load.template copy<L>(tile, t, B, b0, tid, vec);
+      load.template copy<L, kProducers>(tile, t, B, b0, tid, vec);
       mask.template copy<M>(tile + L::kF * ring::kLanes, t, tid);
       ring::bar_arrive_on_copies(&full[s]);
     }
@@ -370,7 +230,7 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
     ring::bar_wait(&full[slot], (step / kDepth) & 1);
     StepInputs<N, M, T> s;
     T gxx_row[N], fx_col[N];
-    L::read(s, tiles + slot * L::kValues, lane);
+    L::template read<Mask>(s, tiles + slot * L::kValues, lane);
     L::read_row(gxx_row, fx_col, tiles + slot * L::kValues, lane, rr);
     ring::bar_arrive(&empty[slot]);
 
@@ -442,22 +302,11 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
 
     // the factored matrix and the value update's (mask policy)
     T Qreg[M][M], Qeff[M][M];
-    mask.form(s, Quu, r, Qreg, Qeff);
+    mask.form(s.um, Quu, r, Qreg, Qeff);
 
     // unrolled Cholesky of Qreg (lower factor L)
     T L[M][M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        T acc = Qreg[i][j];
-#pragma unroll
-        for (int k = 0; k < j; ++k) acc -= L[i][k] * L[j][k];
-        L[i][j] = (i == j) ? sqrt(acc) : acc / L[j][j];
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < M; ++a) ok = ok && isfinite(L[a][a]) && (L[a][a] > T(0));
+    riccati::cholesky(Qreg, L, ok);
 
     // solve (L L^T) X = [Qux | Qu]; K = -X[:, :N], k = -X[:, N]: thread
     // `row` solves columns row, row + kTeam, ...; then every column to the
@@ -466,23 +315,12 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
 #pragma unroll
     for (int q = 0; q < kRounds; ++q) {
       const int col = row + q * kTeam;
-      T y[M], x[M];
+      T rhs[M], x[M];
 #pragma unroll
-      for (int i = 0; i < M; ++i) {
-        T acc = (col < N) ? pick(Qux[i], col) : Qu[i];
+      for (int i = 0; i < M; ++i) rhs[i] = (col < N) ? pick(Qux[i], col) : Qu[i];
+      riccati::cho_solve(L, rhs, x);
 #pragma unroll
-        for (int k = 0; k < i; ++k) acc -= L[i][k] * y[k];
-        y[i] = acc / L[i][i];
-      }
-#pragma unroll
-      for (int i = M - 1; i >= 0; --i) {
-        T acc = y[i];
-#pragma unroll
-        for (int k = i + 1; k < M; ++k) acc -= L[k][i] * x[k];
-        x[i] = acc / L[i][i];
-      }
-#pragma unroll
-      for (int i = 0; i < M; ++i) v[q][i] = mask.gain(s, -x[i], i);
+      for (int i = 0; i < M; ++i) v[q][i] = mask.gain(s.um, -x[i], i);
     }
     T K[M][N], kff[M];
 #pragma unroll
@@ -596,79 +434,11 @@ int ring_info(int* depth, int* bytes) {
   return 0;
 }
 
-template <int N, int M, typename T>
-SevenArrays<N, M, T> seven(const void* fx, const void* fu, const void* gx, const void* gu,
-                           const void* gxx, const void* guu, const void* gux) {
-  return SevenArrays<N, M, T>{static_cast<const T*>(fx), static_cast<const T*>(fu),
-                              static_cast<const T*>(gx), static_cast<const T*>(gu),
-                              static_cast<const T*>(gxx), static_cast<const T*>(guu),
-                              static_cast<const T*>(gux)};
-}
-
 }  // namespace
 
-// C entry points, one per kernel and (dtype, n, m).  Keep the lists equal to
-// _INSTANTIATIONS in iterativelqr_tpu_torch/ops/packed_backward.py.
-
-// K1: seven stacks (gx, gxx without the terminal row), terminal gxxT, gxT.
-#define RICCATI_ENTRY(NAME, N, M, T)                                          \
-  extern "C" int NAME(const void* fx, const void* fu, const void* gx,        \
-                      const void* gu, const void* gxx, const void* guu,      \
-                      const void* gux, const void* gxxT, const void* gxT,    \
-                      const void* reg, void* K, void* k, void* Qx, void* Qu, \
-                      void* p, void* ok, int Tm1, int B, void* stream) {     \
-    return launch<N, M, T>(seven<N, M, T>(fx, fu, gx, gu, gxx, guu, gux),    \
-                           NoMask{}, gxxT, gxT, reg, K, k, Qx, Qu, p, ok,    \
-                           Tm1, B, stream);                                   \
-  }
-
-// K5: one packed buffer [Tm1, F, B], terminal gxxT, gxT.
-#define RICCATI_PACKED_ENTRY(NAME, N, M, T)                                   \
-  extern "C" int NAME(const void* packed, const void* gxxT, const void* gxT, \
-                      const void* reg, void* K, void* k, void* Qx, void* Qu, \
-                      void* p, void* ok, int Tm1, int B, void* stream) {     \
-    return launch<N, M, T>(                                                   \
-        PackedBuffer<N, M, T>{static_cast<const T*>(packed)}, NoMask{}, gxxT, \
-        gxT, reg, K, k, Qx, Qu, p, ok, Tm1, B, stream);                       \
-  }
-
-// K6a: seven stacks with gx [T, n, B] and gxx [T, n, n, B] whole: the
-// terminal P, p are their row Tm1, as the TPU kernel reads them.
-#define RICCATI_MASKED_ENTRY(NAME, N, M, T)                                    \
-  extern "C" int NAME(const void* fx, const void* fu, const void* gx,         \
-                      const void* gu, const void* gxx, const void* guu,       \
-                      const void* gux, const void* um, const void* reg,       \
-                      void* K, void* k, void* Qx, void* Qu, void* p, void* ok, \
-                      int Tm1, int B, void* stream) {                          \
-    const size_t Bs = static_cast<size_t>(B), t1 = static_cast<size_t>(Tm1);  \
-    return launch<N, M, T>(                                                    \
-        seven<N, M, T>(fx, fu, gx, gu, gxx, guu, gux),                         \
-        StepMask<T, false>{static_cast<const T*>(um)},                         \
-        static_cast<const T*>(gxx) + t1 * N * N * Bs,                          \
-        static_cast<const T*>(gx) + t1 * N * Bs, reg, K, k, Qx, Qu, p, ok,     \
-        Tm1, B, stream);                                                       \
-  }
-
-// K6b: one packed buffer, terminal gxxT, gxT, the mask in K6b's order.
-#define RICCATI_MASKED_PACKED_ENTRY(NAME, N, M, T)                            \
-  extern "C" int NAME(const void* packed, const void* gxxT, const void* gxT, \
-                      const void* um, const void* reg, void* K, void* k,     \
-                      void* Qx, void* Qu, void* p, void* ok, int Tm1, int B, \
-                      void* stream) {                                         \
-    return launch<N, M, T>(                                                   \
-        PackedBuffer<N, M, T>{static_cast<const T*>(packed)},                 \
-        StepMask<T, true>{static_cast<const T*>(um)}, gxxT, gxT, reg, K, k,   \
-        Qx, Qu, p, ok, Tm1, B, stream);                                       \
-  }
-
-// The ring of (n, m, dtype), masked (K6a, K6b) or not (K1, K5): its depth and
-// dynamic shared memory a block.
-#define RICCATI_RING_ENTRY(NAME, N, M, T)                          \
-  extern "C" int NAME(int masked, int* depth, int* bytes) {        \
-    return masked ? ring_info<N, M, T, true>(depth, bytes)         \
-                  : ring_info<N, M, T, false>(depth, bytes);       \
-  }
-
+// C entry points, one per kernel and (dtype, n, m) (riccati_policies.cuh).
+// Keep the lists equal to _INSTANTIATIONS in
+// iterativelqr_tpu_torch/ops/packed_backward.py.
 #define RICCATI_FAMILY(N, M)                                                      \
   RICCATI_RING_ENTRY(riccati_ring_f32_n##N##_m##M, N, M, float)                   \
   RICCATI_RING_ENTRY(riccati_ring_f64_n##N##_m##M, N, M, double)                  \

@@ -1,77 +1,114 @@
-// Backward Riccati recursion of the batched AL-iLQR solver at wide dims (K2).
+// Backward Riccati recursion of the batched AL-iLQR solver at wide dims: K2,
+// and K5, K6a, K6b at the same dims, one recursion template instantiated
+// with a load policy and a mask policy (riccati_policies.cuh, shared with
+// K1's template in riccati_backward.cu).
 //
 // Replaces the TPU kernel
 // iterativelqr_tpu/ops/packed_backward.py::_kernel_mr_stream (step math:
 // _riccati_step), which the JAX package takes over _kernel_mr when the
 // direct outputs overflow VMEM: the quadrotor's n=12, m=4.  It computes the
-// same recursion as K1 (csrc/riccati_backward.cu): start from P = gxxT,
-// p = gxT; per step t = Tm1-1 .. 0 form Qx, Qu, Qxx, Quu, Qux; factor
-// Quu + reg*I with an unrolled Cholesky; K = -Quu^-1 Qux, k = -Quu^-1 Qu;
-// symmetrized P update and p update; per-lane ok = every Cholesky pivot
-// finite and > 0.  The TPU kernel's chunked DMA, packed output buffer and
-// output streaming have no counterpart here: the outputs go straight to
-// device memory as the five batch-last arrays K1 writes.
+// same recursion as K1: start from P = gxxT, p = gxT; per step
+// t = Tm1-1 .. 0 form Qx, Qu, Qxx, Quu, Qux; factor the regularized Quu with
+// an unrolled Cholesky; K = -Quu^-1 Qux, k = -Quu^-1 Qu; symmetrized P update
+// and p update; per-lane ok = every Cholesky pivot finite and > 0.  The TPU
+// kernel's chunked DMA, packed output buffer and output streaming have no
+// counterpart here: the outputs go straight to device memory as the five
+// batch-last arrays K1 writes.  The same template, with K1's other
+// policies, is K5 (packed buffer), K6a (step mask) and K6b (packed, the mask
+// in v2's order) at these dims: the JAX package runs those TPU kernels at
+// any (n, m) (iterativelqr_tpu/ops/packed_backward.py::_kernel,
+// ops/pallas_backward.py::_kernel, _kernel_v2).
 //
-// Why not K1's design: K1 runs one thread per lane with P, one step's inputs,
-// the prefetched next step and its temporaries in registers.  At (12, 4)
-// that is about 1,000 live values against the 255-register cap
-// (ops/packed_backward.py::uses_wide_kernel states the rule).
+// Why not K1's design: K1's team of 4 threads a lane holds P, one step's
+// inputs and its temporaries in registers.  At (12, 4) that is about 1,000
+// live values a lane (ops/packed_backward.py::uses_wide_kernel states the
+// rule), so P, the step's inputs and the shared intermediates live in
+// shared memory, [value][32 lanes].
 //
-// Design: a block owns 32 lanes and a team of N+M threads per lane;
-// threadIdx.x is the lane, threadIdx.y the thread's row, so each warp has
-// one row and no warp diverges.  Rows 0..N-1 own a row of P, fx^T P and Qxx;
-// rows N..N+M-1 own a row of Quu, Qux, Quu K and of fu^T P.  Each step's 416
-// inputs are staged in shared memory as [element][32 lanes], loaded warp by
-// warp so that every load is 32 neighbouring values (128 coalesced bytes in
-// f32) and every shared-memory read of a warp is conflict-free.  A thread
-// keeps its own rows of fx^T P, Qxx and the new P in registers; P, p, Quu,
-// Qux, Qu, K, k and Quu K live in shared memory.  The 4x4 Cholesky runs
-// redundantly in every thread (no extra barrier); state thread j solves
-// column j of K, the first control thread solves k and keeps ok.  Six
-// barriers a step.  Shared memory: 740 values a lane, 94,720 bytes a block
-// in f32 and 189,440 in f64 (above the 48 KB default, so the launch raises
-// the block's limit with cudaFuncSetAttribute and returns its error).
+// Layout and threads: a block owns 32 neighbouring lanes and has N+M warps,
+// one a row (threadIdx.x / 32; the lane is threadIdx.x % 32, so no warp
+// diverges).  Rows 0..N-1 (the state warps) own a row of fx^T P, Qxx and
+// the new P and a column of K and Quu K; rows N..N+M-1 (the control warps)
+// own a row of fu^T P, Quu and Qux.  The steps' inputs (416 values a lane at
+// (12, 4)) stream into a ring of kDepth tiles with cp.async (async_ring.cuh:
+// a full mbarrier a tile, 16-byte chunks where every run is 16-byte
+// aligned, else one value a copy), so the loads leave the step's chain.  The
+// copies are issued by the last control warp, which has nothing else to do
+// once phase A is done: right after barrier B1 (by which every warp has
+// read the step's tile) it refills that tile with the step kDepth on, while
+// the state warps run phases B to E.  So the block needs no producer warp
+// of its own and no empty mbarriers, and 512 threads a block leave 128
+// registers a thread.  A step, with named barriers (bar.sync id, count) so
+// that only the warps that exchange values wait:
+//   A  state row i: Qx_i, row i of fx^T P (registers) and of Qxx (shared
+//      memory); control row a: Qu_a, row a of fu^T P, Quu, Qux (shared);
+//   B1 (all warps): Quu, Qux, Qu visible, the tile read;
+//   B  every state warp and the first control warp: the mask policy's Quu
+//      forms and their Cholesky, redundantly in registers (no barrier);
+//      state row j solves column j of K and forms column j of Quu K, the
+//      first control row solves k and keeps ok;
+//   B2 (state warps and the first control warp): K, Quu K, k visible;
+//   D  state row i: row i of the unsymmetrized new P (over Qxx's row) and
+//      p_i;
+//   B3 (state warps): the new P's rows visible;
+//   E  state row i: row i of (P + P^T) / 2 into the P buffer;
+//   B4 (all warps): P and p visible for the next step.
+// Four barriers a step, two of them block-wide (the design before took six
+// __syncthreads a step, and staged each step only after the previous one:
+// a cycle-counter probe on the H100 put 60% of its step in those loads).
+// Every element is formed by the operations of the plain version in its
+// order.  f32 stays on the CUDA cores: the tensor cores compute f32 only as
+// TF32, which the port's numerics forbid (f32 matmuls at full precision).
 //
 // What bounds it.  Bytes: per step and lane it reads 416 inputs and writes
 // 80 outputs (K 48, k 4, Qx 12, Qu 4, p 12), plus 158 values of gxxT, gxT,
 // reg and ok a lane: at T=41 (40 steps), B=4096 in f32 that is
 // (40*496 + 158) * 4096 * 4 B = 328 MB, about 0.098 ms at 3.35 TB/s.
-// Operations: about 13 k a step and lane (the products with P and fx
-// dominate), 2.1 G in all, about 0.03 ms at 67 TFLOP/s (f32): bytes bound.
-// This first design does not reach either: each step's loads are issued
-// only after the previous step ends (no prefetch) and each step is a chain
-// of dependent phases separated by barriers, with one block of 16 warps per
-// SM (4096 lanes are 128 blocks).  Left for later work: double-buffered
-// staging (cp.async or TMA) of the next step, fewer barriers, more lanes
-// per block.
+// Operations: about 13 k a step and lane, 2.1 G in all, about 0.03 ms at
+// 67 TFLOP/s: bytes bound.  With one block of 32 lanes an SM, what sets the
+// pace is each step's arithmetic on operands read from shared memory (an
+// FMA of phase A reads one operand there).
+//
+// Shared memory a block: kDepth tiles, the state (P, its unsymmetrized
+// successor, p, Quu, Qux, Qu, K, k, Quu K: 468 values a lane at (12, 4)) and
+// the tiles' mbarriers.  In f32 three tiles fit (219,672 B; a tile is
+// 53,248 B); in f64 only one (226,312 B): f64 is the tests' dtype, not the
+// solve's, so it keeps 32 lanes a block and a ring of depth 1 (the next
+// step's copies still land while the state warps run phases B to E).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (iterativelqr_tpu_torch/_build.py).  Plain C entry points
-// below, one per instantiated (n, m, dtype); each returns a CUDA error code.
+// below, one per kernel and instantiated (n, m, dtype); each returns
+// cudaGetLastError() (or the attribute call's error).
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "async_ring.cuh"
+#include "riccati_policies.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;
+using riccati::Outputs;
 
-// Offsets, in values a lane, of the shared-memory regions of one block; the
-// value e of a lane sits at smem[e * kLanes + lane].
+constexpr int kLanes = ring::kLanes;
+constexpr int kProducers = kLanes;          // the copies' issuers: one warp
+constexpr int kSharedMax = 232448;          // 227 KB: the most a block may use
+constexpr int kMaxDepth = 3;
+
+// the block: N state warps and M control warps
 template <int N, int M>
-struct Layout {
-  // one step's inputs
-  static constexpr int FX = 0;               // fx [N][N]
-  static constexpr int FU = FX + N * N;      // fu [N][M]
-  static constexpr int GX = FU + N * M;      // gx [N]
-  static constexpr int GU = GX + N;          // gu [M]
-  static constexpr int GXX = GU + M;         // gxx [N][N]
-  static constexpr int GUU = GXX + N * N;    // guu [M][M]
-  static constexpr int GUX = GUU + M * M;    // gux [M][N]
-  // the recursion's state and one step's shared intermediates
-  static constexpr int P = GUX + M * N;      // P [N][N]
-  static constexpr int PV = P + N * N;       // p [N]
+__host__ __device__ constexpr int block_threads() { return kLanes * (N + M); }
+
+// Offsets, in values a lane, of the recursion's state in shared memory
+// (after the tiles); value e of a lane sits at [e * kLanes + lane].
+template <int N, int M>
+struct State {
+  static constexpr int P = 0;                // P [N][N], symmetrized
+  static constexpr int PN = P + N * N;       // the new P [N][N], unsymmetrized
+  static constexpr int PV = PN + N * N;      // p [N]
   static constexpr int QUU = PV + N;         // Quu [M][M]
   static constexpr int QUX = QUU + M * M;    // Qux [M][N]
   static constexpr int QU = QUX + M * N;     // Qu [M]
@@ -81,275 +118,287 @@ struct Layout {
   static constexpr int TOTAL = QUUK + M * N;
 };
 
-// Rows row, row+TEAM, ... of `count` values a lane, from the batch-last
-// global array src [count, B] to shared memory dst [count][kLanes] (dst
-// already offset to the thread's lane).  Lanes past B read zeros.
-template <int COUNT, int TEAM, typename T>
-__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
-                                      size_t b, size_t B, bool live, int row) {
-#pragma unroll
-  for (int i = 0; i < (COUNT + TEAM - 1) / TEAM; ++i) {
-    const int e = row + i * TEAM;
-    if (e < COUNT) {
-      dst[e * kLanes] = live ? __ldg(src + static_cast<size_t>(e) * B + b) : T(0);
-    }
-  }
+// The ring: as many tiles as fit beside the state, at most kMaxDepth.
+template <int N, int M, typename T, bool kMasked>
+struct Ring {
+  using Tile = riccati::StepTile<N, M, T, kMasked>;
+  static constexpr int kTileBytes = Tile::kValues * static_cast<int>(sizeof(T));
+  static constexpr int kStateBytes = State<N, M>::TOTAL * kLanes * static_cast<int>(sizeof(T));
+  static constexpr int kFit = (kSharedMax - kStateBytes) / (kTileBytes + 8);
+  static constexpr int kDepth = kFit > kMaxDepth ? kMaxDepth : kFit;
+  static_assert(kDepth >= 1, "one step tile and the state must fit a block's shared memory");
+  // the tiles, the state, then each tile's full mbarrier
+  static constexpr int kBytes = kDepth * kTileBytes + kStateBytes + kDepth * 8;
+};
+
+// bar.sync on named barrier `id` by `count` threads (whole warps)
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
-template <int N, int M, typename T>
-__global__ void __launch_bounds__(kLanes * (N + M)) riccati_backward_wide_kernel(
-    const T* __restrict__ fx, const T* __restrict__ fu,
-    const T* __restrict__ gx, const T* __restrict__ gu,
-    const T* __restrict__ gxx, const T* __restrict__ guu,
-    const T* __restrict__ gux, const T* __restrict__ gxxT,
-    const T* __restrict__ gxT, const T* __restrict__ reg,
-    T* __restrict__ K_out, T* __restrict__ k_out, T* __restrict__ Qx_out,
-    T* __restrict__ Qu_out, T* __restrict__ p_out, T* __restrict__ ok_out,
-    int Tm1, int B_int) {
-  using L = Layout<N, M>;
-  constexpr int kTeam = N + M;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x;
-  const int row = threadIdx.y;
+template <int N, int M, typename T, class Load, class Mask>
+__global__ void __launch_bounds__(block_threads<N, M>()) riccati_wide_kernel(
+    Load load, Mask mask, const T* __restrict__ gxxT, const T* __restrict__ gxT,
+    const T* __restrict__ reg, Outputs<T> out, int Tm1, int B_int, bool vec) {
+  using R = Ring<N, M, T, Mask::kMasked>;
+  using L = typename R::Tile;
+  using S = State<N, M>;
+  constexpr int kCompute = block_threads<N, M>();
+  constexpr int kDepth = R::kDepth;
+  constexpr int kProducerRow = N + M - 1;   // the last control warp also copies
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const tiles = reinterpret_cast<T*>(smem);
+  T* const state = tiles + kDepth * L::kValues;
+  std::uint64_t* const full = reinterpret_cast<std::uint64_t*>(state + S::TOTAL * kLanes);
+  const size_t b0 = static_cast<size_t>(blockIdx.x) * kLanes;
   const size_t B = static_cast<size_t>(B_int);
-  const size_t b = static_cast<size_t>(blockIdx.x) * kLanes + lane;
+  if (threadIdx.x == 0) {
+    // each copying thread arrives when its copies have landed
+    for (int s = 0; s < kDepth; ++s) ring::bar_init(&full[s], kProducers);
+    ring::bar_init_fence();
+  }
+  __syncthreads();
+
+  // a thread: row `row` of lane `lane`.  A lane past the edge computes on
+  // the zero-filled tile (a unit regularizer keeps it finite) and stores
+  // nothing.
+  const int lane = threadIdx.x % kLanes, row = threadIdx.x / kLanes;
+  const size_t b = b0 + lane;
   const bool live = b < B;
-  // this lane's column of shared memory: value e at s[e * kLanes]
-  T* s = reinterpret_cast<T*>(smem_raw) + lane;
-#define SH(e) s[(e) * kLanes]
-
-  stage<N * N, kTeam>(s + L::P * kLanes, gxxT, b, B, live, row);
-  stage<N, kTeam>(s + L::PV * kLanes, gxT, b, B, live, row);
-  const T r = live ? reg[b] : T(0);
+  // the copies of the i-th step of the sweep (t = Tm1-1-i) into tile
+  // i % kDepth, by the producer row's 32 threads
+  auto fill = [&](int i) {
+    const int s = i % kDepth;
+    T* tile = tiles + s * L::kValues;
+    const size_t t = static_cast<size_t>(Tm1 - 1 - i);
+    load.template copy<L, kProducers>(tile, t, B, b0, lane, vec);
+    mask.template copy<M>(tile + L::kF * kLanes, t, lane);
+    ring::bar_arrive_on_copies(&full[s]);
+  };
+  if (row == kProducerRow) {
+    for (int i = 0; i < kDepth && i < Tm1; ++i) fill(i);
+  }
+  T* const sv = state + lane;   // this lane's column: value e at sv[e * kLanes]
+#define SH(e) sv[(e) * kLanes]
+  // P and p from gxxT, gxT: rows row, row + N+M, ...
+  for (int e = row; e < N * N; e += N + M) SH(S::P + e) = live ? gxxT[e * B + b] : T(0);
+  for (int e = row; e < N; e += N + M) SH(S::PV + e) = live ? gxT[e * B + b] : T(0);
+  const T r = live ? reg[b] : T(1);
   bool ok = true;
+  named_sync(4, kCompute);
 
-  for (int t = Tm1 - 1; t >= 0; --t) {
-    const size_t tt = static_cast<size_t>(t);
-    stage<N * N, kTeam>(s + L::FX * kLanes, fx + tt * N * N * B, b, B, live, row);
-    stage<N * M, kTeam>(s + L::FU * kLanes, fu + tt * N * M * B, b, B, live, row);
-    stage<N, kTeam>(s + L::GX * kLanes, gx + tt * N * B, b, B, live, row);
-    stage<M, kTeam>(s + L::GU * kLanes, gu + tt * M * B, b, B, live, row);
-    stage<N * N, kTeam>(s + L::GXX * kLanes, gxx + tt * N * N * B, b, B, live, row);
-    stage<M * M, kTeam>(s + L::GUU * kLanes, guu + tt * M * M * B, b, B, live, row);
-    stage<M * N, kTeam>(s + L::GUX * kLanes, gux + tt * M * N * B, b, B, live, row);
-    __syncthreads();   // (1) inputs, P and p of the step visible
+  for (int step = 0; step < Tm1; ++step) {
+    const size_t t = static_cast<size_t>(Tm1 - 1 - step);
+    const int slot = step % kDepth;
+    ring::bar_wait(&full[slot], (step / kDepth) & 1);
+    const T* const v = tiles + slot * L::kValues + lane;   // this lane's column of the tile
+#define TL(e) v[(e) * kLanes]
 
-    // Qx = gx + fx^T p and Qxx = gxx + (fx^T P) fx, row i (state rows);
+    // A: Qx = gx + fx^T p and Qxx = gxx + (fx^T P) fx, row i (state rows);
     // Qu = gu + fu^T p, Quu = guu + (fu^T P) fu, Qux = gux + (fu^T P) fx,
     // row a (control rows)
-    T Qx = T(0), Qu = T(0), Qxx[N];
+    T um[M];
+    riccati::read_um<M, T, L, Mask>(um, tiles + slot * L::kValues);
+    T Qx = T(0), Qu = T(0);
     if (row < N) {
       const int i = row;
       T col[N];   // column i of fx
 #pragma unroll
-      for (int k = 0; k < N; ++k) col[k] = SH(L::FX + k * N + i);
+      for (int k = 0; k < N; ++k) col[k] = TL(L::kFx + k * N + i);
       T acc = T(0);
 #pragma unroll
-      for (int k = 0; k < N; ++k) acc += col[k] * SH(L::PV + k);
-      Qx = SH(L::GX + i) + acc;
+      for (int k = 0; k < N; ++k) acc += col[k] * SH(S::PV + k);
+      Qx = TL(L::kGx + i) + acc;
       T fxTP[N];
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         T a2 = T(0);
 #pragma unroll
-        for (int k = 0; k < N; ++k) a2 += col[k] * SH(L::P + k * N + j);
+        for (int k = 0; k < N; ++k) a2 += col[k] * SH(S::P + k * N + j);
         fxTP[j] = a2;
       }
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         T a2 = T(0);
 #pragma unroll
-        for (int k = 0; k < N; ++k) a2 += fxTP[k] * SH(L::FX + k * N + j);
-        Qxx[j] = SH(L::GXX + i * N + j) + a2;
+        for (int k = 0; k < N; ++k) a2 += fxTP[k] * TL(L::kFx + k * N + j);
+        SH(S::PN + i * N + j) = TL(L::kGxx + i * N + j) + a2;   // Qxx, row i
       }
     } else {
       const int a = row - N;
       T col[N];   // column a of fu
 #pragma unroll
-      for (int k = 0; k < N; ++k) col[k] = SH(L::FU + k * M + a);
+      for (int k = 0; k < N; ++k) col[k] = TL(L::kFu + k * M + a);
       T acc = T(0);
 #pragma unroll
-      for (int k = 0; k < N; ++k) acc += col[k] * SH(L::PV + k);
-      Qu = SH(L::GU + a) + acc;
-      SH(L::QU + a) = Qu;
+      for (int k = 0; k < N; ++k) acc += col[k] * SH(S::PV + k);
+      Qu = TL(L::kGu + a) + acc;
+      SH(S::QU + a) = Qu;
       T fuTP[N];
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         T a2 = T(0);
 #pragma unroll
-        for (int k = 0; k < N; ++k) a2 += col[k] * SH(L::P + k * N + j);
+        for (int k = 0; k < N; ++k) a2 += col[k] * SH(S::P + k * N + j);
         fuTP[j] = a2;
       }
 #pragma unroll
       for (int c = 0; c < M; ++c) {
         T a2 = T(0);
 #pragma unroll
-        for (int k = 0; k < N; ++k) a2 += fuTP[k] * SH(L::FU + k * M + c);
-        SH(L::QUU + a * M + c) = SH(L::GUU + a * M + c) + a2;
+        for (int k = 0; k < N; ++k) a2 += fuTP[k] * TL(L::kFu + k * M + c);
+        SH(S::QUU + a * M + c) = TL(L::kGuu + a * M + c) + a2;
       }
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         T a2 = T(0);
 #pragma unroll
-        for (int k = 0; k < N; ++k) a2 += fuTP[k] * SH(L::FX + k * N + j);
-        SH(L::QUX + a * N + j) = SH(L::GUX + a * N + j) + a2;
+        for (int k = 0; k < N; ++k) a2 += fuTP[k] * TL(L::kFx + k * N + j);
+        SH(S::QUX + a * N + j) = TL(L::kGux + a * N + j) + a2;
       }
     }
-    __syncthreads();   // (2) Quu, Qux, Qu visible; the inputs, P, p are dead
-
-    // unrolled Cholesky of Quu + reg*I (lower factor), in every thread
-    T Lc[M][M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        T acc = SH(L::QUU + i * M + j) + (i == j ? r : T(0));
-#pragma unroll
-        for (int k = 0; k < j; ++k) acc -= Lc[i][k] * Lc[j][k];
-        Lc[i][j] = (i == j) ? sqrt(acc) : acc / Lc[j][j];
-      }
-    }
-    // state row j solves column j of Qux (-> K[:, j]); the first control
-    // row solves Qu (-> k) and keeps ok
-    if (row <= N) {
-      T y[M], x[M];
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-        T acc = row < N ? SH(L::QUX + i * N + row) : SH(L::QU + i);
-#pragma unroll
-        for (int k = 0; k < i; ++k) acc -= Lc[i][k] * y[k];
-        y[i] = acc / Lc[i][i];
-      }
-#pragma unroll
-      for (int i = M - 1; i >= 0; --i) {
-        T acc = y[i];
-#pragma unroll
-        for (int k = i + 1; k < M; ++k) acc -= Lc[k][i] * x[k];
-        x[i] = acc / Lc[i][i];
-      }
-      if (row < N) {
-#pragma unroll
-        for (int a = 0; a < M; ++a) {
-          SH(L::K + a * N + row) = -x[a];
-          if (live) K_out[((tt * M + a) * N + row) * B + b] = -x[a];
-        }
-      } else {
-#pragma unroll
-        for (int a = 0; a < M; ++a) {
-          ok = ok && isfinite(Lc[a][a]) && (Lc[a][a] > T(0));
-          SH(L::KFF + a) = -x[a];
-          if (live) k_out[(tt * M + a) * B + b] = -x[a];
-        }
-      }
-    }
+#undef TL
     if (live) {
       if (row < N) {
-        Qx_out[(tt * N + row) * B + b] = Qx;
+        out.Qx[(t * N + row) * B + b] = Qx;
       } else {
-        Qu_out[(tt * M + (row - N)) * B + b] = Qu;
+        out.Qu[(t * M + (row - N)) * B + b] = Qu;
       }
     }
-    __syncthreads();   // (3) K, k visible
+    named_sync(1, kCompute);   // B1: Quu, Qux, Qu visible; P, p and the tile read
+    // the tile is free: the producer row refills it with the step kDepth on
+    // while the state rows run phases B to E
+    if (row == kProducerRow && step + kDepth < Tm1) fill(step + kDepth);
 
-    // Quu K (unregularized Quu), row a
-    if (row >= N) {
-      const int a = row - N;
+    // B: the factored Quu and the value update's (mask policy), the
+    // Cholesky; state row j solves column j of Qux (-> K[:, j]) and forms
+    // column j of Quu_eff K; the first control row solves Qu (-> k)
+    T Kc[M], Quxc[M], QuuKc[M];   // state row j: column j of K, Qux, Quu_eff K
+    if (row <= N) {
+      T Quu[M][M], Qreg[M][M], Qeff[M][M], Lf[M][M];
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        T acc = T(0);
+      for (int a = 0; a < M; ++a) {
 #pragma unroll
-        for (int c = 0; c < M; ++c) acc += SH(L::QUU + a * M + c) * SH(L::K + c * N + j);
-        SH(L::QUUK + a * N + j) = acc;
+        for (int c = 0; c < M; ++c) Quu[a][c] = SH(S::QUU + a * M + c);
       }
+      mask.form(um, Quu, r, Qreg, Qeff);
+      riccati::cholesky(Qreg, Lf, ok);
+      T rhs[M], x[M];
+#pragma unroll
+      for (int i = 0; i < M; ++i) rhs[i] = row < N ? SH(S::QUX + i * N + row) : SH(S::QU + i);
+      riccati::cho_solve(Lf, rhs, x);
+      T g[M];
+#pragma unroll
+      for (int a = 0; a < M; ++a) g[a] = mask.gain(um, -x[a], a);
+      if (row < N) {
+        // QuuK = Quu_eff K, column j
+#pragma unroll
+        for (int a = 0; a < M; ++a) {
+          T acc = T(0);
+#pragma unroll
+          for (int c = 0; c < M; ++c) acc += Qeff[a][c] * g[c];
+          Kc[a] = g[a];
+          Quxc[a] = rhs[a];
+          QuuKc[a] = acc;
+          SH(S::K + a * N + row) = g[a];
+          SH(S::QUUK + a * N + row) = acc;
+          if (live) out.K[((t * M + a) * N + row) * B + b] = g[a];
+        }
+      } else {
+#pragma unroll
+        for (int a = 0; a < M; ++a) {
+          SH(S::KFF + a) = g[a];
+          if (live) out.k[(t * M + a) * B + b] = g[a];
+        }
+      }
+      named_sync(2, kLanes * (N + 1));   // B2: K, Quu K, k visible
     }
-    __syncthreads();   // (4) Quu K visible
 
-    // P = Qxx + K^T Quu K + K^T Qux + Qux^T K, row i, into shared memory
-    // unsymmetrized; p = Qx + (Quu K)^T k + K^T Qu + Qux^T k
     if (row < N) {
+      // D: P = Qxx + K^T Quu K + K^T Qux + Qux^T K, row i, unsymmetrized
+      // into PN (over Qxx's row); p = Qx + (Quu K)^T k + K^T Qu + Qux^T k
+      // (column i of K, Qux and Quu K from the registers)
       const int i = row;
+      T Pn[N];
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         T t1 = T(0), t2 = T(0), t3 = T(0);
 #pragma unroll
         for (int a = 0; a < M; ++a) {
-          t1 += SH(L::K + a * N + i) * SH(L::QUUK + a * N + j);
-          t2 += SH(L::K + a * N + i) * SH(L::QUX + a * N + j);
-          t3 += SH(L::QUX + a * N + i) * SH(L::K + a * N + j);
+          t1 += Kc[a] * SH(S::QUUK + a * N + j);
+          t2 += Kc[a] * SH(S::QUX + a * N + j);
+          t3 += Quxc[a] * SH(S::K + a * N + j);
         }
-        Qxx[j] = ((Qxx[j] + t1) + t2) + t3;   // now row i of the new P
-        SH(L::P + i * N + j) = Qxx[j];
+        Pn[j] = ((SH(S::PN + i * N + j) + t1) + t2) + t3;
+        SH(S::PN + i * N + j) = Pn[j];
       }
       T t1 = T(0), t2 = T(0), t3 = T(0);
 #pragma unroll
       for (int a = 0; a < M; ++a) {
-        t1 += SH(L::QUUK + a * N + i) * SH(L::KFF + a);
-        t2 += SH(L::K + a * N + i) * SH(L::QU + a);
-        t3 += SH(L::QUX + a * N + i) * SH(L::KFF + a);
+        t1 += QuuKc[a] * SH(S::KFF + a);
+        t2 += Kc[a] * SH(S::QU + a);
+        t3 += Quxc[a] * SH(S::KFF + a);
       }
       const T pn = ((Qx + t1) + t2) + t3;
-      SH(L::PV + i) = pn;
-      if (live) p_out[(tt * N + i) * B + b] = pn;
-    }
-    __syncthreads();   // (5) the unsymmetrized P visible
+      SH(S::PV + i) = pn;
+      if (live) out.p[(t * N + i) * B + b] = pn;
+      named_sync(3, kLanes * N);   // B3: the new P's rows visible
 
-    // P = (P + P^T) / 2: row i from the thread's registers and column i
-    if (row < N) {
+      // E: P = (P + P^T) / 2, row i from the registers and column i of PN
 #pragma unroll
-      for (int j = 0; j < N; ++j) Qxx[j] = T(0.5) * (Qxx[j] + SH(L::P + j * N + row));
+      for (int j = 0; j < N; ++j) SH(S::P + i * N + j) = T(0.5) * (Pn[j] + SH(S::PN + j * N + i));
     }
-    __syncthreads();   // (6) every column read before any row is replaced
-    if (row < N) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) SH(L::P + row * N + j) = Qxx[j];
-    }
-    // the next step's barrier (1) makes the new P visible
+    named_sync(4, kCompute);   // B4: P and p visible for the next step
   }
 #undef SH
-  if (row == N && live) ok_out[b] = ok ? T(1) : T(0);
+  if (row == N && live) out.ok[b] = ok ? T(1) : T(0);
 }
 
-template <int N, int M, typename T>
-int launch(const void* fx, const void* fu, const void* gx, const void* gu,
-           const void* gxx, const void* guu, const void* gux,
-           const void* gxxT, const void* gxT, const void* reg,
-           void* K, void* k, void* Qx, void* Qu, void* p, void* ok,
-           int Tm1, int B, void* stream) {
+template <int N, int M, typename T, class Load, class Mask>
+int launch(Load load, Mask mask, const void* gxxT, const void* gxT, const void* reg,
+           void* K, void* k, void* Qx, void* Qu, void* p, void* ok, int Tm1, int B,
+           void* stream) {
   if (B > 0) {
-    const int smem = static_cast<int>(sizeof(T) * Layout<N, M>::TOTAL * kLanes);
-    cudaError_t err = cudaFuncSetAttribute(
-        riccati_backward_wide_kernel<N, M, T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    auto* const kernel = riccati_wide_kernel<N, M, T, Load, Mask>;
+    constexpr int bytes = Ring<N, M, T, Mask::kMasked>::kBytes;
+    static unsigned long long shared_set = 0;
+    const cudaError_t err = ring::allow_shared(kernel, bytes, shared_set);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int blocks = (B + kLanes - 1) / kLanes;
-    const dim3 block(kLanes, N + M);
-    riccati_backward_wide_kernel<N, M, T>
-        <<<blocks, block, smem, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(fx), static_cast<const T*>(fu),
-            static_cast<const T*>(gx), static_cast<const T*>(gu),
-            static_cast<const T*>(gxx), static_cast<const T*>(guu),
-            static_cast<const T*>(gux), static_cast<const T*>(gxxT),
-            static_cast<const T*>(gxT), static_cast<const T*>(reg),
-            static_cast<T*>(K), static_cast<T*>(k), static_cast<T*>(Qx),
-            static_cast<T*>(Qu), static_cast<T*>(p), static_cast<T*>(ok),
-            Tm1, B);
+    const Outputs<T> out{static_cast<T*>(K), static_cast<T*>(k), static_cast<T*>(Qx),
+                         static_cast<T*>(Qu), static_cast<T*>(p), static_cast<T*>(ok)};
+    kernel<<<blocks, block_threads<N, M>(), bytes, static_cast<cudaStream_t>(stream)>>>(
+        load, mask, static_cast<const T*>(gxxT), static_cast<const T*>(gxT),
+        static_cast<const T*>(reg), out, Tm1, B, load.aligned(static_cast<size_t>(B)));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// the ring of an instantiation: its depth and its dynamic shared memory a
+// block
+template <int N, int M, typename T, bool kMasked>
+int ring_info(int* depth, int* bytes) {
+  *depth = Ring<N, M, T, kMasked>::kDepth;
+  *bytes = Ring<N, M, T, kMasked>::kBytes;
+  return 0;
+}
+
 }  // namespace
 
-// One C entry point per (dtype, n, m), with K1's signature.  Keep this list
-// equal to _WIDE_INSTANTIATIONS in iterativelqr_tpu_torch/ops/packed_backward.py.
-#define RICCATI_WIDE_ENTRY(NAME, N, M, T)                                     \
-  extern "C" int NAME(const void* fx, const void* fu, const void* gx,        \
-                      const void* gu, const void* gxx, const void* guu,      \
-                      const void* gux, const void* gxxT, const void* gxT,    \
-                      const void* reg, void* K, void* k, void* Qx, void* Qu, \
-                      void* p, void* ok, int Tm1, int B, void* stream) {     \
-    return launch<N, M, T>(fx, fu, gx, gu, gxx, guu, gux, gxxT, gxT, reg, K, \
-                           k, Qx, Qu, p, ok, Tm1, B, stream);                \
-  }
+// C entry points, one per kernel and (dtype, n, m) (riccati_policies.cuh):
+// K2 is riccati_backward_wide_*, K5/K6a/K6b at these dims take the names of
+// K1's family.  Keep the list equal to _WIDE_INSTANTIATIONS in
+// iterativelqr_tpu_torch/ops/packed_backward.py.
+#define RICCATI_WIDE_FAMILY(N, M)                                                 \
+  RICCATI_RING_ENTRY(riccati_wide_ring_f32_n##N##_m##M, N, M, float)              \
+  RICCATI_RING_ENTRY(riccati_wide_ring_f64_n##N##_m##M, N, M, double)             \
+  RICCATI_ENTRY(riccati_backward_wide_f32_n##N##_m##M, N, M, float)               \
+  RICCATI_ENTRY(riccati_backward_wide_f64_n##N##_m##M, N, M, double)              \
+  RICCATI_PACKED_ENTRY(riccati_packed_f32_n##N##_m##M, N, M, float)               \
+  RICCATI_PACKED_ENTRY(riccati_packed_f64_n##N##_m##M, N, M, double)              \
+  RICCATI_MASKED_ENTRY(riccati_masked_f32_n##N##_m##M, N, M, float)               \
+  RICCATI_MASKED_ENTRY(riccati_masked_f64_n##N##_m##M, N, M, double)              \
+  RICCATI_MASKED_PACKED_ENTRY(riccati_masked_packed_f32_n##N##_m##M, N, M, float) \
+  RICCATI_MASKED_PACKED_ENTRY(riccati_masked_packed_f64_n##N##_m##M, N, M, double)
 
-RICCATI_WIDE_ENTRY(riccati_backward_wide_f32_n12_m4, 12, 4, float)
-RICCATI_WIDE_ENTRY(riccati_backward_wide_f64_n12_m4, 12, 4, double)
+RICCATI_WIDE_FAMILY(12, 4)

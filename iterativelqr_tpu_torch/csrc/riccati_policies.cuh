@@ -1,0 +1,297 @@
+// The parts of the backward Riccati recursion that K1's template
+// (riccati_backward.cu) and K2's (riccati_backward_wide.cu) share: the
+// layout of one step's tile in the ring (async_ring.cuh), the load policies
+// (where the runs of step t are), the mask policies (the factored and the
+// value update's Quu, the gains' scaling), the outputs, and the C entry
+// points of one (n, m, dtype) family.  Each source instantiates the entry
+// macros with its own `launch` and `ring_info` templates.
+//
+// Load policies: SevenArrays reads element (t, i, j) of lane b from seven
+// batch-last arrays [Tm1, *dims, B]; PackedBuffer reads slot f of step t from
+// one buffer [Tm1, F, B] at packed[(t*F + f)*B + b], F = n^2+nm+n+m+n^2+m^2+mn,
+// slots in the order fx, fu, gx, gu, gxx, guu, gux.  Mask policies: NoMask
+// (K1, K2, K5) factors Quu + reg*I and updates the value with Quu; StepMask
+// (K6a, K6b) reads the step's action mask um[t, a], shared by all lanes (one
+// [Tm1, m] array, copied into the step's tile), and forms
+//   Quu_eff = Quu .* (um um^T) + diag(1 - um),  Quu_reg = Quu_eff + diag(reg um)
+// with gains scaled by um and the value update on Quu_eff; K6b's order then
+// recomputes Quu_eff = Quu_reg - diag(reg um), which floating point does not
+// return to K6a's Quu_eff, so both orders are kept.  The mask products are
+// exact (um is 0 or 1), so FMA contraction leaves them as the TPU kernel
+// rounds them.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+#include "async_ring.cuh"
+
+namespace riccati {
+
+// A tile: the step's slots [kF][32 lanes] in the packed order fx, fu, gx,
+// gu, gxx, guu, gux, then (StepMask only) the step's mask, padded to 16 B.
+template <int N, int M, typename T, bool kMasked>
+struct StepTile {
+  static constexpr int kFx = 0, kFu = kFx + N * N, kGx = kFu + N * M, kGu = kGx + N,
+                       kGxx = kGu + M, kGuu = kGxx + N * N, kGux = kGuu + M * M,
+                       kF = kGux + M * N;
+  static constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kUm = kMasked ? (M + kPer16 - 1) / kPer16 * kPer16 : 0;
+  static constexpr int kValues = kF * ring::kLanes + kUm;   // a multiple of 16 B
+};
+
+// ---- load policies: where the runs of step t are ---------------------------
+//
+// copy<L, P>: the producer thread tid's share (of P producer threads) of the
+// async copies of step t's slots for lanes [b0, b0+32) into a tile of layout
+// L; aligned: may they go as 16-byte chunks (host side).
+
+template <int N, int M, typename T>
+struct SevenArrays {
+  const T* __restrict__ fx;
+  const T* __restrict__ fu;
+  const T* __restrict__ gx;
+  const T* __restrict__ gu;
+  const T* __restrict__ gxx;
+  const T* __restrict__ guu;
+  const T* __restrict__ gux;
+
+  template <class L, int P>
+  __device__ __forceinline__ void copy(T* tile, size_t t, size_t B, size_t b0, int tid,
+                                       bool vec) const {
+    constexpr int W = ring::kLanes;
+    ring::copy_rows<N * N, N * N, P>(tile + L::kFx * W, fx, t, B, b0, tid, vec);
+    ring::copy_rows<N * M, N * M, P>(tile + L::kFu * W, fu, t, B, b0, tid, vec);
+    ring::copy_rows<N, N, P>(tile + L::kGx * W, gx, t, B, b0, tid, vec);
+    ring::copy_rows<M, M, P>(tile + L::kGu * W, gu, t, B, b0, tid, vec);
+    ring::copy_rows<N * N, N * N, P>(tile + L::kGxx * W, gxx, t, B, b0, tid, vec);
+    ring::copy_rows<M * M, M * M, P>(tile + L::kGuu * W, guu, t, B, b0, tid, vec);
+    ring::copy_rows<M * N, M * N, P>(tile + L::kGux * W, gux, t, B, b0, tid, vec);
+  }
+
+  bool aligned(size_t B) const {
+    return ring::runs_aligned<T>(B, {fx, fu, gx, gu, gxx, guu, gux});
+  }
+};
+
+template <int N, int M, typename T>
+struct PackedBuffer {
+  static constexpr int kF = N * N + N * M + N + M + N * N + M * M + M * N;
+  const T* __restrict__ packed;
+
+  template <class L, int P>
+  __device__ __forceinline__ void copy(T* tile, size_t t, size_t B, size_t b0, int tid,
+                                       bool vec) const {
+    static_assert(L::kF == kF, "the tile holds the packed slots in their order");
+    ring::copy_rows<kF, kF, P>(tile, packed, t, B, b0, tid, vec);
+  }
+
+  bool aligned(size_t B) const { return ring::runs_aligned<T>(B, {packed}); }
+};
+
+// ---- mask policies ---------------------------------------------------------
+//
+// copy: the step's mask into the tile; form: Quu_reg (factored) and Quu_eff
+// (the value update's) from Quu, reg and the step's mask um; gain: a gain
+// entry of action row a.
+
+struct NoMask {
+  static constexpr bool kMasked = false;
+
+  template <int M, typename T>
+  __device__ __forceinline__ void copy(T*, size_t, int) const {}
+
+  template <int M, typename T>
+  __device__ __forceinline__ void form(const T (&)[M], const T (&Quu)[M][M], T r,
+                                       T (&Qreg)[M][M], T (&Qeff)[M][M]) const {
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+#pragma unroll
+      for (int c = 0; c < M; ++c) {
+        Qreg[a][c] = Quu[a][c] + (a == c ? r : T(0));
+        Qeff[a][c] = Quu[a][c];
+      }
+    }
+  }
+
+  template <int M, typename T>
+  __device__ __forceinline__ T gain(const T (&)[M], T v, int) const {
+    return v;
+  }
+};
+
+template <typename T, bool kV2Order>
+struct StepMask {
+  static constexpr bool kMasked = true;
+  const T* __restrict__ um;  // [Tm1, M], shared by all lanes
+
+  // producer threads tid < M copy one value each
+  template <int M>
+  __device__ __forceinline__ void copy(T* tile_um, size_t t, int tid) const {
+    if (tid < M) ring::copy<sizeof(T)>(tile_um + tid, um + t * M + tid, true);
+  }
+
+  template <int M>
+  __device__ __forceinline__ void form(const T (&um)[M], const T (&Quu)[M][M], T r,
+                                       T (&Qreg)[M][M], T (&Qeff)[M][M]) const {
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+#pragma unroll
+      for (int c = 0; c < M; ++c) {
+        const T mask2 = um[a] * um[c];
+        if (a == c) {
+          const T ru = r * um[a];
+          Qeff[a][c] = Quu[a][c] * mask2 + (T(1) - um[a]);
+          Qreg[a][c] = Qeff[a][c] + ru;
+          if constexpr (kV2Order) Qeff[a][c] = Qreg[a][c] - ru;
+        } else {
+          Qeff[a][c] = Quu[a][c] * mask2;
+          Qreg[a][c] = Qeff[a][c];
+        }
+      }
+    }
+  }
+
+  template <int M>
+  __device__ __forceinline__ T gain(const T (&um)[M], T v, int a) const {
+    return v * um[a];
+  }
+};
+
+// the step's mask from the tile (StepMask), every value 1 otherwise
+template <int M, typename T, class L, class Mask>
+__device__ __forceinline__ void read_um(T (&um)[M], const T* tile) {
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+    if constexpr (Mask::kMasked) {
+      um[a] = tile[L::kF * ring::kLanes + a];
+    } else {
+      um[a] = T(1);
+    }
+  }
+}
+
+// Cholesky of Qreg (lower factor), unrolled; ok stays true while every pivot
+// is finite and > 0
+template <int M, typename T>
+__device__ __forceinline__ void cholesky(const T (&Qreg)[M][M], T (&Lf)[M][M], bool& ok) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      T acc = Qreg[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) acc -= Lf[i][k] * Lf[j][k];
+      Lf[i][j] = (i == j) ? sqrt(acc) : acc / Lf[j][j];
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < M; ++a) ok = ok && isfinite(Lf[a][a]) && (Lf[a][a] > T(0));
+}
+
+// x = (L L^T)^-1 rhs, forward then back substitution
+template <int M, typename T>
+__device__ __forceinline__ void cho_solve(const T (&Lf)[M][M], const T (&rhs)[M], T (&x)[M]) {
+  T y[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    T acc = rhs[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) acc -= Lf[i][k] * y[k];
+    y[i] = acc / Lf[i][i];
+  }
+#pragma unroll
+  for (int i = M - 1; i >= 0; --i) {
+    T acc = y[i];
+#pragma unroll
+    for (int k = i + 1; k < M; ++k) acc -= Lf[k][i] * x[k];
+    x[i] = acc / Lf[i][i];
+  }
+}
+
+template <typename T>
+struct Outputs {
+  T* __restrict__ K;
+  T* __restrict__ k;
+  T* __restrict__ Qx;
+  T* __restrict__ Qu;
+  T* __restrict__ p;
+  T* __restrict__ ok;
+};
+
+template <int N, int M, typename T>
+SevenArrays<N, M, T> seven(const void* fx, const void* fu, const void* gx, const void* gu,
+                           const void* gxx, const void* guu, const void* gux) {
+  return SevenArrays<N, M, T>{static_cast<const T*>(fx), static_cast<const T*>(fu),
+                              static_cast<const T*>(gx), static_cast<const T*>(gu),
+                              static_cast<const T*>(gxx), static_cast<const T*>(guu),
+                              static_cast<const T*>(gux)};
+}
+
+}  // namespace riccati
+
+// C entry points of one (n, m, dtype), each calling the including source's
+// launch<N, M, T>(load, mask, gxxT, gxT, reg, K, k, Qx, Qu, p, ok, Tm1, B,
+// stream) and ring_info<N, M, T, masked>(depth, bytes).
+
+// seven stacks (gx, gxx without the terminal row), terminal gxxT, gxT (K1, K2)
+#define RICCATI_ENTRY(NAME, N, M, T)                                          \
+  extern "C" int NAME(const void* fx, const void* fu, const void* gx,        \
+                      const void* gu, const void* gxx, const void* guu,      \
+                      const void* gux, const void* gxxT, const void* gxT,    \
+                      const void* reg, void* K, void* k, void* Qx, void* Qu, \
+                      void* p, void* ok, int Tm1, int B, void* stream) {     \
+    return launch<N, M, T>(riccati::seven<N, M, T>(fx, fu, gx, gu, gxx, guu, \
+                                                   gux),                     \
+                           riccati::NoMask{}, gxxT, gxT, reg, K, k, Qx, Qu,  \
+                           p, ok, Tm1, B, stream);                           \
+  }
+
+// K5: one packed buffer [Tm1, F, B], terminal gxxT, gxT.
+#define RICCATI_PACKED_ENTRY(NAME, N, M, T)                                   \
+  extern "C" int NAME(const void* packed, const void* gxxT, const void* gxT, \
+                      const void* reg, void* K, void* k, void* Qx, void* Qu, \
+                      void* p, void* ok, int Tm1, int B, void* stream) {     \
+    return launch<N, M, T>(                                                   \
+        riccati::PackedBuffer<N, M, T>{static_cast<const T*>(packed)},        \
+        riccati::NoMask{}, gxxT, gxT, reg, K, k, Qx, Qu, p, ok, Tm1, B,       \
+        stream);                                                              \
+  }
+
+// K6a: seven stacks with gx [T, n, B] and gxx [T, n, n, B] whole: the
+// terminal P, p are their row Tm1, as the TPU kernel reads them.
+#define RICCATI_MASKED_ENTRY(NAME, N, M, T)                                    \
+  extern "C" int NAME(const void* fx, const void* fu, const void* gx,         \
+                      const void* gu, const void* gxx, const void* guu,       \
+                      const void* gux, const void* um, const void* reg,       \
+                      void* K, void* k, void* Qx, void* Qu, void* p, void* ok, \
+                      int Tm1, int B, void* stream) {                          \
+    const size_t Bs = static_cast<size_t>(B), t1 = static_cast<size_t>(Tm1);  \
+    return launch<N, M, T>(                                                    \
+        riccati::seven<N, M, T>(fx, fu, gx, gu, gxx, guu, gux),                \
+        riccati::StepMask<T, false>{static_cast<const T*>(um)},                \
+        static_cast<const T*>(gxx) + t1 * N * N * Bs,                          \
+        static_cast<const T*>(gx) + t1 * N * Bs, reg, K, k, Qx, Qu, p, ok,     \
+        Tm1, B, stream);                                                       \
+  }
+
+// K6b: one packed buffer, terminal gxxT, gxT, the mask in K6b's order.
+#define RICCATI_MASKED_PACKED_ENTRY(NAME, N, M, T)                            \
+  extern "C" int NAME(const void* packed, const void* gxxT, const void* gxT, \
+                      const void* um, const void* reg, void* K, void* k,     \
+                      void* Qx, void* Qu, void* p, void* ok, int Tm1, int B, \
+                      void* stream) {                                         \
+    return launch<N, M, T>(                                                   \
+        riccati::PackedBuffer<N, M, T>{static_cast<const T*>(packed)},        \
+        riccati::StepMask<T, true>{static_cast<const T*>(um)}, gxxT, gxT,     \
+        reg, K, k, Qx, Qu, p, ok, Tm1, B, stream);                            \
+  }
+
+// The ring of (n, m, dtype), masked (K6a, K6b) or not (K1, K2, K5): its depth
+// and dynamic shared memory a block.
+#define RICCATI_RING_ENTRY(NAME, N, M, T)                          \
+  extern "C" int NAME(int masked, int* depth, int* bytes) {        \
+    return masked ? ring_info<N, M, T, true>(depth, bytes)         \
+                  : ring_info<N, M, T, false>(depth, bytes);       \
+  }

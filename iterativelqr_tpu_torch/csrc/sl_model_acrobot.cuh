@@ -32,6 +32,8 @@ struct AcrobotModel {
   static constexpr int NC_TERM = kGoal ? 4 : 0;
   static constexpr int NC = NC_TERM;            // the spec's padded nc
   static constexpr unsigned INEQ_STAGE = 0u, INEQ_TERM = 0u;
+  // K3 and K4 stream the step inputs through the ring (sl_forward.cu)
+  static constexpr bool kStream = true;
 
   // acrobot_continuous
   template <typename T>

@@ -19,6 +19,10 @@ struct Car {
   static constexpr int NC = 5;                       // the spec's padded nc
   static constexpr unsigned INEQ_STAGE = 0x1Fu;      // all five rows
   static constexpr unsigned INEQ_TERM = 1u << 3;     // the obstacle row
+  // K3 and K4 load the step inputs in the step: the RK2 chain is short,
+  // and the ring's waits and producer warp cost about what they hide
+  // (sl_forward.cu)
+  static constexpr bool kStream = false;
 
   // car_continuous
   template <typename T>

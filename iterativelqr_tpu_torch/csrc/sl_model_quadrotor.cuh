@@ -20,6 +20,9 @@ struct Quadrotor {
   static constexpr int NC = 12;                      // the spec's padded nc
   static constexpr unsigned INEQ_STAGE = 0xFFu;      // all eight thrust bounds
   static constexpr unsigned INEQ_TERM = 0u;          // hover at the goal
+  // K3 and K4 stream the step inputs (84 values a step) through the ring
+  // (sl_forward.cu)
+  static constexpr bool kStream = true;
 
   static constexpr double MASS = 1.0, GRAVITY = 9.81, ARM = 0.2, KT = 0.02;
   static constexpr double HOVER = MASS * GRAVITY / 4.0;

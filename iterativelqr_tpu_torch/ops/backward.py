@@ -167,12 +167,21 @@ def backward_pass(fx, fu, gx, gu, gxx, guu, gux, u_mask, reg_carry, options,
                                options.regularization_max)
         return (i + 1, reg_next, reg, ok, (K, k, Qx, Qu, p))
 
-    # the first attempt runs on every lane (its test cannot fail), so it
-    # needs no host sync
-    i0 = torch.zeros(reg_carry.shape, dtype=torch.int32, device=reg_carry.device)
-    state = body((i0, reg_carry, reg_carry, None, None))
-    _, _, reg_used, ok, (K, k, Qx, Qu, p) = while_lanes(
-        cond, body, state, "regularization")
+    if options.max_regularization_steps < 0:
+        # no attempt: zero gains and ok false, the JAX loop's initial state
+        Tm1, nx, nu = fx.shape[-3], fx.shape[-1], fu.shape[-1]
+        lanes = fx.shape[:-3]
+        K, k, Qx, Qu, p = (fx.new_zeros(lanes + s) for s in (
+            (Tm1, nu, nx), (Tm1, nu), (Tm1, nx), (Tm1, nu), (Tm1, nx)))
+        reg_used, ok = reg_carry, torch.zeros(reg_carry.shape, dtype=torch.bool,
+                                              device=reg_carry.device)
+    else:
+        # the first attempt runs on every lane (its test cannot fail), so it
+        # needs no host sync
+        i0 = torch.zeros(reg_carry.shape, dtype=torch.int32, device=reg_carry.device)
+        state = body((i0, reg_carry, reg_carry, None, None))
+        _, _, reg_used, ok, (K, k, Qx, Qu, p) = while_lanes(
+            cond, body, state, "regularization")
 
     # decay for the next iteration's first attempt
     reg_next_carry = torch.where(

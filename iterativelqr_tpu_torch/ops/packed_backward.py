@@ -2,12 +2,13 @@
 
 Counterpart of ``iterativelqr_tpu/ops/packed_backward.py``: the entry
 ``backward_pass_multiref`` runs the recursion on the card through one of two
-hand-written CUDA kernels, picked by the problem's dims
+hand-written CUDA recursion templates, picked by the problem's dims
 (``uses_wide_kernel``): K1, ``csrc/riccati_backward.cu`` (the TPU kernel
 ``_kernel_mr``), or K2, ``csrc/riccati_backward_wide.cu`` (the TPU kernel
 ``_kernel_mr_stream``).  ``backward_pass_packed`` runs K5 (the TPU kernel
-``_kernel``, v3), an instantiation of K1's recursion that reads one packed
-per-step buffer built by ``pack_stacks``/``pack_stacks_bt``;
+``_kernel``, v3), the same recursion reading one packed per-step buffer
+built by ``pack_stacks``/``pack_stacks_bt``: an instantiation of K1's
+template at K1's dims and of K2's at the wide dims;
 ``backward_pass_batched_pallas_v3`` is its batch-leading drop-in.
 ``backward_pass_multiref_reference`` is the same math as a PyTorch loop over
 t (the ``_riccati_step`` of the JAX module), and serves every one of these
@@ -34,8 +35,9 @@ from .. import _build
 
 # (n, m) pairs with a compiled kernel, in each of float32 and float64; keep
 # equal to the RICCATI_FAMILY list in csrc/riccati_backward.cu (K1, K5, K6a,
-# K6b: acrobot, car) and the RICCATI_WIDE_ENTRY list in
-# csrc/riccati_backward_wide.cu (K2: quadrotor)
+# K6b on K1's template: acrobot, car) and the RICCATI_WIDE_FAMILY list in
+# csrc/riccati_backward_wide.cu (K2, K5, K6a, K6b on K2's template:
+# quadrotor)
 _INSTANTIATIONS = ((4, 1), (3, 2))
 _WIDE_INSTANTIATIONS = ((12, 4),)
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
@@ -55,6 +57,7 @@ class LaunchCounter:
 RICCATI_LAUNCHES = LaunchCounter()
 RICCATI_WIDE_LAUNCHES = LaunchCounter()
 RICCATI_PACKED_LAUNCHES = LaunchCounter()
+RICCATI_PACKED_WIDE_LAUNCHES = LaunchCounter()
 
 # K1 runs one thread per lane and keeps everything a step needs in that
 # thread's registers, of which a thread has at most 255
@@ -246,20 +249,25 @@ def _symbol(name, compiled, src, n, m, dtype):
     return f"{name}_{_DTYPES[dtype]}_n{n}_m{m}"
 
 
-def k1_family_symbol(name: str, n: int, m: int, dtype: torch.dtype) -> str:
+def family_symbol(name: str, n: int, m: int, dtype: torch.dtype) -> str:
     """C entry point of K5 (``riccati_packed``), K6a (``riccati_masked``) or
-    K6b (``riccati_masked_packed``): instantiations of K1's recursion, so
-    they exist for K1's dims only; the wide dims K2 takes have no packed or
-    masked counterpart yet and raise."""
+    K6b (``riccati_masked_packed``) at (n, m, dtype): an instantiation of
+    K1's recursion template, or of K2's where ``uses_wide_kernel``; raises
+    when there is none."""
     if uses_wide_kernel(n, m):
-        raise NotImplementedError(
-            f"{name} is an instantiation of K1's one-thread-a-lane recursion; "
-            f"n={n}, m={m} overflow its registers (uses_wide_kernel) and have "
-            f"no packed or masked counterpart of K2 yet (ROADMAP Queue 2)"
-        )
+        return _symbol(name, _WIDE_INSTANTIATIONS,
+                       "riccati_backward_wide.cu (RICCATI_WIDE_FAMILY) and "
+                       "_WIDE_INSTANTIATIONS", n, m, dtype)
     return _symbol(name, _INSTANTIATIONS,
                    "riccati_backward.cu (RICCATI_FAMILY) and _INSTANTIATIONS",
                    n, m, dtype)
+
+
+def family_counter(narrow: LaunchCounter, wide: LaunchCounter, n: int,
+                   m: int) -> LaunchCounter:
+    """The launch count of a family member at (n, m): its instantiation of
+    K1's template or of K2's (``uses_wide_kernel``)."""
+    return wide if uses_wide_kernel(n, m) else narrow
 
 
 def _kernel_fn(symbol: str, n_pointers: int):
@@ -287,12 +295,12 @@ def ring_entry(symbol: str, *args) -> tuple:
 
 
 def riccati_ring(n: int, m: int, dtype: torch.dtype, masked: bool) -> tuple:
-    """The ring of K1's recursion template at (n, m, dtype), masked (K6a,
-    K6b) or not (K1, K5): (tiles, bytes of shared memory a block).  Builds
-    the kernels on first use."""
-    name = _symbol("riccati_ring", _INSTANTIATIONS,
-                   "riccati_backward.cu (RICCATI_FAMILY) and _INSTANTIATIONS",
-                   n, m, dtype)
+    """The ring of the recursion template at (n, m, dtype) (K1's, or K2's
+    where ``uses_wide_kernel``), masked (K6a, K6b) or not (K1, K2, K5):
+    (tiles, bytes of shared memory a block).  Builds the kernels on first
+    use."""
+    name = family_symbol("riccati_wide_ring" if uses_wide_kernel(n, m)
+                         else "riccati_ring", n, m, dtype)
     return ring_entry(name, int(masked))
 
 
@@ -445,8 +453,9 @@ def backward_pass_packed(packed, gxxT, gxT, reg, meta):
     Regularization rides the whole diagonal (invalid dims carry the packing's
     unit diagonal, and their Qux/Qu rows are zero, so their gains stay 0).
 
-    CPU tensors take the plain reference; CUDA tensors launch K5 on the
-    current stream, without synchronising.  The TPU kernel's lane blocks
+    CPU tensors take the plain reference; CUDA tensors launch K5 (K1's or
+    K2's template, by the dims) on the current stream, without
+    synchronising.  The TPU kernel's lane blocks
     need the batch padded to a multiple of its block; K5 masks its ragged
     lane edge, so no padding is made.
     """
@@ -457,12 +466,13 @@ def backward_pass_packed(packed, gxxT, gxT, reg, meta):
     if device.type != "cuda":
         raise ValueError(f"backward_pass_packed: unsupported device {device}")
     Tm1, B, dtype = packed.shape[0], packed.shape[-1], packed.dtype
-    symbol = k1_family_symbol("riccati_packed", n, m, dtype)
+    symbol = family_symbol("riccati_packed", n, m, dtype)
     _check("packed", packed, (Tm1, _offsets(n, m)[-1], B), dtype, device)
     _check("gxxT", gxxT, (n, n, B), dtype, device)
     _check("gxT", gxT, (n, B), dtype, device)
     _check("reg", reg, (B,), dtype, device)
-    return launch(symbol, RICCATI_PACKED_LAUNCHES, (packed, gxxT, gxT, reg),
+    counter = family_counter(RICCATI_PACKED_LAUNCHES, RICCATI_PACKED_WIDE_LAUNCHES, n, m)
+    return launch(symbol, counter, (packed, gxxT, gxT, reg),
                   new_outputs(Tm1, n, m, B, dtype, device), Tm1, B)
 
 

@@ -161,6 +161,10 @@ def make_derive_backward_sl(spec: ProblemSpec, options, device):
             reg_used = reg_run
             ok = ok_now
             i += 1
+        if outs is None:
+            # max_regularization_steps < 0: no attempt, zero gains and ok
+            # false, as the JAX loop's initial state
+            outs = tuple(a.zero_() for a in pk.new_outputs(Tm1, nx, nu, B, dtype, xs.device))
         K_t, k_t, Qx_t, Qu_t, p_t, _ok = outs
 
         # Lagrangian gradient norm

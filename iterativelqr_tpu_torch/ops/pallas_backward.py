@@ -2,8 +2,10 @@
 K6b), and the dispatch that runs it under the batched solve.
 
 Counterpart of ``iterativelqr_tpu/ops/pallas_backward.py``, whose two TPU
-kernels become two instantiations of K1's recursion template in
-``csrc/riccati_backward.cu``:
+kernels become two instantiations of a recursion template: K1's
+(``csrc/riccati_backward.cu``) at K1's dims, K2's
+(``csrc/riccati_backward_wide.cu``) where ``packed_backward.uses_wide_kernel``
+(the quadrotor's (12, 4)); the JAX kernels take any (n, m):
 
 * K6a (the TPU kernel ``_kernel``, v1): ``backward_pass_masked`` on seven
   batch-last stacks, the terminal P, p read from row Tm1 of ``gxx``/``gx``,
@@ -43,6 +45,9 @@ from .batching import custom_vmap
 
 RICCATI_MASKED_LAUNCHES = pk.LaunchCounter()
 RICCATI_MASKED_PACKED_LAUNCHES = pk.LaunchCounter()
+# the same at the wide dims (K2's template)
+RICCATI_MASKED_WIDE_LAUNCHES = pk.LaunchCounter()
+RICCATI_MASKED_PACKED_WIDE_LAUNCHES = pk.LaunchCounter()
 
 
 def backward_pass_masked_reference(fx, fu, gx, gu, gxx, guu, gux, um, reg):
@@ -65,15 +70,16 @@ def backward_pass_masked(fx, fu, gx, gu, gxx, guu, gux, um, reg):
     Tm1, n, _, B = fx.shape
     m = fu.shape[2]
     dtype = fx.dtype
-    symbol = pk.k1_family_symbol("riccati_masked", n, m, dtype)
+    symbol = pk.family_symbol("riccati_masked", n, m, dtype)
     shapes = ((Tm1, n, n, B), (Tm1, n, m, B), (Tm1 + 1, n, B), (Tm1, m, B),
               (Tm1 + 1, n, n, B), (Tm1, m, m, B), (Tm1, m, n, B), (Tm1, m), (B,))
     args = (fx, fu, gx, gu, gxx, guu, gux, um, reg)
     for name, a, shape in zip(("fx", "fu", "gx", "gu", "gxx", "guu", "gux", "um", "reg"),
                               args, shapes):
         pk._check(name, a, shape, dtype, device)
-    return pk.launch(symbol, RICCATI_MASKED_LAUNCHES, args,
-                     pk.new_outputs(Tm1, n, m, B, dtype, device), Tm1, B)
+    counter = pk.family_counter(RICCATI_MASKED_LAUNCHES, RICCATI_MASKED_WIDE_LAUNCHES, n, m)
+    return pk.launch(symbol, counter, args, pk.new_outputs(Tm1, n, m, B, dtype, device),
+                     Tm1, B)
 
 
 def backward_pass_masked_packed_reference(packed, gxxT, gxT, um, reg, meta):
@@ -95,13 +101,15 @@ def backward_pass_masked_packed(packed, gxxT, gxT, um, reg, meta):
         raise ValueError(f"backward_pass_masked_packed: unsupported device {device}")
     n, m = meta["n"], meta["m"]
     Tm1, B, dtype = packed.shape[0], packed.shape[-1], packed.dtype
-    symbol = pk.k1_family_symbol("riccati_masked_packed", n, m, dtype)
+    symbol = pk.family_symbol("riccati_masked_packed", n, m, dtype)
     args = (packed, gxxT, gxT, um, reg)
     shapes = ((Tm1, pk._offsets(n, m)[-1], B), (n, n, B), (n, B), (Tm1, m), (B,))
     for name, a, shape in zip(("packed", "gxxT", "gxT", "um", "reg"), args, shapes):
         pk._check(name, a, shape, dtype, device)
-    return pk.launch(symbol, RICCATI_MASKED_PACKED_LAUNCHES, args,
-                     pk.new_outputs(Tm1, n, m, B, dtype, device), Tm1, B)
+    counter = pk.family_counter(RICCATI_MASKED_PACKED_LAUNCHES,
+                                RICCATI_MASKED_PACKED_WIDE_LAUNCHES, n, m)
+    return pk.launch(symbol, counter, args, pk.new_outputs(Tm1, n, m, B, dtype, device),
+                     Tm1, B)
 
 
 def _last(a):

@@ -374,10 +374,12 @@ def _kernel_fn(kind: str, model: DeviceModel, dtype):
     return fn, symbol
 
 
-def score_ring(model: DeviceModel, dtype) -> tuple:
-    """K3's ring of step tiles for a device model and dtype: (tiles, bytes
-    of shared memory a block).  Builds the kernels on first use."""
-    return ring_entry(f"sl_score_ring_{model.name}_{_DTYPES[dtype]}")
+def rollout_ring(model: DeviceModel, dtype) -> tuple:
+    """The ring of step tiles of K3 and K4 for a device model and dtype:
+    (tiles, bytes of shared memory a block); (0, 0) for a model whose
+    kernels load their step inputs in the step (``kStream`` false in its
+    ``csrc/sl_model_*.cuh``).  Builds the kernels on first use."""
+    return ring_entry(f"sl_ring_{model.name}_{_DTYPES[dtype]}")
 
 
 def _check_inputs(r: Rollouts, xbar, ubar, ws, K, k, duals, penalty):

@@ -53,9 +53,11 @@ def make_batched_solve_fn(
     ``(duals0 [B,T,nc], penalty0 [B,T,nc])``.  Inputs must be on ``device``
     in ``dtype``.  The solve runs on the card unless the caller passes
     ``device="cpu"``; CPU tensors run every kernel's plain version, CUDA
-    tensors the kernels.  The route is picked as the JAX package picks it
-    (``options.batched_solver``; "auto" takes the SL solver where
-    ``_sl_eligible``, with the card in the TPU's place).
+    tensors the kernels.  The route follows ``options.batched_solver`` as
+    in the JAX package, but "auto" takes the SL solver wherever
+    ``_sl_eligible`` holds, on any device: the JAX package takes it only on
+    a TPU or with ``interpret=True``, and the port's CPU path (the kernels'
+    plain versions) plays the part of ``interpret=True``.
     """
     use_sl = options.batched_solver == "sl" or (
         options.batched_solver == "auto" and _sl_eligible(options, callback)

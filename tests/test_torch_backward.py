@@ -151,6 +151,28 @@ def test_backward_pass_retry_matches():
     assert np.asarray(ref[6])[1] >= 1.0 and np.asarray(ref[6])[3] >= 1e2
 
 
+@pytest.mark.parametrize("batched", [True, False])
+def test_backward_pass_without_attempts_matches(batched):
+    """max_regularization_steps < 0: JAX tests the retry loop's condition
+    first, so no attempt runs and the pass returns zero gains, ok false and
+    the carried reg decayed; the port mirrors that on the batch and on one
+    instance (the per-instance form of the solver)."""
+    rng = np.random.default_rng(5)
+    B = 4 if batched else 1
+    st = stacks(rng, B, 6, 3, 2)
+    um = np.ones((6, 2), bool)
+    reg0 = np.array([0.0, 1e-2, 1.0, 1e-7])[:B]
+    opts = dict(max_regularization_steps=-1)
+    out = backward.backward_pass(*(torch.as_tensor(a) for a in st), torch.as_tensor(um),
+                                 torch.as_tensor(reg0),
+                                 Options(backward_pass="scan", **opts), batched=batched)
+    ref = jax.vmap(lambda *a: jbw.backward_pass(
+        *a[:7], um, a[7], JaxOptions(backward_pass="scan", **opts)))(*st, reg0)
+    for a, b in zip(out, ref):
+        close(a, b)
+    assert not np.asarray(ref[5]).any() and not out[0].any()
+
+
 def test_auto_dispatch_takes_the_scan_for_batches():
     """backward_pass="auto" under the batched form: the reverse scan at
     B > T // 7; the associative scan it takes for one instance or a small

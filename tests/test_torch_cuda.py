@@ -42,13 +42,13 @@ def _assert_close_scaled(out, ref, tol):
                                    equal_nan=True)
 
 
-def _ring_edges(depth):
-    """(B, Tm1) cases around K1's ring of ``depth`` step tiles: the main
-    path's shape, a ragged lane edge on the 16-byte copies (1000), one whose
-    runs are not 16-byte aligned (4097: the one-value copies), a single
-    partial block (31), and horizons shorter than, just under and just over
-    the ring (Tm1 = 0 runs no step)."""
-    return ((4096, 100), (1000, 100), (4097, 100), (31, 100),
+def _ring_edges(depth, Tm1=100):
+    """(B, Tm1) cases around a recursion template's ring of ``depth`` step
+    tiles: the main path's shape, a ragged lane edge on the 16-byte copies
+    (1000), one whose runs are not 16-byte aligned (4097: the one-value
+    copies), a single partial block (31), and horizons shorter than, just
+    under and just over the ring (Tm1 = 0 runs no step)."""
+    return ((4096, Tm1), (1000, Tm1), (4097, Tm1), (31, Tm1),
             (64, 0), (64, 1), (64, depth - 1), (64, depth + 1))
 
 
@@ -104,17 +104,20 @@ def _wide_stacks(rng, B, Tm1, n, m):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 def test_riccati_wide_kernel_matches_plain(dtype, tol):
-    """K2 at the quadrotor's shapes (n=12, m=4, T=41, B=4096, a ragged lane
-    edge at B=4000 too), with indefinite Quu on every 61st lane; the
+    """K2 at the quadrotor's shapes (n=12, m=4, T=41, B=4096) and at the
+    edges of its ring of step tiles (``_ring_edges``: B=1000, 4097, 31;
+    Tm1 = 0, 1, D-1, D+1), with indefinite Quu on every 61st lane; the
     wrapper launches K2 and not K1.  Tolerances as K1's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    Tm1, n, m = 40, 12, 4
-    for B in (4096, 4000):
+    n, m = 12, 4
+    depth, _ = pk.riccati_ring(n, m, dtype, masked=False)
+    for B, Tm1 in _ring_edges(depth, Tm1=40):
         st = _wide_stacks(np.random.default_rng(6), B, Tm1, n, m)
         bad = np.zeros(B, bool)
-        bad[::61] = True
-        st[5][20, 0, 0, bad] = -1.0e3
+        if Tm1 > 0:
+            bad[::61] = True
+            st[5][Tm1 // 2, 0, 0, bad] = -1.0e3
         dev = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in st]
         kin = [a.contiguous() for a in pk.prepare_stacks(
             *dev, torch.ones((Tm1, m), dtype=torch.bool))]
@@ -125,11 +128,8 @@ def test_riccati_wide_kernel_matches_plain(dtype, tol):
         assert (pk.RICCATI_LAUNCHES.launches, pk.RICCATI_WIDE_LAUNCHES.launches) == (
             before[0], before[1] + 1)
         ref = pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg)
-        for a, b in zip(out, ref):
-            scale = float(b[~torch.isnan(b)].abs().max())
-            torch.testing.assert_close(a, b, rtol=tol, atol=tol * max(scale, 1.0),
-                                       equal_nan=True)
-        assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad))
+        _assert_close_scaled(out, ref, tol)
+        assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad)), (B, Tm1)
 
 
 @pytest.mark.cuda
@@ -151,6 +151,14 @@ def test_riccati_kernel_rejects_what_it_was_not_built_for():
         *st53, torch.ones((Tm1, 3), dtype=torch.bool))]
     with pytest.raises(NotImplementedError, match="riccati_backward_wide"):
         pk.backward_pass_multiref(kin53[:7], kin53[7], kin53[8], reg)
+    # nor K5, K6a, K6b there
+    from iterativelqr_tpu_torch.ops import pallas_backward as pb
+
+    lead = [a.movedim(-1, 0).contiguous() for a in st53]
+    for entry in (pk.backward_pass_batched_pallas_v3, pb.backward_pass_batched_pallas,
+                  pb.backward_pass_batched_pallas_v2):
+        with pytest.raises(NotImplementedError, match="n=5, m=3"):
+            entry(*lead, torch.ones((Tm1, 3), dtype=torch.bool), reg)
     st4 = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
            for a in _stacks(np.random.default_rng(1), B, Tm1, 4, 1)]
     kin4 = pk.prepare_stacks(*st4, torch.ones((Tm1, 1), dtype=torch.bool))
@@ -217,15 +225,19 @@ def _close(a, b, tol):
 def test_rollout_kernels_match_plain(name, T, dtype, tol):
     """K3 (head, tail, and 20 candidates over two block rows) and K4 against
     their plain versions on the same card inputs, for every registered
-    device model: B=1000 (a ragged lane edge), B=4097 (runs not 16-byte
-    aligned: K3's one-value copies), and horizons around K3's ring of D
-    step tiles (T = 2, D, D+1).  Tolerance relative to the largest value,
-    as K1's: the two sum in other orders and the kernels contract to FMA,
-    through T-1 steps."""
+    device model: B=1000 and 31 (ragged lane edges), B=4097 (runs not
+    16-byte aligned: the ring's one-value copies), and horizons around the
+    kernels' ring of D step tiles (T = 2, D, D+1, D+2; D = 2 for a model
+    without a ring); and K4's J equal to K3's at the same alpha.  Tolerance relative
+    to the largest value, as K1's: the two sum in other orders and the
+    kernels contract to FMA, through T-1 steps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    depth, _ = fk.score_ring(_rollout_case(name, 2, 32, dtype, seed=3)[0].model, dtype)
-    for B, TT in ((1000, T), (4097, T), (4097, 2), (4097, depth), (4097, depth + 1)):
+    # the kernels' ring (0 tiles where they load their step inputs in the
+    # step)
+    depth = max(fk.rollout_ring(_rollout_case(name, 2, 32, dtype, seed=3)[0].model, dtype)[0], 2)
+    for B, TT in ((1000, T), (4097, T), (31, T), (4097, 2), (4097, depth), (4097, depth + 1),
+                  (4097, depth + 2)):
         r, live = _rollout_case(name, TT, B, dtype, seed=3)
         before = (fk.SCORE_LAUNCHES.launches, fk.REROLL_LAUNCHES.launches)
         for j0, nb in ((0, 8), (8, 9), (0, 20)):
@@ -233,14 +245,19 @@ def test_rollout_kernels_match_plain(name, T, dtype, tol):
             torch.cuda.synchronize()
             _close(J, fk.score_rollout_reference(r, j0, nb, *live), tol)
         rng = np.random.default_rng(4)
-        alpha = torch.as_tensor(0.5 ** rng.integers(0, 17, B), dtype=dtype,
-                                device="cuda")
+        j = torch.as_tensor(rng.integers(0, 17, B), device="cuda")
+        alpha = (0.5 ** j).to(dtype)
         outs = fk.winner_reroll(r, alpha, *live)
         torch.cuda.synchronize()
         for a, b in zip(outs, fk.winner_reroll_reference(r, alpha, *live)):
             _close(a, b, tol)
+        # K4's J at alpha = 2^-j is K3's J of candidate j, exactly: the
+        # Armijo choice compares K3's values and keeps K4's re-roll
+        J3 = fk.score_rollout(r, 0, 17, *live)[j, torch.arange(B, device="cuda")]
+        same = (outs[2] == J3) | (torch.isnan(outs[2]) & torch.isnan(J3))
+        assert bool(same.all()), (B, TT, int((~same).sum()))
         assert (fk.SCORE_LAUNCHES.launches, fk.REROLL_LAUNCHES.launches) == (
-            before[0] + 3, before[1] + 1)
+            before[0] + 4, before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -264,6 +281,56 @@ def test_rollout_kernels_refuse_what_they_cannot_run():
         fk.winner_reroll(r, torch.ones(B, device="cuda"), *live[:3], K_nc, *live[4:])
 
 
+def _check_packed_masked(kernel, n, m, dtype, tol, Tm1):
+    """K5, K6a or K6b at (n, m) against its plain version at the edges of
+    its template's ring (``_ring_edges``), with indefinite Quu on every 61st
+    lane, the last action masked (m > 1, nonzero derivative entries) and a
+    per-lane regularizer from [1e-3, 1]."""
+    from iterativelqr_tpu_torch.ops import pallas_backward as pb
+
+    depth, _ = pk.riccati_ring(n, m, dtype, masked=kernel != "K5")
+    make = _stacks if m == 1 else _wide_stacks
+    wide = pk.uses_wide_kernel(n, m)
+    for B, Tm1_ in _ring_edges(depth, Tm1=Tm1):
+        rng = np.random.default_rng(8)
+        st = make(rng, B, Tm1_, n, m)
+        bad = np.zeros(B, bool)
+        if Tm1_ > 0:
+            bad[::61] = True
+            st[5][Tm1_ // 2, 0, 0, bad] = -1.0e3
+        st = [torch.as_tensor(a, dtype=dtype, device="cuda").contiguous() for a in st]
+        um = torch.ones((Tm1_, m), dtype=dtype, device="cuda")
+        if m > 1:
+            um[:, -1] = 0.0
+        reg = torch.as_tensor(rng.uniform(1e-3, 1.0, B), dtype=dtype, device="cuda")
+        if kernel == "K5":
+            packed, gxxT, gxT, meta = pk.pack_stacks_bt(*st, um > 0.5)
+            counter = pk.RICCATI_PACKED_WIDE_LAUNCHES if wide else pk.RICCATI_PACKED_LAUNCHES
+            run = lambda: pk.backward_pass_packed(packed, gxxT, gxT, reg, meta)
+            plain = lambda: pk.backward_pass_packed_reference(packed, gxxT, gxT, reg, meta)
+        elif kernel == "K6a":
+            counter = pb.RICCATI_MASKED_WIDE_LAUNCHES if wide else pb.RICCATI_MASKED_LAUNCHES
+            run = lambda: pb.backward_pass_masked(*st, um, reg)
+            plain = lambda: pb.backward_pass_masked_reference(*st, um, reg)
+        else:
+            packed = pk.pack_slots((st[0], st[1], st[2][:-1], st[3], st[4][:-1], st[5], st[6]))
+            gxxT, gxT, meta = st[4][-1].contiguous(), st[2][-1].contiguous(), dict(n=n, m=m)
+            counter = (pb.RICCATI_MASKED_PACKED_WIDE_LAUNCHES if wide
+                       else pb.RICCATI_MASKED_PACKED_LAUNCHES)
+            run = lambda: pb.backward_pass_masked_packed(packed, gxxT, gxT, um, reg, meta)
+            plain = lambda: pb.backward_pass_masked_packed_reference(packed, gxxT, gxT, um, reg,
+                                                                     meta)
+        before = counter.launches
+        out = run()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        _assert_close_scaled(out, plain(), tol)
+        assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad)), (B, Tm1_)
+        if m > 1 and kernel != "K5":
+            good = torch.as_tensor(~bad, device="cuda")
+            assert bool((out[0][:, -1][..., good] == 0).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 @pytest.mark.parametrize("kernel,n,m", [("K5", 4, 1), ("K6a", 4, 1), ("K6a", 3, 2),
@@ -279,64 +346,17 @@ def test_packed_and_masked_kernels_match_plain(kernel, n, m, dtype, tol):
     K1's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from iterativelqr_tpu_torch.ops import pallas_backward as pb
-
-    depth, _ = pk.riccati_ring(n, m, dtype, masked=kernel != "K5")
-    make = _stacks if m == 1 else _wide_stacks
-    for B, Tm1 in _ring_edges(depth):
-        rng = np.random.default_rng(8)
-        st = make(rng, B, Tm1, n, m)
-        bad = np.zeros(B, bool)
-        if Tm1 > 0:
-            bad[::61] = True
-            st[5][Tm1 // 2, 0, 0, bad] = -1.0e3
-        st = [torch.as_tensor(a, dtype=dtype, device="cuda").contiguous() for a in st]
-        um = torch.ones((Tm1, m), dtype=dtype, device="cuda")
-        if m > 1:
-            um[:, -1] = 0.0
-        reg = torch.as_tensor(rng.uniform(1e-3, 1.0, B), dtype=dtype, device="cuda")
-        if kernel == "K5":
-            packed, gxxT, gxT, meta = pk.pack_stacks_bt(*st, um > 0.5)
-            counter = pk.RICCATI_PACKED_LAUNCHES
-            run = lambda: pk.backward_pass_packed(packed, gxxT, gxT, reg, meta)
-            plain = lambda: pk.backward_pass_packed_reference(packed, gxxT, gxT, reg, meta)
-        elif kernel == "K6a":
-            counter = pb.RICCATI_MASKED_LAUNCHES
-            run = lambda: pb.backward_pass_masked(*st, um, reg)
-            plain = lambda: pb.backward_pass_masked_reference(*st, um, reg)
-        else:
-            packed = pk.pack_slots((st[0], st[1], st[2][:-1], st[3], st[4][:-1], st[5], st[6]))
-            gxxT, gxT, meta = st[4][-1].contiguous(), st[2][-1].contiguous(), dict(n=n, m=m)
-            counter = pb.RICCATI_MASKED_PACKED_LAUNCHES
-            run = lambda: pb.backward_pass_masked_packed(packed, gxxT, gxT, um, reg, meta)
-            plain = lambda: pb.backward_pass_masked_packed_reference(packed, gxxT, gxT, um, reg,
-                                                                     meta)
-        before = counter.launches
-        out = run()
-        torch.cuda.synchronize()
-        assert counter.launches == before + 1
-        _assert_close_scaled(out, plain(), tol)
-        assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad)), (B, Tm1)
-        if m > 1 and kernel != "K5":
-            good = torch.as_tensor(~bad, device="cuda")
-            assert bool((out[0][:, -1][..., good] == 0).all())
+    _check_packed_masked(kernel, n, m, dtype, tol, Tm1=100)
 
 
 @pytest.mark.cuda
-def test_packed_and_masked_kernels_refuse_k2_dims():
-    """K5/K6 are instantiations of K1's recursion: the wide dims K2 takes
-    have no counterpart yet and raise."""
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("kernel", ["K5", "K6a", "K6b"])
+def test_wide_packed_and_masked_kernels_match_plain(kernel, dtype, tol):
+    """K5, K6a and K6b at the quadrotor's (12, 4), instantiations of K2's
+    template, against their plain versions at T=41 and the edges of K2's
+    ring, as ``test_packed_and_masked_kernels_match_plain`` holds them at
+    K1's dims; each launch counts on the wide kernel's counter."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from iterativelqr_tpu_torch.ops import pallas_backward as pb
-
-    B, Tm1 = 64, 5
-    st = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
-          for a in _wide_stacks(np.random.default_rng(1), B, Tm1, 12, 4)]
-    lead = [a.movedim(-1, 0).contiguous() for a in st]
-    um = torch.ones((Tm1, 4), dtype=torch.bool)
-    reg = torch.zeros(B, device="cuda")
-    for entry in (pk.backward_pass_batched_pallas_v3, pb.backward_pass_batched_pallas,
-                  pb.backward_pass_batched_pallas_v2):
-        with pytest.raises(NotImplementedError, match="K2"):
-            entry(*lead, um, reg)
+    _check_packed_masked(kernel, 12, 4, dtype, tol, Tm1=40)

@@ -29,7 +29,7 @@ torch.set_num_threads(1)
 T, B = 9, 1024   # the JAX SL kernel takes lanes in blocks of 1024
 
 
-@pytest.mark.parametrize("case", ["plain", "reg_retry"])
+@pytest.mark.parametrize("case", ["plain", "reg_retry", "no_attempt"])
 def test_derive_backward_matches_jax(case):
     rng = np.random.default_rng(4)
     jspec = jax_build_spec(*jax_acrobot.problem(T)[:3])
@@ -49,6 +49,10 @@ def test_derive_backward_matches_jax(case):
         reg[:5] = -1.0e3
         reg[5:9] = 1.0e-3
     jo = JaxOptions(record_traces=False)
+    if case == "no_attempt":
+        # max_regularization_steps < 0: the JAX loop makes no attempt and
+        # returns its initial state (zero gains, ok false)
+        jo = JaxOptions(record_traces=False, max_regularization_steps=-1)
 
     jargs = [jax_to_sl(jnp.asarray(a), B // 128) for a in (xs, us, ws, duals, penalty, c)]
     ref = jax_make_derive(jspec, jo, interpret=True)(
@@ -69,6 +73,8 @@ def test_derive_backward_matches_jax(case):
     if case == "reg_retry":
         # without the retry these lanes' gains would be NaN
         assert torch.isfinite(out[0][..., :5]).all()
+    if case == "no_attempt":
+        assert not out[0].any() and not out[1].any()
 
 
 def test_invalid_lanes_never_hold_the_retry_open():
