@@ -37,17 +37,19 @@ Phases, each of which raises (non-zero exit) when it fails:
    T=101, f32, under the bench.py presets "tuned" and "parity", with
    bench.py's initial-guess protocol, each with the loop rollouts
    (forward_kernel="scan") and the rollout kernels ("pallas") on the same
-   lanes in one run (tuned B=B_LOOP_TUNED=64, parity B=B_LOOP=12), and
+   lanes in one run (tuned B=B_LOOP_TUNED=16, parity B=B_LOOP=4, both at
+   T=T_LOOP=51), and
    both presets' kernels at B=4096; then car T=51 and quadrotor T=41
    (benchmarks/measure_all.py's protocol), B=4096, f32, under both; solved
    fraction from batch_stats and recomputed from the returned trajectories
    with constraint_values; K1 (acrobot, car) or K2 (quadrotor), K3 and K4
    launches counted over each timed solve; the per-iteration split of
    derive+backward against line search in each;
-4c. the per-instance solver's vmap route at acrobot T=101, f32 (bench.py's
+4c. the per-instance solver's vmap route at acrobot, f32 (bench.py's
    initial guess): the literal make_batched_solve_fn(spec, Options())
    (traces on, the "auto" backward = the reverse scan, loop rollouts) at
-   B=B_VMAP_LOOP=64, and at B=4096 the tuned preset with traces through
+   B=B_VMAP_LOOP=14 and T=T_LOOP=51, and at B=4096 the tuned preset with
+   traces through
    make_solve_fn(..., backward_impl=make_backward_dispatch(variant="v1" |
    "v2")).vmap() (K6a, K6b); then the same two dispatches on the quadrotor
    at T=41, B=4096 (the wide K6a, K6b on K2's template); solved fraction
@@ -64,11 +66,33 @@ Phases, each of which raises (non-zero exit) when it fails:
    dispatches and backward_pass="packed"; the committed golden acrobot
    T=101, car and quadrotor solutions (tests/fixtures/golden_*.npz) solved
    on the card through "pallas" in f64, and the golden acrobot T=101
-   through the per-instance solver.
+   through the per-instance solver, with backward_pass="scan" and with the
+   default "auto" (on one instance the associative scan);
+6a. the associative backward scan (ops/assoc.py) against the port's reverse
+   scan on the card at (4, 1), (3, 2) T=101 and (12, 4) T=41, B=64 and one
+   instance, f64 and f32; both timed (CUDA events, f32, acrobot's dims)
+   unbatched and at B in {1, 14, 64, 512, 4096} x T in {101, 501}, with
+   where the associative scan stops winning beside the JAX package's
+   _assoc_wins rule (measured on a TPU v5e, kept);
+6b. straggler compaction (core/solve_compact.py) on the kernel path on
+   phase 4's B=4096 inputs, tuned at GRAIN 128, 256 and 1024 and parity at
+   the module's GRAIN, each against phase 4's single-shot solution of the
+   same preset and lanes: the batch shapes visited with their trips, the
+   repacks, the rescues, K1/K3/K4 launches (in all and by shape), the wall
+   against the single-shot wall, the recomputed solved fraction (>= 0.99)
+   and the lanes whose iterations, xs and us equal the single-shot's
+   bitwise; then the capped-rescue scenario of
+   tests/test_torch_solve_compact.py (car T=8, B=16, f64, kernels): a lane
+   fails without the rescue, every lane is feasible with it;
+6c. the Solver shell on car T=51 in f64 (solve, warm_solve, reset_duals and
+   warm_solve, each feasible), and parameter_gradient on
+   tests/test_sensitivity.py's tracking problem at T=9 in f64 against
+   central finite differences of the re-solved optimal value.
 
 Budget: the whole run stays under 800 s (1200 s limit).  For that,
-parity's loop cell runs on 12 lanes, tuned's loop cell and phase 4c's cell
-(a) on 64 (each was 4096), and the splits time 5 iterations (were 20): the
+parity's loop cell runs on 4 lanes, tuned's loop cell on 16 and phase 4c's
+cell (a) on 14 (each was 4096), all three (and the kernel cells paired
+with them) at T=T_LOOP=51, and the splits time 5 iterations (were 20): the
 reasons and trip counts stand beside B_LOOP.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
@@ -98,19 +122,26 @@ T_MAIN, B_MAIN = 101, 4096
 # paired with the rollout kernels on the same lanes, and the kernel cells
 # also run at B=4096:
 # - B_LOOP (was 4096): parity's loop cell, 213 trips at B=4096, 204 at
-#   1024, 140 at 64, 117 at 12 (the first 12 lanes' slowest took 105
-#   iterations on the port's CPU path in f32);
+#   1024, 140 at 64, 117 at 12, then cut to 4 for phase 6;
 # - B_LOOP_TUNED (was 4096: 86 trips, 79-102 s of the run): tuned's loop
-#   cell, 84 trips at B=64;
+#   cell, 84 trips at B=64, then cut to 16 for phase 6;
 # - B_VMAP_LOOP (was 4096: 208 trips, 141-250 s of the run): phase 4c's
 #   cell (a), the literal Options() on the loop rollouts, 134 trips and 84
-#   s at B=64 (NVIDIA H100 80GB HBM3, 700 W).  Not below 15 at T=101:
-#   there the "auto" backward takes the associative branch (B <= T // 7),
-#   which raises until M11 is ported.
+#   s at B=64 (NVIDIA H100 80GB HBM3, 700 W), then cut to 14 for phase 6.
+# - T_LOOP (was T_MAIN=101): the horizon of these three loop cells
+#   and of the kernel cells paired with them on the same lanes.  Fewer
+#   lanes barely cut their trips (the slowest lane's: tuned 83 at B=16,
+#   parity 115 at B=4, cell (a) 125 at B=14, T=101) while a trip's loops
+#   cost about 0.6-0.8 s whatever B, so the horizon is what cuts their
+#   time: at T=51 a trip's rollout loops take half the launches (trips on
+#   the port's CPU path, f32: tuned 92, parity 84).  At T=51 cell (a)'s
+#   "auto" backward takes the reverse scan (B=14 > T // 7 = 7), as it did
+#   at B=64, T=101.  The kernel cells also run at B=4096, T=101.
 # Every split times the first SPLIT_ITERATIONS.
-B_LOOP = 12
-B_LOOP_TUNED = 64
-B_VMAP_LOOP = 64
+B_LOOP = 4
+B_LOOP_TUNED = 16
+B_VMAP_LOOP = 14
+T_LOOP = 51
 SEED = 0
 SPLIT_ITERATIONS = 5
 
@@ -767,17 +798,18 @@ def per_iteration_split(name, spec, opts, xs, us, ws):
         f"line search {ls_host:.2f} ms host / {ls_dev:.2f} ms device-events")
 
 
-def run_preset(P, name, kw, fkm, B):
-    """Acrobot T=101, f32, on the first B lanes of the protocol batch under
-    one bench.py preset with the rollouts of ``fkm``; returns (the main
-    path's launch counts, wall s, max iterations)."""
+def run_preset(P, name, kw, fkm, B, T=T_MAIN):
+    """Acrobot at horizon T, f32, on the first B lanes of the protocol batch
+    under one bench.py preset with the rollouts of ``fkm``; returns (the
+    main path's launch counts, wall s, the solution, its inputs)."""
     from iterativelqr_tpu_torch.models import acrobot
 
-    name = f"{name}/{fkm}" + ("" if B == B_MAIN else f"/B={B}")
+    name = (f"{name}/{fkm}" + ("" if B == B_MAIN else f"/B={B}")
+            + ("" if T == T_MAIN else f"/T={T}"))
     dtype, device = torch.float32, torch.device("cuda")
-    spec = P.build_spec(*acrobot.problem(T_MAIN)[:3])
+    spec = P.build_spec(*acrobot.problem(T)[:3])
     opts = P.Options(**kw, forward_kernel=fkm)
-    xs, us, ws = bench_inputs(B, T_MAIN, dtype, device)
+    xs, us, ws = bench_inputs(B, T, dtype, device)
 
     # warm-up: the same program, cut to three iterations
     warm = P.make_batched_solve_fn(
@@ -790,14 +822,14 @@ def run_preset(P, name, kw, fkm, B):
     sol, stats, wall, counts = counted_solve(P, solve, (xs, us, ws))
 
     frac, frac_true = integrity(name, spec, sol, stats, ws, opts.constraint_tolerance,
-                                B, T_MAIN, 4, 1)
+                                B, T, 4, 1)
     if frac_true < 0.99:
         raise AssertionError(f"{name}: recomputed solved fraction {frac_true} < 0.99")
     check_launches(name, fkm, counts, "acrobot")
-    log(f"[slice] {name}: B={B} T={T_MAIN} f32 candidates={opts.num_step_sizes}")
+    log(f"[slice] {name}: B={B} T={T} f32 candidates={opts.num_step_sizes}")
     report(name, sol, stats, frac, frac_true, wall, counts, opts.num_step_sizes, B)
     per_iteration_split(name, spec, opts, xs, us, ws)
-    return counts, wall, int(sol.iterations.max())
+    return counts, wall, sol, (xs, us, ws)
 
 
 # model -> (T of its cell, scale of the x0 noise, its initial controls)
@@ -927,8 +959,9 @@ def trace_writes(tally):
 
 
 def run_vmap_cell(P, variant, B, model="acrobot"):
-    """One phase 4c cell on the first B lanes, f32: acrobot T=101 with
-    bench.py's initial guess, or the quadrotor T=41 with phase 4's inputs
+    """One phase 4c cell on the first B lanes, f32: acrobot (T=T_LOOP for
+    the literal Options(), else T=101) with bench.py's initial guess, or
+    the quadrotor T=41 with phase 4's inputs
     (model_inputs); a warm-up cut to one iteration, the timed solve with
     every count set to 0 just before, the checks, and a split of the first
     SPLIT_ITERATIONS_VMAP iterations.  The timed solve runs under
@@ -943,7 +976,7 @@ def run_vmap_cell(P, variant, B, model="acrobot"):
 
     name = {"auto": "vmap/Options()", "v1": "vmap/tuned+K6a", "v2": "vmap/tuned+K6b"}[variant]
     device = torch.device("cuda")
-    T = T_MAIN if model == "acrobot" else MODEL_CELLS[model][0]
+    T = (T_LOOP if variant == "auto" else T_MAIN) if model == "acrobot" else MODEL_CELLS[model][0]
     spec = P.build_spec(*getattr(models, model).problem(T)[:3])
     if model == "acrobot":
         xs, us, ws = bench_inputs(B, T, torch.float32, device)
@@ -989,7 +1022,7 @@ def run_vmap_cell(P, variant, B, model="acrobot"):
         f"recomputed {frac_true:.4f}; iterations mean {float(its.float().mean()):.2f} max {trips}; "
         f"mean objective {float(stats.mean_objective):.4f}; max violation {float(stats.max_violation):.3e}")
     log(f"[vmap] {name}: wall {wall:.3f} s after a warm-up ({B * frac_true / wall:.1f} solved/s); "
-        f"launches {k6 or 'none (scan backward)'} {counts.get(k6, 0) if k6 else 0}; loop tests (host syncs) "
+        f"launches {k6 or 'none (plain backward)'} {counts.get(k6, 0) if k6 else 0}; loop tests (host syncs) "
         f"{sum(tests.values())}: solve loop {tests.get('solve', 0)} (trips {trips}), "
         f"regularization (backward attempts) {tests.get('regularization', 0)}; trace_mask count = iterations on "
         f"{int((marks == its).sum())} of {B} lanes; truncated rounds {int(tally['truncated'].sum())} "
@@ -1006,6 +1039,315 @@ def run_vmap_cell(P, variant, B, model="acrobot"):
         f"{k} {sections.host[k] / n_it * 1e3:.2f} ms host / {dev_ms[k] / n_it:.2f} ms device-events"
         for k in ("derive", "backward", "line_search")))
     return sol, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6a: the associative backward scan (ops/assoc.py) on the card
+# ---------------------------------------------------------------------------
+
+# (n, m, T): acrobot's and car's K1 dims at T=101, the quadrotor's at T=41
+ASSOC_DIMS = ((4, 1, T_MAIN), (3, 2, T_MAIN), (12, 4, T_QUAD))
+ASSOC_GRID_B = (1, 14, 64, 512, 4096)
+ASSOC_GRID_T = (101, 501)
+
+
+def assoc_stacks(seed, B, T, n, m, dtype, device):
+    """Batch-leading derivative stacks [B, T-1, ...] (``wide_stacks``'
+    scheme: symmetric positive definite gxx and guu)."""
+    return [torch.as_tensor(np.moveaxis(a, -1, 0), dtype=dtype, device=device)
+            for a in wide_stacks(seed, B, T - 1, n, m)]
+
+
+def check_assoc():
+    """backward_pass_associative on the card, B=64 and one instance (no lane
+    axis), at ASSOC_DIMS, against the port's backward_pass_scan in f64 on
+    the same stacks.  f64: the same value functions composed in another
+    order (the port's CPU runs differ by about 1e-13 on these stacks):
+    1e-10 relative.  f32: the composition's solves with I + C_i J_j
+    amplify f32 rounding on an ill-conditioned lane, where the reverse scan
+    does not (on the CPU at (12, 4), lane 53: 4.0e-4 relative against the
+    reverse scan's 4.9e-7 in f32): 1e-3 relative."""
+    from iterativelqr_tpu_torch.ops import assoc, backward
+
+    dev = torch.device("cuda")
+    for n, m, T in ASSOC_DIMS:
+        um = torch.ones((T - 1, m), dtype=torch.bool, device=dev)
+        ref = backward.backward_pass_scan(*assoc_stacks(11, 64, T, n, m, torch.float64, dev), um,
+                                          torch.zeros(64, dtype=torch.float64, device=dev))
+        for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-3)):
+            st = assoc_stacks(11, 64, T, n, m, dtype, dev)
+            reg = torch.zeros(64, dtype=dtype, device=dev)
+            out = assoc.backward_pass_associative(*st, um, reg)
+            one = assoc.backward_pass_associative(*(a[0] for a in st), um, reg[0])
+            scan = backward.backward_pass_scan(*st, um, reg)
+            rel = lambda xs, lane=slice(None): max(
+                float((a.double() - b[lane]).abs().max() / b[lane].abs().max().clamp(min=1.0))
+                for a, b in zip(xs[:5], ref[:5]))
+            err, err_one, err_scan = rel(out), rel(one, 0), rel(scan)
+            ok = bool(out[5].all()) and bool(ref[5].all()) and bool(one[5])
+            log(f"[assoc] backward_pass_associative against backward_pass_scan in f64, (n, m)=({n}, "
+                f"{m}) T={T} B=64 {str(dtype)[6:]}: max relative difference {err:.2e} (one instance "
+                f"{err_one:.2e}; the reverse scan in {str(dtype)[6:]} {err_scan:.2e}), tolerance "
+                f"{tol:.0e}; PD flags all set {ok}")
+            if not (ok and err <= tol and err_one <= tol):
+                raise AssertionError(f"associative scan at ({n}, {m}) T={T} {dtype}: "
+                                     f"{err:.2e} / {err_one:.2e} > {tol}, or a PD flag unset")
+
+
+def time_assoc_grid():
+    """CUDA-event ms of the associative scan and the reverse scan, f32,
+    acrobot's (4, 1), over ASSOC_GRID_B x ASSOC_GRID_T, unbatched (one
+    instance, no lane axis) and batched; where the associative scan stops
+    winning, beside the JAX package's rule (measured on a TPU v5e)."""
+    from iterativelqr_tpu_torch.ops import assoc, backward
+
+    dev = torch.device("cuda")
+    n, m = 4, 1
+    for T in ASSOC_GRID_T:
+        full = assoc_stacks(13, max(ASSOC_GRID_B), T, n, m, torch.float32, dev)
+        um = torch.ones((T - 1, m), dtype=torch.bool, device=dev)
+        rows = []
+        for B in (None,) + ASSOC_GRID_B:
+            st = [a[0] for a in full] if B is None else [a[:B] for a in full]
+            reg = torch.zeros(() if B is None else (B,), dtype=torch.float32, device=dev)
+            t_a = cuda_ms(lambda: assoc.backward_pass_associative(*st, um, reg), reps=3, warmup=1)
+            t_s = cuda_ms(lambda: backward.backward_pass_scan(*st, um, reg), reps=3, warmup=1)
+            rows.append((B, t_a, t_s))
+            log(f"[assoc] T={T} {'unbatched' if B is None else f'B={B}'}: associative "
+                f"{t_a:.3f} ms, reverse scan {t_s:.3f} ms ({t_s / t_a:.2f} x)")
+        wins = [B for B, t_a, t_s in rows if B is not None and t_a < t_s]
+        below = [B for B in ASSOC_GRID_B if all(b in wins for b in ASSOC_GRID_B if b <= B)]
+        log(f"[assoc] T={T}: the associative scan wins at B in {wins}"
+            f"{' and unbatched' if rows[0][1] < rows[0][2] else ''}; it wins at every B up to "
+            f"{max(below) if below else 'none of the grid'}; the JAX package's _assoc_wins "
+            f"(a TPU v5e rule, kept): B <= {max(1, T // 7)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: straggler compaction (core/solve_compact.py) on the kernel path
+# ---------------------------------------------------------------------------
+
+COMPACT_GRAINS = (128, 256, 1024)
+
+
+@contextlib.contextmanager
+def launches_by_shape(tally):
+    """Observes core/solve_compact.py's host loop: each solver trip adds its
+    K1/K3/K4 launches (host counters, no sync) to ``tally[B]`` by the
+    carry's batch shape."""
+    from iterativelqr_tpu_torch.core import solve_compact as sc
+
+    plain = sc.make_sl_parts
+
+    def observed(*a, **kw):
+        parts = plain(*a, **kw)
+
+        def body(ws):
+            step = parts.body(ws)
+
+            def counted(carry):
+                before = {k: c.launches for k, c in counters().items()}
+                out = step(carry)
+                for k, c in counters().items():
+                    tally[carry.stop.shape[-1]][k] += c.launches - before[k]
+                return out
+
+            return counted
+
+        return parts._replace(body=body)
+
+    sc.make_sl_parts = observed
+    try:
+        yield
+    finally:
+        sc.make_sl_parts = plain
+
+
+def run_compacted(P, name, kw, ref, grain):
+    """make_compacted_solve_fn on phase 4's B_MAIN inputs of one preset on
+    the kernel path, at ``grain``, against phase 4's single-shot solution of
+    the same preset and lanes (``ref``: solution, wall, inputs); returns
+    the main path's launch counts."""
+    from iterativelqr_tpu_torch.core import solve_compact as sc
+    from iterativelqr_tpu_torch.models import acrobot
+
+    ref_sol, ref_wall, (xs, us, ws) = ref
+    label = f"compacted {name} GRAIN={grain}"
+    dev = torch.device("cuda")
+    spec = P.build_spec(*acrobot.problem(T_MAIN)[:3])
+    opts = P.Options(**kw, forward_kernel="pallas")
+    default_grain = sc.GRAIN
+    sc.GRAIN = grain
+    try:
+        tally = collections.defaultdict(collections.Counter)
+        with launches_by_shape(tally):
+            solve = sc.make_compacted_solve_fn(spec, opts, device=dev, dtype=torch.float32)
+            sol, stats, wall, counts = counted_solve(P, solve, (xs, us, ws))
+    finally:
+        sc.GRAIN = default_grain
+    run = solve.last_run
+    frac, frac_true = integrity(label, spec, sol, stats, ws, opts.constraint_tolerance,
+                                B_MAIN, T_MAIN, 4, 1)
+    if frac_true < 0.99:
+        raise AssertionError(f"{label}: recomputed solved fraction {frac_true} < 0.99")
+    check_launches(label, "pallas", counts, "acrobot")
+    same_its = sol.iterations == ref_sol.iterations
+    same = (same_its & (sol.xs == ref_sol.xs).all(dim=(1, 2))
+            & (sol.us == ref_sol.us).all(dim=(1, 2)))
+    n_same = int(same.sum())
+    dx = float((sol.xs - ref_sol.xs).abs().max())
+    du = float((sol.us - ref_sol.us).abs().max())
+    log(f"[compact] {label}: shapes visited (B, trips) {run.shapes}; repacks {run.repacks}; "
+        f"rescues fired {run.rescued}; launches K1 {counts['riccati_backward']}, K3 "
+        f"{counts['sl_score_rollout']}, K4 {counts['sl_winner_reroll']}")
+    log(f"[compact] {label}: launches by shape " + "; ".join(
+        f"B={B}: K1 {c['riccati_backward']}, K3 {c['sl_score_rollout']}, K4 {c['sl_winner_reroll']}"
+        for B, c in sorted(tally.items(), reverse=True)))
+    log(f"[compact] {label}: wall {wall:.3f} s against single-shot {ref_wall:.3f} s "
+        f"({ref_wall / wall:.2f} x); solved_fraction recomputed {frac_true:.4f}; lanes equal to "
+        f"the single-shot solve bitwise (iterations, xs, us) {n_same} of {B_MAIN}; max |dxs| "
+        f"{dx:.3e}, max |dus| {du:.3e}")
+    if n_same != B_MAIN:
+        # a batch-shape-dependent op on the card: iterations must still be
+        # equal on every lane, trajectories within K1's f32 tolerance
+        scale = float(ref_sol.xs.abs().max())
+        if not bool(same_its.all()) or dx > 1e-4 * scale:
+            raise AssertionError(f"{label}: {int((~same_its).sum())} lanes differ in iterations, "
+                                 f"max |dxs| {dx:.3e}")
+    return counts
+
+
+def check_capped_rescue(P):
+    """The capped-rescue scenario of tests/test_torch_solve_compact.py on
+    the card (car T=8, B=16, f64, rollout kernels): a weak frozen penalty,
+    cap 1, the progress gate and the limiter off; at least one lane fails
+    without the rescue and every lane is feasible with it."""
+    from torch.func import vmap
+
+    from iterativelqr_tpu_torch.core.solve_compact import make_compacted_solve_fn
+    from iterativelqr_tpu_torch.models import car
+
+    T, B, dev, dtype = 8, 16, torch.device("cuda"), torch.float64
+    dyn, cost, con, x1, _ = car.problem(T)
+    spec = P.build_spec(dyn, cost, con)
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(x1.numpy() + 0.1 * rng.standard_normal((B, 3)), dtype=dtype, device=dev)
+    us = torch.full((B, T - 1, 2), 0.01, dtype=dtype, device=dev)
+    xs = [x]
+    for t in range(T - 1):
+        x = vmap(dyn[t])(x, us[:, t])
+        xs.append(x)
+    args = (torch.stack(xs, dim=1), us, torch.zeros((B, T, 0), dtype=dtype, device=dev))
+    opts = P.Options(
+        record_traces=False, backward_pass="packed", max_iterations=4, max_dual_updates=25,
+        batched_solver="sl", scaling_penalty=1.0, adaptive_penalty=False,
+        initial_constraint_penalty=0.1, objective_tolerance=1e-8,
+        lagrangian_gradient_tolerance=1e-8, early_round_iteration_cap=1,
+        max_consecutive_truncations=999, truncation_requires_progress=False,
+        forward_kernel="pallas")
+    tol = opts.constraint_tolerance
+    bare = make_compacted_solve_fn(spec, opts, rescue=False, device=dev, dtype=dtype)(*args)
+    failed = int((~(bare.max_violation <= tol)).sum())
+    solve = make_compacted_solve_fn(spec, opts, device=dev, dtype=dtype)
+    out = solve(*args)
+    worst = float(out.max_violation.max())
+    log(f"[compact] capped rescue (car T={T}, B={B}, f64, cap 1): {failed} lanes infeasible "
+        f"without the rescue; with it rescues fired {solve.last_run.rescued}, max violation "
+        f"{worst:.3e} (tolerance {tol})")
+    if failed < 1 or not bool((out.max_violation <= tol).all()):
+        raise AssertionError("capped rescue: the scenario left no failed lane, or the rescue "
+                             "left a lane infeasible")
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: the Solver shell and parameter sensitivities
+# ---------------------------------------------------------------------------
+
+
+def check_solver(P):
+    """Solver on car T=51 on the card, f64: solve, warm_solve, then
+    reset_duals and warm_solve (a cold AL state); each feasible."""
+    from iterativelqr_tpu_torch.models import car
+
+    T = T_CAR
+    d, o, c, x1, _ = car.problem(T)
+    solver = P.Solver(d, o, c, options=P.Options(verbose=False), device="cuda")
+    us = car.initial_controls(T)
+    solver.initialize_controls(us).initialize_states(P.rollout(d, x1.to(torch.float64), us))
+    for step in ("solve", "warm_solve", "reset_duals, warm_solve"):
+        if step.startswith("reset"):
+            solver.reset_duals()
+        t0 = time.perf_counter()
+        sol = solver.warm_solve() if "warm" in step else solver.solve()
+        wall = time.perf_counter() - t0
+        viol = float(sol.max_violation)
+        log(f"[solver] car T={T} f64 on the card, {step}: iterations {int(sol.iterations)}, "
+            f"AL iterations {int(sol.al_iterations)}, violation {viol:.3e}, objective "
+            f"{float(sol.objective):.6f}, {wall:.1f} s")
+        if not viol <= sol.tol_constraint:
+            raise AssertionError(f"Solver {step}: violation {viol} above the tolerance")
+
+
+def tracking_problem(P, T):
+    """tests/test_sensitivity.py::_setup as torch functions: stage cost
+    0.1 ||x - w||^2 + 0.1 u^2 with a 2-vector parameter w per timestep,
+    terminal equality x = w."""
+    from iterativelqr_tpu_torch.models._const import const_like
+
+    def dyn_f(x, u, w):
+        return const_like(((1.0, 0.2), (0.0, 1.0)), x) @ x + const_like((0.0, 0.2), x) * u[0]
+
+    dyn = P.Dynamics(dyn_f, 2, 1, num_parameter=2)
+    stage = P.Cost(lambda x, u, w: 0.1 * torch.sum((x - w) ** 2) + 0.1 * torch.sum(u ** 2),
+                   2, 1, num_parameter=2)
+    term = P.Cost(lambda x, u, w: 0.1 * torch.sum((x - w) ** 2), 2, 0, num_parameter=2)
+    goal = P.Constraint(lambda x, u, w: x - w, 2, 0, num_parameter=2)
+    return P.build_spec([dyn] * (T - 1), [stage] * (T - 1) + [term],
+                        [P.Constraint() for _ in range(T - 1)] + [goal])
+
+
+def check_sensitivity(P):
+    """parameter_gradient on the tracking problem at T=9, f64, on the
+    card, against central finite differences of the re-solved optimal value
+    (tests/test_sensitivity.py's tolerances: rtol 2e-3, atol 2e-5)."""
+    from iterativelqr_tpu_torch.ops.derivatives import total_cost
+
+    T, dev = 9, torch.device("cuda")
+    spec = tracking_problem(P, T)
+    opts = P.Options(verbose=False, objective_tolerance=1e-10,
+                     lagrangian_gradient_tolerance=1e-10, constraint_tolerance=1e-8,
+                     max_dual_updates=14)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    ws = 0.3 * np.random.default_rng(3).standard_normal((T, 2))
+    xs0 = np.zeros((T, 2))
+    xs0[0] = [0.5, -0.2]
+    us0 = np.zeros((T - 1, 1))
+    solve = P.make_solve_fn(spec, opts, device=dev)
+    t0 = time.perf_counter()
+    sol = solve(t(xs0), t(us0), t(ws))
+    g = P.solution_parameter_gradient(spec, opts, sol, t(ws))
+    wall = time.perf_counter() - t0
+    if not float(sol.max_violation) <= 1e-8:
+        raise AssertionError(f"sensitivity: the solve is not feasible ({float(sol.max_violation)})")
+
+    def value(w):
+        s = solve(t(xs0), t(us0), t(w))
+        return float(total_cost(spec, s.xs, s.us, t(w)))
+
+    eps, worst = 1e-5, 0.0
+    pick = np.random.default_rng(0)
+    for _ in range(4):
+        i, j = int(pick.integers(0, T)), int(pick.integers(0, 2))
+        e = np.zeros_like(ws)
+        e[i, j] = eps
+        fd = (value(ws + e) - value(ws - e)) / (2 * eps)
+        gij = float(g[i, j])
+        worst = max(worst, abs(gij - fd))
+        if not np.isclose(gij, fd, rtol=2e-3, atol=2e-5):
+            raise AssertionError(f"sensitivity: dJ*/dw[{i}, {j}] {gij:.8f} against fd {fd:.8f}")
+    log(f"[solver] parameter_gradient, tracking problem T={T} f64 on the card: iterations "
+        f"{int(sol.iterations)}, solve and gradient {wall:.1f} s; 4 entries against central "
+        f"differences, max |adjoint - fd| {worst:.2e} (rtol 2e-3, atol 2e-5)")
 
 
 # ---------------------------------------------------------------------------
@@ -1090,10 +1432,11 @@ def check_vmap_card_vs_cpu(P):
                 f"{float((a.xs - b.xs.cpu()).abs().max()):.3e}")
 
 
-def check_golden_per_instance(P):
+def check_golden_per_instance(P, backward_pass):
     """The golden acrobot T=101 through the per-instance solver on the card
-    (make_solve_fn(spec, Options(adaptive_penalty=False, backward_pass=
-    "scan")), one instance, f64) within tests/test_golden.py's gates."""
+    (make_solve_fn(spec, Options(adaptive_penalty=False)), one instance,
+    f64) with ``backward_pass`` "scan" or the default "auto" (on one
+    instance the associative scan), within tests/test_golden.py's gates."""
     from iterativelqr_tpu_torch.models import acrobot
 
     _, x_atol, u_atol = GOLDEN["acrobot_T101"]
@@ -1107,18 +1450,20 @@ def check_golden_per_instance(P):
     xs = torch.stack(P.rollout(dyn, x1.to(dev, dtype), us))
     ws = torch.zeros((T, 0), dtype=dtype, device=dev)
     t0 = time.perf_counter()
-    sol = P.make_solve_fn(spec, P.Options(adaptive_penalty=False, backward_pass="scan"),
-                          device=dev)(xs, us, ws)
+    kw = {} if backward_pass == "auto" else {"backward_pass": backward_pass}
+    sol = P.make_solve_fn(spec, P.Options(adaptive_penalty=False, **kw), device=dev)(xs, us, ws)
     wall = time.perf_counter() - t0
     viol = float(sol.max_violation)
     dx = float(np.abs(sol.xs.cpu().numpy() - data["xs"]).max())
     du = float(np.abs(sol.us.cpu().numpy() - data["us"]).max())
-    log(f"[check] golden acrobot_T101 through the per-instance solver (f64 on the card): "
+    log(f"[check] golden acrobot_T101 through the per-instance solver, backward_pass="
+        f"{backward_pass!r} (f64 on the card): "
         f"violation {viol:.3e}, objective {float(sol.objective):.4f} (golden "
         f"{float(data['objective']):.4f}), max |dxs| {dx:.3e}, max |dus| {du:.3e}, "
         f"iterations {int(sol.iterations)}, {wall:.1f} s")
     if not (viol <= 5e-3 and dx <= x_atol and du <= u_atol):
-        raise AssertionError("golden acrobot_T101 per instance: outside tests/test_golden.py's gates")
+        raise AssertionError(f"golden acrobot_T101 per instance ({backward_pass}): outside "
+                             "tests/test_golden.py's gates")
 
 
 # tests/test_golden.py's gates: (x_atol, u_atol), violation <= 5e-3
@@ -1204,19 +1549,23 @@ def main():
 
     launches = collections.Counter()
     pairs = collections.defaultdict(dict)
-    for name, kw, fkm, B in (("tuned", TUNED, "scan", B_LOOP_TUNED),
-                             ("tuned", TUNED, "pallas", B_LOOP_TUNED),
-                             ("tuned", TUNED, "pallas", B_MAIN),
-                             ("parity", PARITY, "scan", B_LOOP), ("parity", PARITY, "pallas", B_LOOP),
-                             ("parity", PARITY, "pallas", B_MAIN)):
-        counts, wall, trips = run_preset(P, name, kw, fkm, B)
+    single_shot = {}
+    for name, kw, fkm, B, T in (("tuned", TUNED, "scan", B_LOOP_TUNED, T_LOOP),
+                                ("tuned", TUNED, "pallas", B_LOOP_TUNED, T_LOOP),
+                                ("tuned", TUNED, "pallas", B_MAIN, T_MAIN),
+                                ("parity", PARITY, "scan", B_LOOP, T_LOOP),
+                                ("parity", PARITY, "pallas", B_LOOP, T_LOOP),
+                                ("parity", PARITY, "pallas", B_MAIN, T_MAIN)):
+        counts, wall, sol, inputs = run_preset(P, name, kw, fkm, B, T)
         launches.update(counts)
-        pairs[name, B][fkm] = (wall, trips)
-        at(f"phase 4 {name}/{fkm} B={B}")
+        pairs[name, B][fkm] = (wall, int(sol.iterations.max()))
+        if fkm == "pallas" and B == B_MAIN:
+            single_shot[name] = (sol, wall, inputs)
+        at(f"phase 4 {name}/{fkm} B={B} T={T}")
     for (name, B), pair in pairs.items():
         if len(pair) == 2:
             (w_s, t_s), (w_p, t_p) = pair["scan"], pair["pallas"]
-            log(f"[slice] {name} B={B}, same lanes: loops {w_s:.3f} s ({t_s} trips), kernels "
+            log(f"[slice] {name} B={B} T={T_LOOP if B != B_MAIN else T_MAIN}, same lanes: loops {w_s:.3f} s ({t_s} trips), kernels "
                 f"{w_p:.3f} s ({t_p} trips); {w_s / w_p:.2f} x")
     for model in MODEL_CELLS:
         fracs = {}
@@ -1250,8 +1599,27 @@ def main():
     at("phase 5 card vs cpu")
     for fixture in GOLDEN:
         check_golden(P, fixture)
-    check_golden_per_instance(P)
+    for backward_pass in ("scan", "auto"):
+        check_golden_per_instance(P, backward_pass)
     at("phase 5 golden")
+
+    check_assoc()
+    time_assoc_grid()
+    at("phase 6a")
+    from iterativelqr_tpu_torch.core import solve_compact
+
+    for name, kw in (("tuned", TUNED), ("parity", PARITY)):
+        grains = COMPACT_GRAINS if name == "tuned" else (solve_compact.GRAIN,)
+        for grain in grains:
+            counts = run_compacted(P, name, kw, single_shot[name], grain)
+            if grain == solve_compact.GRAIN:
+                launches.update(counts)
+        at(f"phase 6b {name}")
+    check_capped_rescue(P)
+    at("phase 6b capped rescue")
+    check_solver(P)
+    check_sensitivity(P)
+    at("phase 6c")
 
     sources = {"riccati_backward": ("riccati_backward.cu", "iterativelqr_tpu/ops/packed_backward.py:509"),
                "riccati_backward_wide": ("riccati_backward_wide.cu", "iterativelqr_tpu/ops/packed_backward.py:574"),

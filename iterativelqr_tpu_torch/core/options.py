@@ -5,11 +5,9 @@ Same fields, defaults and validation as the JAX package's
 rationale of every knob.  The dataclass is frozen so an ``Options`` can be
 shared between solves without being mutated.
 
-Some selectors name machinery the port does not have yet.  They validate as
-in the reference and are refused where a solve would need them:
-``backward_pass="associative"`` (and "auto" where it picks the associative
-scan), ``ddp`` and ``live_progress`` raise ``NotImplementedError`` in
-``core/solve.py`` (ROADMAP M11, M12, M13).  Options the SL batched solver
+One selector names machinery the port does not have yet: it validates as
+in the reference, and ``ddp`` raises ``NotImplementedError`` in
+``core/solve.py`` (ROADMAP M12).  Options the SL batched solver
 does not run (``record_traces``, the nested AL loop, a callback) take the
 per-instance solver's vmap route, as in the reference.  ``scan_unroll`` is
 a JAX scan knob that the port's loops ignore.  ``forward_kernel`` keeps the

@@ -21,9 +21,9 @@ one instance; ``SolveFn.vmap(in_axes)`` is the counterpart of
 
 Every while-loop test is one host sync (``ops/batching.py::LOOP_TESTS``):
 per loop trip one test of the solve loop plus one per extra regularization
-attempt (``ops/backward.py``).  Not ported: ``live_progress`` (it prints
-from inside the JAX program through ``jax.debug``; ROADMAP M13), ``ddp``
-(M12) and the associative backward scan (M11).
+attempt (``ops/backward.py``).  ``live_progress`` prints each AL round's
+values from the host (``utils/printing.py::live_progress_line``), which
+costs one more host sync a loop trip.  Not ported: ``ddp`` (ROADMAP M12).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from ..ops import derivatives as dv
 from ..ops.backward import backward_pass
 from ..ops.batching import broadcast_lanes, lane_call, select, while_lanes
 from ..ops.forward import armijo_slope, line_search, trajectory_sensitivities
+from ..utils.printing import live_progress_line
 from .options import Options
 from .spec import ProblemSpec
 
@@ -256,14 +257,6 @@ def make_solve_fn(
             "supply their own scan recursion)")
     if options.ddp:
         raise NotImplementedError("ddp=True is not ported yet (ROADMAP M12)")
-    if options.live_progress:
-        raise NotImplementedError(
-            "live_progress=True prints from inside the JAX program through "
-            "jax.debug; the port has no counterpart yet (ROADMAP M13)")
-    if options.backward_pass == "associative":
-        raise NotImplementedError(
-            'backward_pass="associative": the associative backward scan is '
-            "not ported yet (ROADMAP M11)")
     o = options
     nc, T = spec.nc, spec.T
     device = torch.device(device)
@@ -330,6 +323,14 @@ def make_solve_fn(
                              (True,) * 7, batched)
     else:
         derive_and_slope = derive_and_slope_plain
+
+    def progress(pred, al_it, inner_it, J, grad_norm, viol):
+        """``live_progress``: one line per lane where ``pred`` holds, printed
+        from the host (one sync, the user's request), as the JAX program
+        prints through ``jax.debug.callback``."""
+        rows = [v.detach().cpu() for v in (pred, al_it, inner_it, J, grad_norm, viol)]
+        for i in torch.nonzero(rows[0]).flatten().tolist():
+            live_progress_line(*(v[i] for v in rows[1:]))
 
     def al_transition(c_fresh, viol_fresh, duals, penalty, viol_prev,
                       truncated):
@@ -471,6 +472,9 @@ def make_solve_fn(
                 J2 = torch.where(do_update, J_cb, J2)
                 c_n = select(do_update, c_cb, c_n)
 
+            if o.live_progress:
+                progress(round_end & ~s.stop, s.al_it, inner1, J_n, grad_norm, viol)
+
             ai, ii = s.al_it, s.inner_it
             tr = (lambda a, v: _set_at(a, v, ai, ii)) if rt else (lambda a, v: a)
             return _FusedCarry(
@@ -605,6 +609,9 @@ def make_solve_fn(
             else:
                 duals, penalty = s.duals, s.penalty
                 stop = torch.ones_like(stop)
+            if o.live_progress:
+                progress(cond(s), s.al_it, inner.it, inner.J, inner.grad_norm,
+                         viol_fresh)
             ws_next = s.ws
             xs_next, us_next = inner.xs, inner.us
             if callback is not None:

@@ -12,11 +12,9 @@ reference live there):
   lanes (``ops/batching.py::while_lanes``): each lane escalates its own
   ``reg`` until its factorizations are positive definite.
 * the ``backward_pass="auto"`` dispatch (``_make_auto_dispatch``) — the
-  JAX ``custom_vmap`` that takes the associative scan for unbatched and
-  small-batch calls (``_assoc_wins``) and the reverse scan for the rest.
-  The associative scan (``ops/assoc.py``) is not ported: where "auto" would
-  take it, and for ``backward_pass="associative"``, the port raises
-  (ROADMAP M11).
+  JAX ``custom_vmap`` that takes the associative scan (``ops/assoc.py``)
+  for unbatched and small-batch calls (``_assoc_wins``, the JAX package's
+  rule) and the reverse scan for the rest.
 """
 
 from __future__ import annotations
@@ -26,10 +24,8 @@ import functools
 import torch
 
 from . import linalg_small
+from .assoc import backward_pass_associative
 from .batching import custom_vmap, lane_call, while_lanes
-
-_M11 = ("the associative backward scan (ops/assoc.py) is not ported yet "
-        "(ROADMAP M11)")
 
 
 def riccati_step(P, p, fx_t, fu_t, gx_t, gu_t, gxx_t, guu_t, gux_t, um, reg):
@@ -106,26 +102,20 @@ def _assoc_wins(B: int, T: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def _make_auto_dispatch():
-    """The ``backward_pass="auto"`` dispatch: associative scan unbatched and
-    where ``_assoc_wins`` (not ported: raises, M11), reverse scan for
-    batches that fill the card."""
+    """The ``backward_pass="auto"`` dispatch: the associative scan unbatched
+    and where ``_assoc_wins``, the reverse scan for batches that fill the
+    card."""
 
     @custom_vmap
     def dispatch(fx, fu, gx, gu, gxx, guu, gux, u_mask, reg):
-        raise NotImplementedError(
-            f'backward_pass="auto" takes the associative scan for a '
-            f"single-instance solve; {_M11}; use backward_pass=\"scan\"")
+        return backward_pass_associative(fx, fu, gx, gu, gxx, guu, gux, u_mask, reg)
 
     @dispatch.def_vmap
     def _rule(axis_size, in_batched, fx, fu, gx, gu, gxx, guu, gux, u_mask, reg):
         T = (fx.shape[1] if in_batched[0] else fx.shape[0]) + 1
-        if _assoc_wins(axis_size, T):
-            raise NotImplementedError(
-                f'backward_pass="auto" takes the associative scan at '
-                f"B={axis_size} <= max(1, T // 7) with T={T}; {_M11}; use "
-                f'backward_pass="scan"')
         um = u_mask[0] if in_batched[7] else u_mask
-        return backward_pass_scan(fx, fu, gx, gu, gxx, guu, gux, um, reg)
+        bp = backward_pass_associative if _assoc_wins(axis_size, T) else backward_pass_scan
+        return bp(fx, fu, gx, gu, gxx, guu, gux, um, reg)
 
     return dispatch
 
@@ -143,15 +133,15 @@ def backward_pass(fx, fu, gx, gu, gxx, guu, gux, u_mask, reg_carry, options,
     the per-instance form of the solver).
 
     Returns (K, k, Qx, Qu, p, ok, reg_next_carry)."""
-    if options.backward_pass == "associative" and impl is None:
-        raise NotImplementedError(f'backward_pass="associative": {_M11}')
     if impl is None and options.backward_pass == "auto":
         impl = _make_auto_dispatch()
+    bp = (backward_pass_associative if options.backward_pass == "associative"
+          else backward_pass_scan)
     stacks = (fx, fu, gx, gu, gxx, guu, gux)
 
     def run(reg):
         if impl is None:
-            return backward_pass_scan(*stacks, u_mask, reg)
+            return bp(*stacks, u_mask, reg)
         return lane_call(impl, stacks + (u_mask, reg),
                          (True,) * 7 + (False, True), batched)
 

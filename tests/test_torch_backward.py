@@ -1,7 +1,8 @@
 """The per-instance backward pass of the port (iterativelqr_tpu_torch/ops/
 backward.py, linalg_small.py, al.py) against the JAX package's functions
-under ``jax.vmap``, on the same numpy inputs in f64, plus the refusals of
-what is not ported yet (ROADMAP M11, M12, M13).
+under ``jax.vmap``, on the same numpy inputs in f64, the per-instance
+solve with the associative scan and with ``live_progress``, and the refusal
+of what is not ported yet (ROADMAP M12).
 
 Tolerance 1e-10 relative to the largest value: both sides are IEEE f64 and
 sum the same products, in other orders where XLA fuses its reductions.
@@ -175,29 +176,38 @@ def test_backward_pass_without_attempts_matches(batched):
 
 def test_auto_dispatch_takes_the_scan_for_batches():
     """backward_pass="auto" under the batched form: the reverse scan at
-    B > T // 7; the associative scan it takes for one instance or a small
-    batch is not ported (M11) and raises."""
+    B > T // 7 (bitwise the scan); the associative scan for one instance
+    and for a small batch (B <= T // 7), each against the JAX package's
+    dispatch."""
     rng = np.random.default_rng(5)
-    st = [torch.as_tensor(a) for a in stacks(rng, 4, 8, 4, 1)]
-    um = torch.ones((8, 1), dtype=torch.bool)
-    reg = torch.zeros(4, dtype=torch.float64)
-    out = backward.backward_pass(*st, um, reg, Options(backward_pass="auto"))
-    ref = backward.backward_pass(*st, um, reg, Options(backward_pass="scan"))
+    st = stacks(rng, 4, 8, 4, 1)
+    t = [torch.as_tensor(a) for a in st]
+    um = np.ones((8, 1), bool)
+    reg = np.zeros(4)
+    out = backward.backward_pass(*t, torch.as_tensor(um), torch.as_tensor(reg),
+                                 Options(backward_pass="auto"))
+    ref = backward.backward_pass(*t, torch.as_tensor(um), torch.as_tensor(reg),
+                                 Options(backward_pass="scan"))
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="M11"):
-        backward.backward_pass(*(a[:1] for a in st), um, reg[:1],
-                               Options(backward_pass="auto"), batched=False)
-    long = [torch.as_tensor(a) for a in stacks(rng, 4, 40, 4, 1)]
-    with pytest.raises(NotImplementedError, match="M11"):
-        backward.backward_pass(*long, torch.ones((40, 1), dtype=torch.bool), reg,
-                               Options(backward_pass="auto"))
+    one = backward.backward_pass(*(a[:1] for a in t), torch.as_tensor(um),
+                                 torch.as_tensor(reg[:1]), Options(backward_pass="auto"),
+                                 batched=False)
+    ref = jbw.backward_pass(*(a[0] for a in st), um, reg[0], JaxOptions(backward_pass="auto"))
+    for a, b in zip(one, ref):
+        close(a, np.asarray(b)[None])
+    long = stacks(rng, 4, 40, 4, 1)
+    um = np.ones((40, 1), bool)
+    out = backward.backward_pass(*(torch.as_tensor(a) for a in long), torch.as_tensor(um),
+                                 torch.as_tensor(reg), Options(backward_pass="auto"))
+    ref = jax.vmap(lambda *a: jbw.backward_pass(*a[:7], um, a[7], JaxOptions()))(*long, reg)
+    for a, b in zip(out, ref):
+        close(a, b)
+    assert backward._assoc_wins(4, 41)
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(backward_pass="associative"), NotImplementedError, "M11"),
     (dict(ddp=True), NotImplementedError, "M12"),
-    (dict(live_progress=True), NotImplementedError, "M13"),
 ])
 def test_unported_options_refuse(kw, exc, match):
     spec = build_spec(*acrobot.problem(9)[:3])
@@ -207,13 +217,59 @@ def test_unported_options_refuse(kw, exc, match):
         make_batched_solve_fn(spec, Options(batched_solver="vmap", **kw), device="cpu")
 
 
-def test_one_instance_with_auto_backward_needs_m11():
-    """The per-instance form with backward_pass="auto" reaches the
-    associative scan, which is not ported."""
-    T = 9
-    spec = build_spec(*acrobot.problem(T)[:3])
-    solve = make_solve_fn(spec, Options(), device="cpu")
-    xs = torch.zeros((T, 4), dtype=torch.float64)
-    us = torch.full((T - 1, 1), 0.05, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="M11"):
-        solve(xs, us, torch.zeros((T, 0), dtype=torch.float64))
+def one_instance(T=9):
+    """Acrobot, one instance: x0 = 0.02 N(0,1), controls 0.05, states
+    rolled out open loop (numpy inputs for both packages)."""
+    from iterativelqr_tpu.core.spec import build_spec as jax_build_spec
+    from iterativelqr_tpu.models import acrobot as jax_acrobot
+    from iterativelqr_tpu.ops.rollout import open_loop_rollout
+
+    jspec = jax_build_spec(*jax_acrobot.problem(T)[:3])
+    x0 = 0.02 * np.random.default_rng(1).standard_normal(4)
+    us = np.full((T - 1, 1), 0.05)
+    ws = np.zeros((T, 0))
+    xs = np.asarray(open_loop_rollout(jspec, jnp.asarray(x0), jnp.asarray(us), jnp.asarray(ws)))
+    return jspec, build_spec(*acrobot.problem(T)[:3]), xs, us, ws
+
+
+def solve_both(kw, capsys=None):
+    """The per-instance solve of both packages on one car instance (T=12,
+    tests/test_torch_solve.py's lane 2); the port's and JAX's printed
+    output when ``capsys`` is given."""
+    from iterativelqr_tpu import make_solve_fn as jax_make_solve_fn
+    from test_torch_solve import inputs
+
+    jspec, tspec, *batch = inputs("car")
+    xs, us, ws = (a[2] for a in batch)
+    ref = jax.jit(jax_make_solve_fn(jspec, JaxOptions(**kw)))(*(jnp.asarray(a) for a in (xs, us, ws)))
+    jax.effects_barrier()
+    printed = capsys.readouterr().out if capsys else None
+    sol = make_solve_fn(tspec, Options(**kw), device="cpu")(*(torch.as_tensor(a) for a in (xs, us, ws)))
+    out = capsys.readouterr().out if capsys else None
+    for name in ("iterations", "al_iterations", "status"):
+        assert int(getattr(sol, name)) == int(getattr(ref, name)), name
+    for name in ("xs", "us", "objective", "max_violation"):
+        close(getattr(sol, name), getattr(ref, name))
+    return sol, out, printed
+
+
+def test_associative_option_matches_jax():
+    """backward_pass="associative" through the per-instance solver."""
+    solve_both(dict(backward_pass="associative"))
+
+
+def test_live_progress_matches_jax(capsys):
+    """live_progress=True prints one line per AL round, as the JAX program
+    prints through jax.debug.callback: the same lines."""
+    sol, out, printed = solve_both(dict(live_progress=True), capsys)
+    lines = [ln for ln in out.splitlines() if ln.startswith("  [al")]
+    assert "[al  0]" in out and "viol" in out
+    assert len(lines) == int(sol.al_iterations)
+    jax_lines = [ln for ln in printed.splitlines() if ln.startswith("  [al")]
+    assert [ln.split("J")[0] for ln in lines] == [ln.split("J")[0] for ln in jax_lines]
+
+
+def test_one_instance_with_auto_backward_matches_jax():
+    """The per-instance form with backward_pass="auto" takes the
+    associative scan."""
+    solve_both(dict(backward_pass="auto"))

@@ -360,3 +360,63 @@ def test_wide_packed_and_masked_kernels_match_plain(kernel, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     _check_packed_masked(kernel, 12, 4, dtype, tol, Tm1=40)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_associative_scan_on_the_card_matches_the_cpu(dtype, tol):
+    """ops/assoc.py (plain torch operations, no kernel) on the card against
+    the same call on the CPU, acrobot's (4, 1) at T=101, B=64 and one
+    instance: IEEE arithmetic in other reduction orders."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from iterativelqr_tpu_torch.ops import assoc
+
+    st = [np.moveaxis(a, -1, 0).copy() for a in _stacks(np.random.default_rng(9), 64, 100, 4, 1)]
+    um = torch.ones((100, 1), dtype=torch.bool)
+    for lanes in (slice(None), 0):
+        args = [torch.as_tensor(a[lanes], dtype=dtype) for a in st]
+        reg = torch.zeros(args[0].shape[:-3], dtype=dtype)
+        ref = assoc.backward_pass_associative(*args, um, reg)
+        out = assoc.backward_pass_associative(*(a.cuda() for a in args), um.cuda(), reg.cuda())
+        assert bool(out[5].all()) and bool(ref[5].all())
+        _assert_close_scaled([o.cpu() for o in out[:5]], ref[:5], tol)
+
+
+@pytest.mark.cuda
+def test_compacted_solve_on_the_card_matches_single_shot():
+    """core/solve_compact.py on the card with a grain of 32 lanes (car T=8,
+    B=256, f32, the rollout kernels): the batch repacks, and each lane's
+    iterations equal the single-shot SL solve's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.func import vmap
+
+    from iterativelqr_tpu_torch import Options
+    from iterativelqr_tpu_torch.core import solve_compact
+    from iterativelqr_tpu_torch.core.solve_sl import make_batched_solve_sl
+
+    T, B = 8, 256
+    dyn, cost, con, x1, _ = car.problem(T)
+    spec = build_spec(dyn, cost, con)
+    x = torch.as_tensor(x1.numpy() + 0.3 * np.random.default_rng(11).standard_normal((B, 3)),
+                        dtype=torch.float32, device="cuda")
+    us = torch.full((B, T - 1, 2), 0.01, device="cuda")
+    xs = [x]
+    for t in range(T - 1):
+        x = vmap(dyn[t])(x, us[:, t])
+        xs.append(x)
+    args = (torch.stack(xs, dim=1), us, torch.zeros((B, T, 0), device="cuda"))
+    opts = Options(record_traces=False, backward_pass="packed", max_iterations=10,
+                   max_dual_updates=4, forward_kernel="pallas")
+    ref = make_batched_solve_sl(spec, opts, device="cuda")(*args)
+    grain = solve_compact.GRAIN
+    solve_compact.GRAIN = 32
+    try:
+        solve = solve_compact.make_compacted_solve_fn(spec, opts, chunk=4, rescue=False)
+        out = solve(*args)
+    finally:
+        solve_compact.GRAIN = grain
+    assert solve.last_run.repacks >= 1
+    assert torch.equal(out.iterations, ref.iterations)
+    torch.testing.assert_close(out.xs, ref.xs, rtol=1e-4, atol=1e-4)

@@ -13,7 +13,8 @@ import iterativelqr_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 for name in ("ops.sl_forward_kernel", "models.car", "models.acrobot",
-             "ops.packed_backward"):
+             "ops.packed_backward", "ops.assoc", "ops.sensitivity",
+             "core.solver", "core.solve_compact", "utils.printing"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib", "iterativelqr_tpu."))
@@ -50,6 +51,9 @@ def test_port_sources_name_no_jax():
     files = sorted(pkg.rglob("*.py"))
     assert pkg / "ops" / "sl_forward_kernel.py" in files
     assert pkg / "models" / "car.py" in files
+    for name in ("ops/assoc.py", "ops/sensitivity.py", "core/solver.py",
+                 "core/solve_compact.py", "utils/printing.py"):
+        assert pkg / name in files, name
     for f in files:
         _assert_names_no_jax(f)
 

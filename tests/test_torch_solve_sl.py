@@ -131,13 +131,26 @@ def test_vmap_route_runs_and_matches(inputs, kw):
     assert out["trace_mask"].shape[1:] == ((3, 12) if not kw else (1, 1))
 
 
-def test_live_progress_needs_m13():
-    """live_progress prints from inside the JAX program (jax.debug); the
-    port has no counterpart yet."""
+def test_live_progress_needs_m13(capsys):
+    """live_progress (ROADMAP M13) takes the per-instance solver's vmap
+    route, which prints each AL round's line from the host as the JAX
+    program prints through jax.debug; the SL solver refuses it, as the JAX
+    package's does."""
+    from iterativelqr_tpu_torch.core.solve_sl import make_sl_parts
+
     tspec = build_spec(*acrobot.problem(T)[:3])
-    with pytest.raises(NotImplementedError, match="M13"):
-        make_batched_solve_fn(
-            tspec, Options(record_traces=False, live_progress=True), device="cpu")
+    opts = Options(record_traces=False, live_progress=True, max_iterations=3,
+                   max_dual_updates=2)
+    B = 2
+    xs = torch.zeros((B, T, 4), dtype=torch.float64)
+    us = torch.full((B, T - 1, 1), 0.05, dtype=torch.float64)
+    sol = make_batched_solve_fn(tspec, opts, device="cpu", dtype=torch.float64)(
+        xs, us, torch.zeros((B, T, 0), dtype=torch.float64))
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("  [al")]
+    assert any("[al  0]" in ln and "viol" in ln for ln in lines)
+    assert len(lines) == int(sol.al_iterations.sum())
+    with pytest.raises(ValueError, match="live_progress"):
+        make_sl_parts(tspec, opts, device="cpu")
 
 
 def test_pallas_rollout_kernels_refuse_a_model_without_device_functions():
