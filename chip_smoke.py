@@ -46,9 +46,9 @@ Phases, each of which raises (non-zero exit) when it fails:
    launches counted over each timed solve; the per-iteration split of
    derive+backward against line search in each;
 4c. the per-instance solver's vmap route at acrobot, f32 (bench.py's
-   initial guess): the literal make_batched_solve_fn(spec, Options())
-   (traces on, the "auto" backward = the reverse scan, loop rollouts) at
-   B=B_VMAP_LOOP=14 and T=T_LOOP=51, and at B=4096 the tuned preset with
+   initial guess), at T=T_LOOP=51: the literal make_batched_solve_fn(spec,
+   Options()) (traces on, the "auto" backward = the reverse scan, loop
+   rollouts) at B=B_VMAP_LOOP=14, and at B=4096 the tuned preset with
    traces through
    make_solve_fn(..., backward_impl=make_backward_dispatch(variant="v1" |
    "v2")).vmap() (K6a, K6b); then the same two dispatches on the quadrotor
@@ -64,10 +64,11 @@ Phases, each of which raises (non-zero exit) when it fails:
    f64: equal iterates); the vmap route on the card against the CPU
    (acrobot T=9, car T=8, B=4, f64) for Options(), the K6a and K6b
    dispatches and backward_pass="packed"; the committed golden acrobot
-   T=101, car and quadrotor solutions (tests/fixtures/golden_*.npz) solved
-   on the card through "pallas" in f64, and the golden acrobot T=101
-   through the per-instance solver, with backward_pass="scan" and with the
-   default "auto" (on one instance the associative scan);
+   T=101, car, quadrotor, particle and cartpole solutions
+   (tests/fixtures/golden_*.npz) solved on the card through "pallas" in
+   f64, and through the per-instance solver the golden car with
+   backward_pass="scan" and the golden acrobot T=101 with the default
+   "auto" (on one instance the associative scan);
 6a. the associative backward scan (ops/assoc.py) against the port's reverse
    scan on the card at (4, 1), (3, 2) T=101 and (12, 4) T=41, B=64 and one
    instance, f64 and f32; both timed (CUDA events, f32, acrobot's dims)
@@ -87,13 +88,30 @@ Phases, each of which raises (non-zero exit) when it fails:
 6c. the Solver shell on car T=51 in f64 (solve, warm_solve, reset_duals and
    warm_solve, each feasible), and parameter_gradient on
    tests/test_sensitivity.py's tracking problem at T=9 in f64 against
-   central finite differences of the re-solved optimal value.
+   central finite differences of the re-solved optimal value;
+7a. K1, K5, K6a and K6b at particle's and pendulum's (n, m) = (2, 1), and
+   K3/K4 for particle T=11, pendulum T=51 and cartpole T=101, against their
+   plain versions at B=4096 in f64 and f32 as in phases 3, 3c and 3b, with
+   their times and bounds;
+7b. the SL solver ("auto": K1 and K3/K4 on the card), f32,
+   Options(record_traces=False), B=4096 on particle T=11, pendulum T=51
+   and cartpole T=101 (swingup_controls), x0 = x1 + 0.02 N(0,1): the
+   recomputed solved fraction (>= 0.99), trips and launches;
+7c. full DDP per instance in f64 (no kernel): particle T=11 equal to
+   Gauss-Newton, and acrobot T=51 from golden_acrobot.npz's controls
+   feasible within 1.05 of the golden objective;
+7d. make_mpc_controller on particle T=11 through tests/test_mpc.py's
+   disturbance scenario (f64, per instance), and a farm of 4096 particle
+   controllers (T=11, f32): one cold SL solve, then 12 warm steps of
+   shift, closed-loop re-roll over the lanes and warm SL solve with the
+   kernels, every plan feasible at every step; plans/s.
 
 Budget: the whole run stays under 800 s (1200 s limit).  For that,
 parity's loop cell runs on 4 lanes, tuned's loop cell on 16 and phase 4c's
-cell (a) on 14 (each was 4096), all three (and the kernel cells paired
-with them) at T=T_LOOP=51, and the splits time 5 iterations (were 20): the
-reasons and trip counts stand beside B_LOOP.
+cell (a) on 14 (each was 4096), those three and 4c's cells (b) and (c)
+(and the kernel cells paired with them) at T=T_LOOP=51, phase 5's
+per-instance reverse-scan golden is the car's, and the splits time 5
+iterations (were 20): the reasons and trip counts stand beside B_LOOP.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -137,6 +155,14 @@ T_MAIN, B_MAIN = 101, 4096
 #   the port's CPU path, f32: tuned 92, parity 84).  At T=51 cell (a)'s
 #   "auto" backward takes the reverse scan (B=14 > T // 7 = 7), as it did
 #   at B=64, T=101.  The kernel cells also run at B=4096, T=101.
+# - T_LOOP also for phase 4c's cells (b) and (c) (were T=101: 55.4 and
+#   51.1 s of a 760 s run, loop rollouts on 4096 lanes, 86 trips); K6a and
+#   K6b stay held and timed at B=4096, T=101 in phase 3c, and the
+#   quadrotor cells (d) and (e) keep T=41.
+# - phase 5's per-instance golden with backward_pass="scan" solves the
+#   golden car (T=51, 13 iterations, about 4 s), not acrobot T=101 (69.3
+#   s): the reverse scan per instance is still held to a golden on the
+#   card, and the default "auto" stays on acrobot T=101.
 # Every split times the first SPLIT_ITERATIONS.
 B_LOOP = 4
 B_LOOP_TUNED = 16
@@ -164,10 +190,16 @@ F32_OPS_PER_S = 67e12
 # 2 x 2 dynamics, 12 RK2, 21 control, 13 cost, 10 constraints, 30 AL terms,
 # 2 accumulations, 4 sin/cos.  Quadrotor: 2 x 58 dynamics, 48 RK2, 120
 # control, 55 cost, 8 constraints, 48 AL terms, 2 accumulations, 14 sin, cos
-# or tan.
+# or tan.  Particle: 6 dynamics (A x + B u, no RK2), 9 control, 7 cost, 1
+# accumulation.  Pendulum: 2 x 5 dynamics, 8 RK2, 9 control, 5 cost, 1
+# accumulation, 2 sin.  Cartpole: 2 x 18 dynamics, 16 RK2, 15 control, 13
+# cost, 3 constraints, 12 AL terms, 2 accumulations, 5 sin or cos.
 OPS_PER_STEP = {"acrobot": 2 * 43 + 16 + 15 + 8 + 8 * 20,
                 "car": 2 * 2 + 12 + 21 + 13 + 10 + 30 + 2 + 4 * 20,
-                "quadrotor": 2 * 58 + 48 + 120 + 55 + 8 + 48 + 2 + 14 * 20}
+                "quadrotor": 2 * 58 + 48 + 120 + 55 + 8 + 48 + 2 + 14 * 20,
+                "particle": 6 + 9 + 7 + 1,
+                "pendulum": 2 * 5 + 8 + 9 + 5 + 1 + 2 * 20,
+                "cartpole": 2 * 18 + 16 + 15 + 13 + 3 + 12 + 2 + 5 * 20}
 
 
 def log(msg):
@@ -275,6 +307,8 @@ def riccati_ops(n, m):
 RICCATI_CASES = {
     "K1": ("riccati_backward", 4, 1, T_MAIN, random_stacks, 50),
     "K2": ("riccati_backward_wide", 12, 4, T_QUAD, wide_stacks, 20),
+    # particle's and pendulum's dims (phase 7a)
+    "K1 (2, 1)": ("riccati_backward", 2, 1, T_MAIN, random_stacks, 50),
 }
 
 
@@ -414,7 +448,7 @@ def packed_masked_runs(pk, pb, label, st, um, reg):
             (packed, gxxT, gxT, um, reg))
 
 
-def check_packed_masked(pk, pb, label):
+def check_packed_masked(pk, pb, label, dims=None):
     """K5, K6a or K6b = plain within K1's tolerances, NaN positions and ok
     equal, ok = 0 exactly on the indefinite lanes, masked gains exactly 0;
     f64 and f32 at B=4096, T=101 on K1's template and T=41 on K2's.  Every
@@ -422,8 +456,13 @@ def check_packed_masked(pk, pb, label):
     just before and read just after: it must launch its kernel once and
     nothing else.  Returns the f32 records of (4, 1) and (12, 4), keyed by
     counter name; K5's hold the launches of its entry at those shapes (K5
-    runs in no solve of the JAX package: this call is its path)."""
-    base, dims = PACKED_MASKED_CASES[label]
+    runs in no solve of the JAX package: this call is its path).  With
+    ``dims`` (phase 7a: [(2, 1, T)]) those cases run instead, and their
+    records, keyed "<counter>/n<n>m<m>", hold their entry's launches (no
+    solve runs K5, K6a or K6b at (2, 1))."""
+    base, all_dims = PACKED_MASKED_CASES[label]
+    extra = dims is not None
+    dims = all_dims if dims is None else dims
     B = B_MAIN
     tols = {torch.float64: 1e-10, torch.float32: 1e-4}
     records = {}
@@ -489,11 +528,12 @@ def check_packed_masked(pk, pb, label):
                         b_ms, b_by = bound_ms(nbytes, ops)
                         line += (f"; bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.4f} MB, "
                                  f"{ops / 1e9:.3f} G operations); {b_ms / k_ms:.1%} of the bound")
-                        if (n, m) in ((4, 1), WIDE):
-                            records[kname] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
-                                                  bound_ms=b_ms, bound_by=b_by, entry_ms=e_ms)
-                            if label == "K5":
-                                records[kname]["launches"] = path[kname]
+                        if (n, m) in ((4, 1), WIDE) or extra:
+                            key = f"{kname}/n{n}m{m}" if extra else kname
+                            records[key] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
+                                                bound_ms=b_ms, bound_by=b_by, entry_ms=e_ms)
+                            if label == "K5" or extra:
+                                records[key]["launches"] = path[kname]
                     line += ring_line(pk.riccati_ring(n, m, dtype, label != "K5"))
                 log(line)
     return records
@@ -510,10 +550,9 @@ def rollout_case(fk, name, T, B, dtype, seed):
     lam = 0 on half the lanes (there an inequality row with c < 0 is
     inactive) and, for car and the quadrotor, lanes that head through the
     obstacle or push a control past its bound (active rows)."""
-    from iterativelqr_tpu_torch import build_spec
-    from iterativelqr_tpu_torch.models import acrobot, car, quadrotor
+    from iterativelqr_tpu_torch import build_spec, models
 
-    mod = {"acrobot": acrobot, "car": car, "quadrotor": quadrotor}[name]
+    mod = getattr(models, name)
     spec = build_spec(*mod.problem(T)[:3])
     r = fk.Rollouts(spec, "cuda")
     rng = np.random.default_rng(seed)
@@ -527,9 +566,18 @@ def rollout_case(fk, name, T, B, dtype, seed):
     if name == "quadrotor":
         # thrusts near hover; some lanes hold every rotor past its upper or
         # lower bound (active rows, no torque)
-        ubar = quadrotor.HOVER + 0.1 * ubar
+        ubar = mod.HOVER + 0.1 * ubar
         ubar[:, :, 1::5] = 6.5
         ubar[:, :, 3::7] = -0.2
+    if name == "cartpole":
+        # near theta = pi: a pole released near theta = 0 falls along the
+        # separatrix, where a 100-step rollout magnifies rounding about
+        # 1e5-fold (the plain f32 rollout is 5e-3 off the f64 one there,
+        # 2e-6 here); the last two controls past the limit on some lanes
+        # (active rows)
+        x0[1] += np.pi
+        ubar[-2:, 0, 1::5] = 10.5
+        ubar[-2:, 0, 2::7] = -10.5
     K = 0.1 * rng.standard_normal((Tm1, nu, nx, B))
     k = 0.1 * rng.standard_normal((Tm1, nu, B))
     if name == "quadrotor":
@@ -585,16 +633,22 @@ def rollout_bytes(spec, B, size, nb=None):
     return per_lane * B * size
 
 
-def check_rollouts(fk):
+ROLLOUT_MODELS = (("acrobot", T_MAIN), ("car", T_CAR), ("quadrotor", T_QUAD))
+# phase 7a: the models whose device functions came with M16
+NEW_ROLLOUT_MODELS = (("particle", 11), ("pendulum", 51), ("cartpole", 101))
+
+
+def check_rollouts(fk, models=ROLLOUT_MODELS):
     """K3 and K4 = plain within tolerance, acrobot T=101, car T=51 and
-    quadrotor T=41, B=4096, f64 and f32; returns the f32 acrobot records
-    (the main path's shapes) for the JSON line."""
+    quadrotor T=41 (or ``models``), B=4096, f64 and f32; returns the f32
+    records for the JSON line (K3's head block and K4), keyed
+    "<kernel>/<model>"."""
     # f64: IEEE f64 on both sides, sums in other orders and FMA contraction
     # in the kernel, through T-1 dependent steps: 1e-10 relative.  f32: the
     # same at f32 rounding: 1e-4 relative (K1's tolerances and reasons).
     tols = {torch.float64: 1e-10, torch.float32: 1e-4}
     records = {}
-    for name, T in (("acrobot", T_MAIN), ("car", T_CAR), ("quadrotor", T_QUAD)):
+    for name, T in models:
         for dtype, tol in tols.items():
             r, live, alpha = rollout_case(fk, name, T, B_MAIN, dtype, SEED)
             spec, size = r.spec, torch.finfo(dtype).bits // 8
@@ -635,9 +689,9 @@ def check_rollouts(fk):
                     b_ms, b_by = bound_ms(nbytes, ops)
                     line += (f"; bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
                              f"{ops / 1e9:.3f} G operations); {b_ms / k_ms:.1%} of the bound")
-                    if name == "acrobot" and what != "tail j0=8 nb=9":
-                        records[kname] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                              bound_ms=b_ms, bound_by=b_by)
+                    if what != "tail j0=8 nb=9":
+                        records[f"{kname}/{name}"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                                          bound_ms=b_ms, bound_by=b_by)
                 line += ring_line(fk.rollout_ring(r.model, dtype))
                 log(line)
     return records
@@ -740,7 +794,7 @@ def check_launches(name, fkm, counts, model):
     elif k1 <= 0 or k2 != 0:
         raise AssertionError(f"{name}: expected K1 and not K2 on the main path (K1 {k1}, K2 {k2})")
     rollouts = counts["sl_score_rollout"], counts["sl_winner_reroll"]
-    if fkm == "pallas" and min(rollouts) <= 0:
+    if fkm in ("pallas", "auto") and min(rollouts) <= 0:
         raise AssertionError(f"{name}: K3/K4 were not launched on the main path {rollouts}")
     if fkm == "scan" and max(rollouts) > 0:
         raise AssertionError(f"{name}: the loop path launched K3/K4 {rollouts}")
@@ -832,9 +886,14 @@ def run_preset(P, name, kw, fkm, B, T=T_MAIN):
     return counts, wall, sol, (xs, us, ws)
 
 
-# model -> (T of its cell, scale of the x0 noise, its initial controls)
+# model -> (T of its cell, scale of the x0 noise, its initial controls: a
+# function of the model's module, or a constant)
 MODEL_CELLS = {"car": (T_CAR, 0.02, "initial_controls"),
                "quadrotor": (T_QUAD, 0.05, "hover_controls")}
+# phase 7b: particle with tests/test_ddp.py's controls, pendulum with
+# tests/test_models_extra.py's, cartpole with its swing-up controls
+NEW_MODEL_CELLS = {"particle": (11, 0.02, 0.05), "pendulum": (51, 0.02, 0.1),
+                   "cartpole": (101, 0.02, "swingup_controls")}
 
 
 def model_inputs(model, B, T, dtype, device):
@@ -846,13 +905,18 @@ def model_inputs(model, B, T, dtype, device):
     from iterativelqr_tpu_torch import models
 
     mod = getattr(models, model)
-    _, scale, controls = MODEL_CELLS[model]
+    _, scale, controls = {**MODEL_CELLS, **NEW_MODEL_CELLS}[model]
     dyn, _, _, x1, _ = mod.problem(T)
     nx = x1.shape[0]
     rng = np.random.default_rng(SEED)
-    x = torch.as_tensor(x1.numpy() + scale * rng.standard_normal((B, nx)),
+    x = torch.as_tensor(x1.cpu().numpy() + scale * rng.standard_normal((B, nx)),
                         dtype=dtype, device=device)
-    us = torch.stack(getattr(mod, controls)(T)).to(device, dtype)
+    if isinstance(controls, str):
+        us = getattr(mod, controls)(T)
+        us = torch.stack(us) if isinstance(us, list) else torch.as_tensor(us)
+    else:
+        us = torch.full((T - 1, dyn[0].num_action), controls)
+    us = us.to(device, dtype)
     us = us[None].expand(B, *us.shape).contiguous()
     xs = [x]
     for t in range(T - 1):
@@ -863,12 +927,13 @@ def model_inputs(model, B, T, dtype, device):
 
 
 def run_model(P, model, fkm):
-    """Car T=51 or quadrotor T=41, B=4096, f32, ``Options(record_traces=
-    False)``, with the rollouts of ``fkm``; returns (recomputed solved
-    fraction, launch counts)."""
+    """Car T=51 or quadrotor T=41 (phase 7b: particle T=11, pendulum T=51
+    or cartpole T=101), B=4096, f32, ``Options(record_traces=False)``,
+    with the rollouts of ``fkm``; returns (recomputed solved fraction,
+    launch counts)."""
     from iterativelqr_tpu_torch import models
 
-    T = MODEL_CELLS[model][0]
+    T = {**MODEL_CELLS, **NEW_MODEL_CELLS}[model][0]
     name = f"{model}/{fkm}"
     dtype, device = torch.float32, torch.device("cuda")
     spec = P.build_spec(*getattr(models, model).problem(T)[:3])
@@ -959,8 +1024,8 @@ def trace_writes(tally):
 
 
 def run_vmap_cell(P, variant, B, model="acrobot"):
-    """One phase 4c cell on the first B lanes, f32: acrobot (T=T_LOOP for
-    the literal Options(), else T=101) with bench.py's initial guess, or
+    """One phase 4c cell on the first B lanes, f32: acrobot (T=T_LOOP)
+    with bench.py's initial guess, or
     the quadrotor T=41 with phase 4's inputs
     (model_inputs); a warm-up cut to one iteration, the timed solve with
     every count set to 0 just before, the checks, and a split of the first
@@ -976,7 +1041,7 @@ def run_vmap_cell(P, variant, B, model="acrobot"):
 
     name = {"auto": "vmap/Options()", "v1": "vmap/tuned+K6a", "v2": "vmap/tuned+K6b"}[variant]
     device = torch.device("cuda")
-    T = (T_LOOP if variant == "auto" else T_MAIN) if model == "acrobot" else MODEL_CELLS[model][0]
+    T = T_LOOP if model == "acrobot" else MODEL_CELLS[model][0]
     spec = P.build_spec(*getattr(models, model).problem(T)[:3])
     if model == "acrobot":
         xs, us, ws = bench_inputs(B, T, torch.float32, device)
@@ -1351,6 +1416,213 @@ def check_sensitivity(P):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the other models (M16), full DDP (M12), MPC and its farm (M14)
+# ---------------------------------------------------------------------------
+
+
+def run_new_models(P):
+    """Phase 7b: the SL solver with "auto" rollouts (K1 and K3/K4 on the
+    card), f32, B=4096, on particle, pendulum and cartpole; each solved
+    fraction recomputed from the trajectories must be >= 0.99.  Returns the
+    launch counts of each model's timed solve."""
+    counts = {}
+    for model in NEW_MODEL_CELLS:
+        frac, counts[model] = run_model(P, model, "auto")
+        if frac < 0.99:
+            raise AssertionError(f"{model}: recomputed solved fraction {frac} < 0.99")
+    return counts
+
+
+def check_ddp(P):
+    """Phase 7c: full DDP per instance on the card in f64 (the reverse scan
+    with the dynamics second derivatives; no kernel).  Particle T=11 from
+    tests/test_ddp.py's guess: the DDP solve takes the Gauss-Newton
+    solve's iterations and iterates (xs within 1e-8).  Acrobot T=51 from
+    golden_acrobot.npz's controls: violation within the tolerance and the
+    objective at most 1.05 times the golden (Gauss-Newton) objective, as
+    tests/test_ddp.py asks of JAX's DDP."""
+    from iterativelqr_tpu_torch.models import acrobot, particle
+
+    dev, dtype = torch.device("cuda"), torch.float64
+    T = 11
+    dyn, cost, con, x1, _ = particle.problem(T)
+    spec = P.build_spec(dyn, cost, con)
+    xs = torch.zeros((T, 2), dtype=dtype, device=dev)
+    xs[0] = x1
+    us = torch.full((T - 1, 1), 0.05, dtype=dtype, device=dev)
+    ws = torch.zeros((T, 0), dtype=dtype, device=dev)
+    for c in counters().values():
+        c.reset()
+    gn = P.make_solve_fn(spec, P.Options(), device=dev)(xs, us, ws)
+    ddp = P.make_solve_fn(spec, P.Options(ddp=True), device=dev)(xs, us, ws)
+    launched = {k: c.launches for k, c in counters().items() if c.launches}
+    dx = float((ddp.xs - gn.xs).abs().max())
+    log(f"[ddp] particle T={T} f64 per instance: DDP {int(ddp.iterations)} iterations, "
+        f"Gauss-Newton {int(gn.iterations)}; max |dxs| {dx:.3e}; objective {float(ddp.objective):.6f} "
+        f"vs {float(gn.objective):.6f}")
+    if int(ddp.iterations) != int(gn.iterations) or dx > 1e-8 or launched:
+        raise AssertionError(f"ddp particle: not equal to Gauss-Newton (or launched {launched})")
+
+    data = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests", "fixtures", "golden_acrobot.npz"))
+    T = data["xs"].shape[0]
+    dyn, cost, con, x1, _ = acrobot.problem(T)
+    spec = P.build_spec(dyn, cost, con)
+    us = torch.as_tensor(data["us0"], dtype=dtype, device=dev)
+    xs = torch.stack(P.rollout(dyn, x1.to(dev, dtype), us))
+    ws = torch.zeros((T, 0), dtype=dtype, device=dev)
+    opts = P.Options(ddp=True)
+    t0 = time.perf_counter()
+    sol = P.make_solve_fn(spec, opts, device=dev)(xs, us, ws)
+    wall = time.perf_counter() - t0
+    viol, obj, gold = float(sol.max_violation), float(sol.objective), float(data["objective"])
+    log(f"[ddp] acrobot T={T} f64 per instance from golden_acrobot's controls: violation "
+        f"{viol:.3e}, objective {obj:.4f} (golden Gauss-Newton {gold:.4f}, ratio {obj / gold:.4f}), "
+        f"iterations {int(sol.iterations)}, AL rounds {int(sol.al_iterations)}, {wall:.1f} s")
+    if not (viol <= opts.constraint_tolerance and obj <= 1.05 * gold):
+        raise AssertionError("ddp acrobot: infeasible or objective above 1.05 x the golden")
+
+
+def check_mpc(P):
+    """Phase 7d, one controller: tests/test_mpc.py's disturbance scenario
+    on the card (particle T=11, f64, per instance, constraint-aware
+    acceptance on the loop rollouts): 12 steps from (-0.5, 0.3), noise
+    0.02 N(0,1) from numpy seed 0 on the first 6; the final plan reaches
+    the goal within 5e-3."""
+    from iterativelqr_tpu_torch.core.mpc import make_mpc_controller
+    from iterativelqr_tpu_torch.models import particle
+
+    dev, dtype = torch.device("cuda"), torch.float64
+    T = 11
+    dyn, cost, con, _, xT = particle.problem(T)
+    spec = P.build_spec(dyn, cost, con)
+    init, step = make_mpc_controller(spec, P.Options(verbose=False, record_traces=False),
+                                     device=dev)
+    ws = torch.zeros((T, 0), dtype=dtype, device=dev)
+    state = init(torch.zeros((T, 2), dtype=dtype, device=dev),
+                 torch.zeros((T - 1, 1), dtype=dtype, device=dev))
+    rng = np.random.default_rng(0)
+    x = torch.tensor([-0.5, 0.3], dtype=dtype, device=dev)
+    its = []
+    t0 = time.perf_counter()
+    for i in range(12):
+        out = step(state, x, ws)
+        state = out.state
+        its.append(int(out.solution.iterations))
+        noise = 0.02 * rng.standard_normal(2) if i < 6 else np.zeros(2)
+        x = dyn[0](x, out.action) + torch.as_tensor(noise, dtype=dtype, device=dev)
+    wall = time.perf_counter() - t0
+    sol = out.solution
+    err = float((sol.xs[-1] - xT.to(dtype)).abs().max())
+    log(f"[mpc] controller, particle T={T} f64 on the card: 12 steps in {wall:.1f} s, iterations "
+        f"a step {its}; final plan violation {float(sol.max_violation):.3e}, |x_T - goal| {err:.3e}")
+    if not (bool(torch.isfinite(sol.xs).all()) and float(sol.max_violation) <= 5e-3 and err <= 5e-3):
+        raise AssertionError("mpc: the final plan does not reach the goal within 5e-3")
+
+
+FARM_B, FARM_T, FARM_STEPS = B_MAIN, 11, 12
+
+
+def run_farm(P):
+    """Phase 7d, the farm (examples/mpc_farm.py's loop from the port's
+    public pieces, on the library's particle problem, whose terminal goal
+    equality carries every plan to the goal): 4096 controllers, T=11, f32;
+    initial states N(0, 0.3) from numpy seed 0, plant noise 0.005 N(0,1);
+    one cold SL solve, then 12 warm steps of shift, closed-loop re-roll
+    over the lanes and warm SL solve (duals carried, penalties capped at
+    1e4), all with the kernels ("auto" rollouts).  Every plan must be
+    feasible at every step (max violation < 5e-3), and K1, K3 and K4 must
+    launch in every warm solve (counts set to 0 just before and read just
+    after each).  Reports
+    plans/s (B x steps / wall of the warm steps), trips a step, and a split
+    of one more warm step into re-roll, derive+backward and line search,
+    host against device-event time."""
+    from iterativelqr_tpu_torch.core.solve_sl import make_batched_solve_sl
+    from iterativelqr_tpu_torch.models import particle
+    from iterativelqr_tpu_torch.ops.batching import lane_eval
+    from iterativelqr_tpu_torch.ops.rollout import closed_loop_rollout, open_loop_rollout
+
+    dev, dtype = torch.device("cuda"), torch.float32
+    B, T = FARM_B, FARM_T
+    spec = P.build_spec(*particle.problem(T)[:3])
+    # examples/mpc_farm.py's options, with the rollout kernels where the
+    # card can run them (the default "scan" keeps the loops)
+    opts = P.Options(verbose=False, record_traces=False, objective_tolerance=1.0e-8,
+                     max_penalty=1.0e6, forward_kernel="auto")
+    ws = torch.zeros((B, T, 0), dtype=dtype, device=dev)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(0.0, 0.3, (B, 2)), dtype=dtype, device=dev)
+    us = torch.zeros((B, T - 1, 1), dtype=dtype, device=dev)
+    solve_cold = P.make_batched_solve_fn(spec, opts, device=dev, dtype=dtype)
+    solve_warm = P.make_batched_solve_fn(spec, opts, dual_warm_start=True, device=dev, dtype=dtype)
+    shift = lambda a: torch.cat([a[:, 1:], a[:, -1:]], dim=1)
+
+    def reroll(x_meas, sol):
+        """The warm solve's (xs, us, ws, duals, penalty): every plan shifted
+        and re-rolled closed-loop from its measured state, the duals
+        shifted, the penalties shifted and capped."""
+        xs0, us0 = closed_loop_rollout(spec, shift(sol.xs), shift(sol.us), ws, shift(sol.K),
+                                       torch.zeros_like(sol.k), 0.0, x0=x_meas)
+        return xs0, us0, ws, shift(sol.duals), torch.clamp(shift(sol.penalty), max=1.0e4)
+
+    def plant(x, action):
+        return (lane_eval(spec.dyn_eval[0], x, action, ws[:, 0])
+                + torch.as_tensor(rng.normal(0.0, 0.005, (B, 2)), dtype=dtype, device=dev))
+
+    t0 = time.perf_counter()
+    sol = solve_cold(open_loop_rollout(spec, x, us, ws), us, ws)
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0
+    viol = float(sol.max_violation.max())
+    log(f"[farm] cold SL solve B={B} T={T} f32: {cold_wall:.3f} s (first call), trips "
+        f"{int(sol.iterations.max())}, max violation {viol:.3e}")
+    if viol >= 5e-3:
+        raise AssertionError(f"farm: cold plans infeasible ({viol:.3e})")
+    total = collections.Counter()
+    trips, walls = [], []
+    for k in range(FARM_STEPS):
+        for c in counters().values():
+            c.reset()
+        t0 = time.perf_counter()
+        sol = solve_warm(*reroll(x, sol))
+        action = sol.us[:, 0]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = {k_: c.launches for k_, c in counters().items()}
+        total.update(counts)
+        trips.append(int(sol.iterations.max()))
+        for kname in ("riccati_backward", "sl_score_rollout", "sl_winner_reroll"):
+            if counts[kname] <= 0:
+                raise AssertionError(f"farm step {k}: {kname} was not launched "
+                                     f"({trips[-1]} trips)")
+        viol = float(sol.max_violation.max())
+        if not viol < 5e-3:
+            raise AssertionError(f"farm step {k}: a plan is infeasible (max violation {viol:.3e})")
+        x = plant(x, action)
+    wall = sum(walls)
+    dist = float((x - torch.tensor([1.0, 0.0], dtype=dtype, device=dev)).norm(dim=1).mean())
+    log(f"[farm] {FARM_STEPS} warm steps of B={B} controllers: {wall:.3f} s, "
+        f"{B * FARM_STEPS / wall:.1f} plans/s; s a step {[round(w, 3) for w in walls]}; warm trips "
+        f"a step {trips}; every plan feasible at every step (last max violation {viol:.3e}); "
+        f"launches over the warm solves K1 {total['riccati_backward']}, K3 "
+        f"{total['sl_score_rollout']}, K4 {total['sl_winner_reroll']}; mean distance to the goal "
+        f"{dist:.3f}")
+    # one more warm step, split: the re-roll (host loop) and the solve's
+    # phases, host wall against device-event time
+    sections = Sections()
+    timed = make_batched_solve_sl(spec, opts, device=dev, dtype=dtype, dual_warm_start=True,
+                                  section=sections)
+    with sections("reroll"):
+        args = reroll(x, sol)
+    part = timed(*args)
+    torch.cuda.synchronize()
+    dev_ms = sections.device_ms()
+    log(f"[farm] one more warm step ({int(part.iterations.max())} trips), host / device-event ms: "
+        + ", ".join(f"{k} {sections.host[k] * 1e3:.2f} / {dev_ms[k]:.2f}"
+                    for k in ("reroll", "derive_backward", "line_search")))
+
+
+# ---------------------------------------------------------------------------
 # phase 5: reference checks on small inputs
 # ---------------------------------------------------------------------------
 
@@ -1432,19 +1704,20 @@ def check_vmap_card_vs_cpu(P):
                 f"{float((a.xs - b.xs.cpu()).abs().max()):.3e}")
 
 
-def check_golden_per_instance(P, backward_pass):
-    """The golden acrobot T=101 through the per-instance solver on the card
-    (make_solve_fn(spec, Options(adaptive_penalty=False)), one instance,
-    f64) with ``backward_pass`` "scan" or the default "auto" (on one
-    instance the associative scan), within tests/test_golden.py's gates."""
-    from iterativelqr_tpu_torch.models import acrobot
+def check_golden_per_instance(P, backward_pass, fixture):
+    """A golden solution (``fixture``: car, acrobot_T101) through the
+    per-instance solver on the card (make_solve_fn(spec,
+    Options(adaptive_penalty=False)), one instance, f64) with
+    ``backward_pass`` "scan" or the default "auto" (on one instance the
+    associative scan), within tests/test_golden.py's gates."""
+    from iterativelqr_tpu_torch import models
 
-    _, x_atol, u_atol = GOLDEN["acrobot_T101"]
+    name, x_atol, u_atol = GOLDEN[fixture]
     data = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "tests", "fixtures", "golden_acrobot_T101.npz"))
+                                "tests", "fixtures", f"golden_{fixture}.npz"))
     T = data["xs"].shape[0]
     dev, dtype = torch.device("cuda"), torch.float64
-    dyn, cost, con, x1, _ = acrobot.problem(T)
+    dyn, cost, con, x1, _ = getattr(models, name).problem(T)
     spec = P.build_spec(dyn, cost, con)
     us = torch.as_tensor(data["us0"], dtype=dtype, device=dev)
     xs = torch.stack(P.rollout(dyn, x1.to(dev, dtype), us))
@@ -1456,19 +1729,20 @@ def check_golden_per_instance(P, backward_pass):
     viol = float(sol.max_violation)
     dx = float(np.abs(sol.xs.cpu().numpy() - data["xs"]).max())
     du = float(np.abs(sol.us.cpu().numpy() - data["us"]).max())
-    log(f"[check] golden acrobot_T101 through the per-instance solver, backward_pass="
+    log(f"[check] golden {fixture} through the per-instance solver, backward_pass="
         f"{backward_pass!r} (f64 on the card): "
         f"violation {viol:.3e}, objective {float(sol.objective):.4f} (golden "
         f"{float(data['objective']):.4f}), max |dxs| {dx:.3e}, max |dus| {du:.3e}, "
         f"iterations {int(sol.iterations)}, {wall:.1f} s")
     if not (viol <= 5e-3 and dx <= x_atol and du <= u_atol):
-        raise AssertionError(f"golden acrobot_T101 per instance ({backward_pass}): outside "
+        raise AssertionError(f"golden {fixture} per instance ({backward_pass}): outside "
                              "tests/test_golden.py's gates")
 
 
 # tests/test_golden.py's gates: (x_atol, u_atol), violation <= 5e-3
 GOLDEN = {"acrobot_T101": ("acrobot", 1e-2, 5e-2), "car": ("car", 1e-3, 5e-3),
-          "quadrotor": ("quadrotor", 1e-2, 5e-2)}
+          "quadrotor": ("quadrotor", 1e-2, 5e-2), "particle": ("particle", 1e-6, 1e-6),
+          "cartpole": ("cartpole", 1e-2, 5e-2)}
 
 
 def check_golden(P, fixture):
@@ -1544,7 +1818,9 @@ def main():
     for label in PACKED_MASKED_CASES:
         records.update(check_packed_masked(pk, pb, label))
     at("phases 3, 3c")
-    records.update(check_rollouts(fk))
+    rollouts = check_rollouts(fk)
+    for kname in ("sl_score_rollout", "sl_winner_reroll"):
+        records[kname] = rollouts[f"{kname}/acrobot"]   # the main path's shapes
     at("phase 3b")
 
     launches = collections.Counter()
@@ -1599,8 +1875,8 @@ def main():
     at("phase 5 card vs cpu")
     for fixture in GOLDEN:
         check_golden(P, fixture)
-    for backward_pass in ("scan", "auto"):
-        check_golden_per_instance(P, backward_pass)
+    for backward_pass, fixture in (("scan", "car"), ("auto", "acrobot_T101")):
+        check_golden_per_instance(P, backward_pass, fixture)
     at("phase 5 golden")
 
     check_assoc()
@@ -1621,6 +1897,32 @@ def main():
     check_sensitivity(P)
     at("phase 6c")
 
+    # phase 7a: the (2, 1) instantiations and the new device models'
+    # rollout kernels, each with its own record (its "instance")
+    extra = [("riccati_backward", "n=2 m=1", check_riccati(pk, "K1 (2, 1)"))]
+    for label in PACKED_MASKED_CASES:
+        for key, rec in check_packed_masked(pk, pb, label, dims=[(2, 1, T_MAIN)]).items():
+            extra.append((key.split("/")[0], "n=2 m=1", rec))
+    for key, rec in check_rollouts(fk, NEW_ROLLOUT_MODELS).items():
+        kname, model = key.split("/")
+        extra.append((kname, f"model={model}", rec))
+    at("phase 7a")
+    new_counts = run_new_models(P)
+    for kname, instance, rec in extra:
+        if "launches" not in rec:
+            # the launches of the path that runs this instantiation: K1 at
+            # (2, 1) in the particle and pendulum solves, K3/K4 in their
+            # model's solve
+            models = (("particle", "pendulum") if instance == "n=2 m=1"
+                      else (instance.split("=")[1],))
+            rec["launches"] = sum(new_counts[m][kname] for m in models)
+    at("phase 7b")
+    check_ddp(P)
+    at("phase 7c")
+    check_mpc(P)
+    run_farm(P)
+    at("phase 7d")
+
     sources = {"riccati_backward": ("riccati_backward.cu", "iterativelqr_tpu/ops/packed_backward.py:509"),
                "riccati_backward_wide": ("riccati_backward_wide.cu", "iterativelqr_tpu/ops/packed_backward.py:574"),
                "sl_score_rollout": ("sl_forward.cu", "iterativelqr_tpu/ops/sl_forward_kernel.py:327"),
@@ -1637,7 +1939,7 @@ def main():
     for kname in ("riccati_packed", "riccati_packed_wide"):
         launches[kname] = records[kname].pop("launches")
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [dict(
+    kernels = [dict(
         name=name,
         route="cuda",
         source=f"iterativelqr_tpu_torch/csrc/{src}",
@@ -1645,7 +1947,17 @@ def main():
         launches=launches[name],
         library_ms=None,   # no single PyTorch call computes the recursion or a rollout
         **records[name],
-    ) for name, (src, replaces) in sources.items()]}), flush=True)
+    ) for name, (src, replaces) in sources.items()]
+    kernels += [dict(
+        name=name,
+        instance=instance,
+        route="cuda",
+        source=f"iterativelqr_tpu_torch/csrc/{sources[name][0]}",
+        replaces=sources[name][1],
+        library_ms=None,
+        **rec,
+    ) for name, instance, rec in extra]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

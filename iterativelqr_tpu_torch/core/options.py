@@ -5,11 +5,9 @@ Same fields, defaults and validation as the JAX package's
 rationale of every knob.  The dataclass is frozen so an ``Options`` can be
 shared between solves without being mutated.
 
-One selector names machinery the port does not have yet: it validates as
-in the reference, and ``ddp`` raises ``NotImplementedError`` in
-``core/solve.py`` (ROADMAP M12).  Options the SL batched solver
-does not run (``record_traces``, the nested AL loop, a callback) take the
-per-instance solver's vmap route, as in the reference.  ``scan_unroll`` is
+Options the SL batched solver does not run (``record_traces``, the nested
+AL loop, a callback, ``ddp``) take the per-instance solver's vmap route, as
+in the reference.  ``scan_unroll`` is
 a JAX scan knob that the port's loops ignore.  ``forward_kernel`` keeps the
 reference's values:
 "pallas" runs the CUDA rollout kernels K3/K4 (``ops/sl_forward_kernel.py``),

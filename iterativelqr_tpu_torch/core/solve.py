@@ -23,7 +23,9 @@ Every while-loop test is one host sync (``ops/batching.py::LOOP_TESTS``):
 per loop trip one test of the solve loop plus one per extra regularization
 attempt (``ops/backward.py``).  ``live_progress`` prints each AL round's
 values from the host (``utils/printing.py::live_progress_line``), which
-costs one more host sync a loop trip.  Not ported: ``ddp`` (ROADMAP M12).
+costs one more host sync a loop trip.  ``ddp`` (full DDP) adds the
+dynamics second derivatives to the derive and runs the reverse scan with
+them on every backward attempt, never the "auto" dispatch.
 """
 
 from __future__ import annotations
@@ -255,8 +257,6 @@ def make_solve_fn(
         raise ValueError(
             "backward_impl cannot be combined with ddp=True (the DDP terms "
             "supply their own scan recursion)")
-    if options.ddp:
-        raise NotImplementedError("ddp=True is not ported yet (ROADMAP M12)")
     o = options
     nc, T = spec.nc, spec.T
     device = torch.device(device)
@@ -294,10 +294,14 @@ def make_solve_fn(
                     c, cx, cu, duals, penalty, m["ineq"])
                 gx, gu = gx + dgx, gu + dgu
                 gxx, guu, gux = gxx + dgxx, guu + dguu, gux + dgux
+            # full DDP: the dynamics curvature, contracted with Vx(t+1)
+            # inside the scan step; the regularization retry re-runs the
+            # same recursion with it
+            f2 = dv.dynamics_hessians(spec, xs, us, ws) if o.ddp else None
         with section("backward"):
             K, k, Qx, Qu, p, _ok, reg_next = backward_pass(
                 fx, fu, gx, gu, gxx, guu, gux, m["u_bool"], reg, o,
-                impl=backward_impl, batched=batched)
+                impl=backward_impl, batched=batched, f2=f2)
         with section("derive"):
             # Lagrangian gradient inf-norm over valid dims
             lx = torch.abs(Qx - p) * m["x"]

@@ -7,10 +7,10 @@ derivatives come from ``torch.func`` (``jacfwd``, ``grad``, ``jacfwd`` of
 ``grad``), and the solver batches them with ``torch.func.vmap``.  Per-timestep
 dimensions are padded to the horizon maximum with boolean masks, and distinct
 per-timestep functions become a small set of stage types grouped by semantic
-identity.  Manual derivative callables replace autodiff where given.
-
-The dynamics second derivatives (``hess_fn``, used only by DDP) are not
-ported yet (ROADMAP M12).
+identity.  Manual derivative callables replace autodiff where given.  The
+dynamics second derivatives (``hess_fn``, used only by ``Options.ddp``) are
+``jacfwd`` of the dynamics Jacobian function, so manual user Jacobians are
+honoured.
 """
 
 from __future__ import annotations
@@ -219,7 +219,8 @@ def _like(x, *outs):
 
 
 def _wrap_dyn(d: Dynamics, nx: int, nu: int, npar: int):
-    """padded (x,u,w) -> padded next state, and its Jacobians."""
+    """padded (x,u,w) -> padded next state, its Jacobians and its second
+    derivatives."""
     n, m, p, ny = d.num_state, d.num_action, d.num_parameter, d.num_next_state
 
     def eval_fn(x, u, w):
@@ -237,7 +238,18 @@ def _wrap_dyn(d: Dynamics, nx: int, nu: int, npar: int):
             fu = jacfwd(eval_fn, argnums=1)(x, u, w)
             return _like(x, fx, fu)
 
-    return eval_fn, jac_fn
+    def hess_fn(x, u, w):
+        """Second derivatives of the dynamics for full DDP (``Options.ddp``;
+        the reference's Gauss-Newton iLQR never forms these):
+        fxx[i,a,b] = d2 f_i / dx_a dx_b, fuu[i,a,b] = d2 f_i / du_a du_b,
+        fux[i,a,b] = d2 f_i / du_a dx_b.  Differentiates ``jac_fn``, so
+        manual user Jacobians are honoured; padded dims carry exact zeros
+        by construction."""
+        fxx, fux = jacfwd(jac_fn, argnums=0)(x, u, w)
+        _, fuu = jacfwd(jac_fn, argnums=1)(x, u, w)
+        return _like(x, fxx, fuu, fux)
+
+    return eval_fn, jac_fn, hess_fn
 
 
 def _wrap_cost(g: Cost, nx: int, nu: int, npar: int):
@@ -339,6 +351,7 @@ class ProblemSpec:
 
     dyn_eval: tuple
     dyn_jac: tuple
+    dyn_hess: tuple  # second derivatives (Options.ddp)
     dyn_tidx: np.ndarray  # [T-1]
     dyn_groups: tuple
 
@@ -442,6 +455,7 @@ def build_spec(
         npar=npar,
         dyn_eval=tuple(w[0] for w in dyn_wrapped),
         dyn_jac=tuple(w[1] for w in dyn_wrapped),
+        dyn_hess=tuple(w[2] for w in dyn_wrapped),
         dyn_tidx=d_tidx,
         dyn_groups=tuple(d_groups),
         cost_eval=tuple(w[0] for w in cost_wrapped),

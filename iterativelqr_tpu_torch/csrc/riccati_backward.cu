@@ -453,3 +453,4 @@ int ring_info(int* depth, int* bytes) {
 
 RICCATI_FAMILY(4, 1)
 RICCATI_FAMILY(3, 2)
+RICCATI_FAMILY(2, 1)

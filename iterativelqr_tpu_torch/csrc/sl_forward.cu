@@ -82,6 +82,9 @@
 #include "async_ring.cuh"
 #include "sl_model_acrobot.cuh"
 #include "sl_model_car.cuh"
+#include "sl_model_cartpole.cuh"
+#include "sl_model_particle.cuh"
+#include "sl_model_pendulum.cuh"
 #include "sl_model_quadrotor.cuh"
 
 namespace {
@@ -466,3 +469,9 @@ SL_ENTRIES(car_f32, sl_models::Car, float)
 SL_ENTRIES(car_f64, sl_models::Car, double)
 SL_ENTRIES(quadrotor_f32, sl_models::Quadrotor, float)
 SL_ENTRIES(quadrotor_f64, sl_models::Quadrotor, double)
+SL_ENTRIES(particle_f32, sl_models::Particle, float)
+SL_ENTRIES(particle_f64, sl_models::Particle, double)
+SL_ENTRIES(pendulum_f32, sl_models::Pendulum, float)
+SL_ENTRIES(pendulum_f64, sl_models::Pendulum, double)
+SL_ENTRIES(cartpole_f32, sl_models::Cartpole, float)
+SL_ENTRIES(cartpole_f64, sl_models::Cartpole, double)

@@ -1,5 +1,6 @@
-"""Model library (ported so far: acrobot, car, quadrotor)."""
+"""Model library: the reference's example problems plus extras, each a
+``problem()`` function (ported: every model of the JAX package)."""
 
-from . import acrobot, car, quadrotor
+from . import acrobot, car, cartpole, particle, pendulum, quadrotor
 
-__all__ = ["acrobot", "car", "quadrotor"]
+__all__ = ["acrobot", "car", "particle", "pendulum", "cartpole", "quadrotor"]

@@ -7,7 +7,8 @@ reference live there):
   reverse recursion as a Python loop over t (the JAX ``lax.scan``), on
   stacks with any leading lane axes, in the JAX operation order
   (``ops/linalg_small.py``).  Padded action dims carry an identity Quu block
-  and zero gains.  The full-DDP ``f2`` terms wait for ROADMAP M12.
+  and zero gains.  With ``f2`` (``Options.ddp``) the step adds the full-DDP
+  curvature terms with Tassa-style state regularization for the gains.
 * ``backward_pass`` — the adaptive Quu regularization retry, one loop over
   lanes (``ops/batching.py::while_lanes``): each lane escalates its own
   ``reg`` until its factorizations are positive definite.
@@ -28,10 +29,14 @@ from .assoc import backward_pass_associative
 from .batching import custom_vmap, lane_call, while_lanes
 
 
-def riccati_step(P, p, fx_t, fu_t, gx_t, gu_t, gxx_t, guu_t, gux_t, um, reg):
+def riccati_step(P, p, fx_t, fu_t, gx_t, gu_t, gxx_t, guu_t, gux_t, um, reg,
+                 f2_t=None):
     """One backward step at t given the value function (P, p) at t+1; ``um``
     is the float action mask [nu], ``reg`` a scalar or per-lane [...].
-    Returns (P_new, p_new, ok, K, k, Qx, Qu)."""
+    ``f2_t``: the dynamics second derivatives (fxx, fuu, fux) at t for full
+    DDP (``Options.ddp``), contracted with the carried ``p`` (the value
+    gradient at t+1), so this step cannot ride the associative or packed
+    formulations.  Returns (P_new, p_new, ok, K, k, Qx, Qu)."""
     mm, mv = linalg_small.matmul, linalg_small.matvec
     fxT = fx_t.transpose(-1, -2)
     fuT = fu_t.transpose(-1, -2)
@@ -42,19 +47,38 @@ def riccati_step(P, p, fx_t, fu_t, gx_t, gu_t, gxx_t, guu_t, gux_t, um, reg):
     Qxx = gxx_t + mm(fxTP, fx_t)
     Quu = guu_t + mm(fuTP, fu_t)
     Qux = gux_t + mm(fuTP, fx_t)
+    if f2_t is not None:
+        fxx_t, fuu_t, fux_t = f2_t
+        pw = p[..., :, None, None]
+        Qxx = Qxx + torch.sum(pw * fxx_t, dim=-3)
+        Quu = Quu + torch.sum(pw * fuu_t, dim=-3)
+        Qux = Qux + torch.sum(pw * fux_t, dim=-3)
 
     # padded action dims: identity diagonal so the factorization is well
     # posed and the corresponding gain rows vanish
     mask2 = um[:, None] * um[None, :]
     Quu_eff = Quu * mask2 + torch.diag(1.0 - um)
-    Quu_reg = Quu_eff + reg[..., None, None] * torch.diag(um)
+    reg2 = reg[..., None, None]
+    if f2_t is not None:
+        # state regularization through the value function for the gains
+        # only (Tassa et al. 2012; the JAX step gives the measurements), a
+        # 1e-3 diagonal share so that null(fu) can be cured too; the value
+        # update keeps the unregularized terms.  At reg = 0 this is the
+        # Gauss-Newton factorization.
+        fuT_reg = fuT * reg2
+        Quu_g = Quu_eff + mm(fuT_reg, fu_t) * mask2
+        Qux_g = Qux + mm(fuT_reg, fx_t)
+        Quu_reg = Quu_g + (1.0e-3 * reg2) * torch.diag(um)
+    else:
+        Qux_g = Qux
+        Quu_reg = Quu_eff + reg2 * torch.diag(um)
 
     L = linalg_small.cholesky(Quu_reg)
     diag = torch.diagonal(L, dim1=-2, dim2=-1)
     ok = torch.all(torch.isfinite(diag) & (diag > 0.0), dim=-1)
 
     # K = -Quu \ Qux ; k = -Quu \ Qu
-    sol = linalg_small.cho_solve(L, torch.cat([Qux, Qu[..., :, None]], dim=-1))
+    sol = linalg_small.cho_solve(L, torch.cat([Qux_g, Qu[..., :, None]], dim=-1))
     K = -sol[..., :, :-1] * um[:, None]
     k = -sol[..., :, -1] * um
 
@@ -68,12 +92,14 @@ def riccati_step(P, p, fx_t, fu_t, gx_t, gu_t, gxx_t, guu_t, gux_t, um, reg):
     return P_new, p_new, ok, K, k, Qx, Qu
 
 
-def backward_pass_scan(fx, fu, gx, gu, gxx, guu, gux, u_mask, reg):
+def backward_pass_scan(fx, fu, gx, gu, gxx, guu, gux, u_mask, reg, f2=None):
     """Reverse Riccati recursion on stacks with any leading lane axes.
 
     Returns (K [..., T-1, nu, nx], k [..., T-1, nu], Qx [..., T-1, nx],
     Qu [..., T-1, nu], p [..., T-1, nx] — the value gradient at t — and the
-    all-timesteps PD flag [...]).  Terminal P = gxx_T, p = gx_T."""
+    all-timesteps PD flag [...]).  Terminal P = gxx_T, p = gx_T.  ``f2``:
+    the (fxx [..., T-1, nx, nx, nx], fuu, fux) stacks of full DDP
+    (``riccati_step``)."""
     dtype, device = gx.dtype, gx.device
     um = torch.as_tensor(u_mask, device=device).to(dtype)
     reg = torch.as_tensor(reg, dtype=dtype, device=device)
@@ -85,6 +111,7 @@ def backward_pass_scan(fx, fu, gx, gu, gxx, guu, gux, u_mask, reg):
             P, p, fx[..., t, :, :], fu[..., t, :, :], gx[..., t, :],
             gu[..., t, :], gxx[..., t, :, :], guu[..., t, :, :],
             gux[..., t, :, :], um[t], reg,
+            f2_t=None if f2 is None else tuple(a[..., t, :, :, :] for a in f2),
         )
         ok = ok & ok_t
         outs.append((K, k, Qx, Qu, p))
@@ -121,7 +148,7 @@ def _make_auto_dispatch():
 
 
 def backward_pass(fx, fu, gx, gu, gxx, guu, gux, u_mask, reg_carry, options,
-                  impl=None, batched=True):
+                  impl=None, batched=True, f2=None):
     """Backward pass with adaptive Quu regularization, per lane.
 
     Stacks carry the leading lane axis, ``u_mask`` [T-1, nu] is shared and
@@ -130,13 +157,21 @@ def backward_pass(fx, fu, gx, gu, gxx, guu, gux, u_mask, reg_carry, options,
     and on success the carried value decays.  ``impl``: a recursion with the
     ``backward_pass_scan`` signature (per instance), called as the JAX
     program calls it (``ops/batching.py::lane_call``; ``batched`` False is
-    the per-instance form of the solver).
+    the per-instance form of the solver).  ``f2``: the dynamics second
+    derivatives of full DDP (``ops/derivatives.py::dynamics_hessians``),
+    with the lane axes of the stacks: every attempt runs the reverse scan
+    with them, whatever ``options.backward_pass`` says (the JAX solver
+    passes the same recursion as its ``impl``).
 
     Returns (K, k, Qx, Qu, p, ok, reg_next_carry)."""
-    if impl is None and options.backward_pass == "auto":
+    if f2 is not None:
+        bp = functools.partial(backward_pass_scan, f2=f2)
+    elif options.backward_pass == "associative":
+        bp = backward_pass_associative
+    else:
+        bp = backward_pass_scan
+    if impl is None and f2 is None and options.backward_pass == "auto":
         impl = _make_auto_dispatch()
-    bp = (backward_pass_associative if options.backward_pass == "associative"
-          else backward_pass_scan)
     stacks = (fx, fu, gx, gu, gxx, guu, gux)
 
     def run(reg):

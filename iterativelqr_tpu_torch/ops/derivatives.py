@@ -5,9 +5,8 @@ evaluated over its statically known timesteps and the rows are put back in
 time order.  Arguments are ``[..., T, dim]`` tensors: one instance, or a
 batch with leading lane axes (the per-instance solver's batched form); the
 timesteps of a group and the lanes are one flattened ``torch.func.vmap``
-(``ops/batching.py::lane_eval``).  The dynamics second derivatives
-(``dynamics_hessians``, DDP) wait for ROADMAP M12; ``stage_derivatives``
-(a fused pass only a JAX test calls) is not ported.
+(``ops/batching.py::lane_eval``).  ``stage_derivatives`` (a fused pass
+only a JAX test calls) is not ported.
 """
 
 from __future__ import annotations
@@ -103,6 +102,16 @@ def dynamics_values(spec: ProblemSpec, xs, us, ws):
 def dynamics_jacobians(spec: ProblemSpec, xs, us, ws):
     """fx [..., T-1, nx, nx], fu [..., T-1, nx, nu]."""
     return _grouped(spec.dyn_jac, spec.dyn_groups,
+                    (xs[..., :-1, :], us, ws[..., :-1, :]))
+
+
+def dynamics_hessians(spec: ProblemSpec, xs, us, ws):
+    """Second derivatives of the dynamics, for full DDP (``Options.ddp``):
+    fxx [..., T-1, nx, nx, nx], fuu [..., T-1, nx, nu, nu], fux
+    [..., T-1, nx, nu, nx], with fxx[..., t, i, a, b] = d2 f_i / dx_a dx_b
+    (``core/spec.py::hess_fn``).  They feed the DDP terms of
+    ``ops/backward.py::riccati_step``."""
+    return _grouped(spec.dyn_hess, spec.dyn_groups,
                     (xs[..., :-1, :], us, ws[..., :-1, :]))
 
 

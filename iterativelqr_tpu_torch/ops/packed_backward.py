@@ -35,10 +35,10 @@ from .. import _build
 
 # (n, m) pairs with a compiled kernel, in each of float32 and float64; keep
 # equal to the RICCATI_FAMILY list in csrc/riccati_backward.cu (K1, K5, K6a,
-# K6b on K1's template: acrobot, car) and the RICCATI_WIDE_FAMILY list in
+# K6b on K1's template: acrobot and cartpole, car, particle and pendulum) and the RICCATI_WIDE_FAMILY list in
 # csrc/riccati_backward_wide.cu (K2, K5, K6a, K6b on K2's template:
 # quadrotor)
-_INSTANTIATIONS = ((4, 1), (3, 2))
+_INSTANTIATIONS = ((4, 1), (3, 2), (2, 1))
 _WIDE_INSTANTIATIONS = ((12, 4),)
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -78,8 +78,9 @@ def uses_wide_kernel(n: int, m: int) -> bool:
     values, the solve's f32; f64 follows the same choice so that its tests
     hold the kernel f32 runs).  The JAX package's rule is a VMEM budget of
     the TPU (``_stream_outputs``); the register budget is its counterpart
-    on the card.  Acrobot (4, 1) needs 144 values and car (3, 2) 108: K1;
-    the quadrotor's (12, 4) needs 1,276: K2."""
+    on the card.  Acrobot and cartpole (4, 1) need 144 values, car (3, 2)
+    108 and particle and pendulum (2, 1) 46: K1; the quadrotor's (12, 4)
+    needs 1,276: K2."""
     return k1_live_values(n, m) > _REGISTERS_PER_THREAD
 
 

@@ -44,7 +44,7 @@ from torch.func import vmap
 
 from .. import _build
 from ..core.spec import ProblemSpec
-from ..models import acrobot, car, quadrotor
+from ..models import acrobot, car, cartpole, particle, pendulum, quadrotor
 from .packed_backward import LaunchCounter, _check, ring_entry
 from .packed_pipeline import map2
 
@@ -127,6 +127,17 @@ _REGISTRY = (
     _Entry("quadrotor", quadrotor.quadrotor_discrete, quadrotor.stage_cost,
            quadrotor.terminal_cost, quadrotor.stage_constraint,
            quadrotor.terminal_constraint, 12, 4, 12, tuple(range(8)), ()),
+    # linear dynamics; the terminal goal equality is the only constraint
+    _Entry("particle", particle.particle_discrete, particle.stage_cost,
+           particle.terminal_cost, None, particle.goal_constraint,
+           2, 1, 2, (), ()),
+    _Entry("pendulum", pendulum.pendulum_discrete, pendulum.stage_cost,
+           pendulum.terminal_cost, None, pendulum.goal_constraint,
+           2, 1, 2, (), ()),
+    # control limits on every stage; the terminal upright is an equality
+    _Entry("cartpole", cartpole.cartpole_discrete, cartpole.stage_cost,
+           cartpole.terminal_cost, cartpole.stage_constraint,
+           cartpole.terminal_constraint, 4, 1, 4, (0, 1), ()),
 )
 
 DEVICE_MODELS = tuple(sorted({e.name.split("_")[0] for e in _REGISTRY}))

@@ -1,8 +1,8 @@
 """The per-instance backward pass of the port (iterativelqr_tpu_torch/ops/
 backward.py, linalg_small.py, al.py) against the JAX package's functions
 under ``jax.vmap``, on the same numpy inputs in f64, the per-instance
-solve with the associative scan and with ``live_progress``, and the refusal
-of what is not ported yet (ROADMAP M12).
+solve with the associative scan and with ``live_progress``, and what the
+port refuses with ``ddp=True`` as the JAX package does.
 
 Tolerance 1e-10 relative to the largest value: both sides are IEEE f64 and
 sum the same products, in other orders where XLA fuses its reductions.
@@ -207,14 +207,18 @@ def test_auto_dispatch_takes_the_scan_for_batches():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(ddp=True), NotImplementedError, "M12"),
+    (dict(ddp=True), ValueError, "backward_impl cannot be combined with ddp"),
 ])
 def test_unported_options_refuse(kw, exc, match):
+    """ddp=True runs (ROADMAP M12, tests/test_torch_ddp.py); what stays
+    refused with it is refused as the JAX package refuses it: a
+    ``backward_impl`` override, which cannot carry the DDP terms."""
     spec = build_spec(*acrobot.problem(9)[:3])
     with pytest.raises(exc, match=match):
-        make_solve_fn(spec, Options(**kw), device="cpu")
-    with pytest.raises(exc, match=match):
-        make_batched_solve_fn(spec, Options(batched_solver="vmap", **kw), device="cpu")
+        make_solve_fn(spec, Options(**kw), backward_impl=backward.backward_pass_scan,
+                      device="cpu")
+    make_solve_fn(spec, Options(**kw), device="cpu")
+    make_batched_solve_fn(spec, Options(batched_solver="vmap", **kw), device="cpu")
 
 
 def one_instance(T=9):

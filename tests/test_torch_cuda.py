@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from iterativelqr_tpu_torch import Constraint, Cost, build_spec
-from iterativelqr_tpu_torch.models import acrobot, car, quadrotor
+from iterativelqr_tpu_torch.models import acrobot, car, cartpole, particle, pendulum, quadrotor
 from iterativelqr_tpu_torch.ops import packed_backward as pk
 from iterativelqr_tpu_torch.ops import sl_forward_kernel as fk
 
@@ -54,15 +54,15 @@ def _ring_edges(depth, Tm1=100):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
-def test_riccati_kernel_matches_plain(dtype, tol):
-    """K1 at the main path's shapes (acrobot n=4, m=1, T=101, B=4096) and
-    at the edges of its ring of step tiles (``_ring_edges``), with
-    indefinite Quu on every 61st lane.  Tolerance relative to the largest
-    value: the two sum in other orders (and the kernel contracts to FMA)
-    through a 100-step recursion."""
+@pytest.mark.parametrize("n,m", [(4, 1), (2, 1)])
+def test_riccati_kernel_matches_plain(n, m, dtype, tol):
+    """K1 at the main path's shapes (acrobot n=4, m=1, T=101, B=4096; and
+    particle's and pendulum's n=2, m=1) and at the edges of its ring of step
+    tiles (``_ring_edges``), with indefinite Quu on every 61st lane.
+    Tolerance relative to the largest value: the two sum in other orders
+    (and the kernel contracts to FMA) through a 100-step recursion."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    n, m = 4, 1
     depth, _ = pk.riccati_ring(n, m, dtype, masked=False)
     for B, Tm1 in _ring_edges(depth):
         st = _stacks(np.random.default_rng(5), B, Tm1, n, m)
@@ -138,10 +138,11 @@ def test_riccati_kernel_rejects_what_it_was_not_built_for():
         pytest.skip("needs a CUDA card")
     B, Tm1 = 64, 5
     st = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
-          for a in _stacks(np.random.default_rng(1), B, Tm1, 2, 1)]
+          for a in _stacks(np.random.default_rng(1), B, Tm1, 3, 1)]
     kin = [a.contiguous() for a in pk.prepare_stacks(
         *st, torch.ones((Tm1, 1), dtype=torch.bool))]
     reg = torch.zeros(B, device="cuda")
+    # K1's dims without an instantiation
     with pytest.raises(NotImplementedError):
         pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
     # K2's dims without an instantiation
@@ -173,8 +174,10 @@ def _rollout_case(name, T, B, dtype, seed):
     rolled out from noisy controls, random non-converged gains, duals with
     lam = 0 on half the lanes (there an inequality row with c < 0 is
     inactive) and, for car and the quadrotor, lanes that head through the
-    obstacle or push a control past its bound (active rows)."""
-    mod = {"acrobot": acrobot, "acrobot_nc0": acrobot, "car": car, "quadrotor": quadrotor}[name]
+    obstacle or push a control past its bound (active rows); for cartpole,
+    lanes past its control limit at the last steps."""
+    mod = {"acrobot": acrobot, "acrobot_nc0": acrobot, "car": car, "quadrotor": quadrotor,
+           "particle": particle, "pendulum": pendulum, "cartpole": cartpole}[name]
     dyn, cost, con = mod.problem(T)[:3]
     if name == "acrobot_nc0":
         con = [Constraint() for _ in range(T)]   # the goal dropped: no constraint rows
@@ -193,6 +196,14 @@ def _rollout_case(name, T, B, dtype, seed):
         ubar = quadrotor.HOVER + 0.1 * ubar
         ubar[:, :, 1::5] = 6.5
         ubar[:, :, 3::7] = -0.2
+    if name == "cartpole":
+        # near theta = pi: a pole released near theta = 0 falls along the
+        # separatrix, where a 100-step rollout magnifies rounding about
+        # 1e5-fold (the plain f32 rollout is 5e-3 off the f64 one there,
+        # 2e-6 here); the last two controls past the limit on some lanes
+        x0[1] += np.pi
+        ubar[-2:, 0, 1::5] = 10.5
+        ubar[-2:, 0, 2::7] = -10.5
     K = 0.1 * rng.standard_normal((Tm1, nu, nx, B))
     k = 0.1 * rng.standard_normal((Tm1, nu, B))
     if name == "quadrotor":
@@ -220,7 +231,8 @@ def _close(a, b, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,T", [("acrobot", 101), ("acrobot_nc0", 101), ("car", 51),
-                                    ("quadrotor", 41)])
+                                    ("quadrotor", 41), ("particle", 11), ("pendulum", 51),
+                                    ("cartpole", 101)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 def test_rollout_kernels_match_plain(name, T, dtype, tol):
     """K3 (head, tail, and 20 candidates over two block rows) and K4 against
@@ -334,7 +346,8 @@ def _check_packed_masked(kernel, n, m, dtype, tol, Tm1):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 @pytest.mark.parametrize("kernel,n,m", [("K5", 4, 1), ("K6a", 4, 1), ("K6a", 3, 2),
-                                        ("K6b", 4, 1), ("K6b", 3, 2)])
+                                        ("K6b", 4, 1), ("K6b", 3, 2), ("K5", 2, 1),
+                                        ("K6a", 2, 1), ("K6b", 2, 1)])
 def test_packed_and_masked_kernels_match_plain(kernel, n, m, dtype, tol):
     """K5, K6a and K6b at T=101, B=1000 (a ragged lane edge) and at the
     edges of their ring of step tiles (``_ring_edges``) against their plain

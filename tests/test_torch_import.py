@@ -14,7 +14,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 for name in ("ops.sl_forward_kernel", "models.car", "models.acrobot",
              "ops.packed_backward", "ops.assoc", "ops.sensitivity",
-             "core.solver", "core.solve_compact", "utils.printing"):
+             "core.solver", "core.solve_compact", "utils.printing",
+             "core.mpc", "models.particle", "models.pendulum", "models.cartpole"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib", "iterativelqr_tpu."))

@@ -116,7 +116,9 @@ def test_prepare_stacks_guu_fixup():
     (12, 4, torch.float32, True),    # K2
     (12, 4, torch.float64, True),    # K2
     (5, 3, torch.float32, False),    # K2's dims, not compiled
-    (2, 1, torch.float32, False),    # K1's dims, not compiled
+    (2, 1, torch.float32, True),     # particle, pendulum
+    (2, 1, torch.float64, True),
+    (3, 1, torch.float32, False),    # K1's dims, not compiled
     (12, 4, torch.float16, False),
 ])
 def test_unsupported_instantiation_raises(n, m, dtype, ok):
