@@ -98,20 +98,42 @@ Phases, each of which raises (non-zero exit) when it fails:
    and cartpole T=101 (swingup_controls), x0 = x1 + 0.02 N(0,1): the
    recomputed solved fraction (>= 0.99), trips and launches;
 7c. full DDP per instance in f64 (no kernel): particle T=11 equal to
-   Gauss-Newton, and acrobot T=51 from golden_acrobot.npz's controls
-   feasible within 1.05 of the golden objective;
+   Gauss-Newton, and acrobot T=T_DDP from golden_acrobot.npz's first
+   controls feasible within 1.05 of a Gauss-Newton solve's objective in the
+   same run;
 7d. make_mpc_controller on particle T=11 through tests/test_mpc.py's
    disturbance scenario (f64, per instance), and a farm of 4096 particle
    controllers (T=11, f32): one cold SL solve, then 12 warm steps of
    shift, closed-loop re-roll over the lanes and warm SL solve with the
-   kernels, every plan feasible at every step; plans/s.
+   kernels, every plan feasible at every step; plans/s;
+8a. generated device models (ops/device_functions.py) for three user
+   problems written as torch lambdas and closures
+   (tests/torch_user_problems.py): the acrobot's functions in lambdas,
+   examples/mpc_farm.py's problem and examples/sensitivity_demo.py's (a
+   target path in the per-step parameters w); their nvcc runs started
+   together, the build's seconds and ptxas's registers and spills;
+8b. their K3 (head j0=0, tail j0=8) and K4 against the plain versions at
+   B=4096 in f64 and f32 (acrobot T=101, the farm and the demo T=11, the
+   demo with a different target ramp on every lane), K4's J = K3's J, and
+   the generated acrobot's J against the hand-written kernel's on the same
+   inputs; times beside the hand-written acrobot's, bounds from the scalar
+   program's operation count, shares;
+8c. the SL solver on the generated models, B=4096, f32: tuned acrobot
+   T=101 (bench.py's initial guess; trips against phase 4's), the farm of
+   7d with the example's own tracking costs (plans/s against 7d's), and the
+   demo with a target ramp a lane in w; solved fractions recomputed (>=
+   0.99) and the generated symbols' K3/K4 launches (> 0);
+8d. refusals: a stage cost with a data-dependent branch and one with an op
+   outside the whitelist refuse under forward_kernel="pallas", naming it,
+   and take the loops under "auto" with no K3/K4 launch.
 
 Budget: the whole run stays under 800 s (1200 s limit).  For that,
 parity's loop cell runs on 4 lanes, tuned's loop cell on 16 and phase 4c's
 cell (a) on 14 (each was 4096), those three and 4c's cells (b) and (c)
 (and the kernel cells paired with them) at T=T_LOOP=51, phase 5's
-per-instance reverse-scan golden is the car's, and the splits time 5
-iterations (were 20): the reasons and trip counts stand beside B_LOOP.
+per-instance reverse-scan golden is the car's, phase 7c's acrobot DDP runs
+at T=T_DDP (was 51), and the splits time 5 iterations (were 20): the
+reasons and trip counts stand beside B_LOOP.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -163,7 +185,17 @@ T_MAIN, B_MAIN = 101, 4096
 #   golden car (T=51, 13 iterations, about 4 s), not acrobot T=101 (69.3
 #   s): the reverse scan per instance is still held to a golden on the
 #   card, and the default "auto" stays on acrobot T=101.
+# - T_DDP (was 51, golden_acrobot.npz's horizon: 137 iterations, 87.4 s
+#   of a 683.8 s run): phase 7c's acrobot DDP per instance runs from the
+#   golden's first T_DDP - 1 controls (all 0.05) and is held to a
+#   Gauss-Newton solve of the same problem in the same run (both feasible,
+#   DDP's objective within 1.05 x), not to the golden's objective.  A DDP
+#   iteration costs about 0.42 s on the card whatever the horizon (this
+#   check at T=11: 90 iterations, 37.8 s; T=15: 152, 63.9 s; T=21: 112,
+#   50.3 s; NVIDIA H100 80GB HBM3, 700 W), so the iterations set the time:
+#   T=8 took 57 iterations, 22.8 s, the cheapest horizon tried.
 # Every split times the first SPLIT_ITERATIONS.
+T_DDP = 8
 B_LOOP = 4
 B_LOOP_TUNED = 16
 B_VMAP_LOOP = 14
@@ -544,16 +576,19 @@ def check_packed_masked(pk, pb, label, dims=None):
 # ---------------------------------------------------------------------------
 
 
-def rollout_case(fk, name, T, B, dtype, seed):
+def rollout_case(fk, name, T, B, dtype, seed, spec=None):
     """Live line-search arrays on the card, from a numpy seed: states
     rolled out from noisy controls, random non-converged gains, duals with
     lam = 0 on half the lanes (there an inequality row with c < 0 is
     inactive) and, for car and the quadrotor, lanes that head through the
-    obstacle or push a control past its bound (active rows)."""
+    obstacle or push a control past its bound (active rows).  ``spec``: a
+    user problem's spec in place of the library model ``name``'s; where it
+    has per-step parameters, a target ramp in w, different on every lane."""
     from iterativelqr_tpu_torch import build_spec, models
 
-    mod = getattr(models, name)
-    spec = build_spec(*mod.problem(T)[:3])
+    if spec is None:
+        mod = getattr(models, name)
+        spec = build_spec(*mod.problem(T)[:3])
     r = fk.Rollouts(spec, "cuda")
     rng = np.random.default_rng(seed)
     nx, nu, nc, Tm1 = spec.nx, spec.nu, spec.nc, T - 1
@@ -588,7 +623,11 @@ def rollout_case(fk, name, T, B, dtype, seed):
     duals = np.abs(0.5 * rng.standard_normal((T, nc, B))) * (rng.uniform(size=B) < 0.5)
     penalty = 10.0 * rng.uniform(0.5, 2.0, (T, nc, B))
     t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda").contiguous()
-    ws = torch.zeros((T, 0, B), dtype=dtype, device="cuda")
+    ws = np.zeros((T, spec.npar, B))
+    if spec.npar:
+        ws[:, 0] = np.linspace(0.0, 1.0, T)[:, None] * rng.uniform(0.5, 1.5, B)
+        ws[:, 1:] = rng.uniform(-0.2, 0.2, (spec.npar - 1, B))
+    ws = t(ws)
     xbar0 = torch.zeros((T, nx, B), dtype=dtype, device="cuda")
     xbar0[0] = t(x0)
     # zero gains: the plain re-roll is the open-loop rollout of ubar
@@ -622,10 +661,10 @@ def max_err(name, outs, refs, tol):
 def rollout_bytes(spec, B, size, nb=None):
     """Bytes K3 (``nb`` candidates) or K4 (``nb`` None) must move: each
     input read once, each output written once."""
-    T, nx, nu, nc = spec.T, spec.nx, spec.nu, spec.nc
+    T, nx, nu, nc, npar = spec.T, spec.nx, spec.nu, spec.nc, spec.npar
     Tm1 = T - 1
     ncs, nct = int(spec.c_dims[0]), int(spec.c_dims[-1])
-    per_lane = Tm1 * (nx + nu + nu * nx + nu + 2 * ncs) + 2 * nct
+    per_lane = Tm1 * (nx + nu + npar + nu * nx + nu + 2 * ncs) + npar + 2 * nct
     if nb is not None:
         per_lane += nb                                      # J
     else:
@@ -751,7 +790,8 @@ def recomputed_solved_fraction(spec, sol, ws, tol):
 LAUNCH_NAMES = ("riccati_backward", "riccati_backward_wide", "sl_score_rollout",
                 "sl_winner_reroll", "riccati_packed", "riccati_masked",
                 "riccati_masked_packed", "riccati_packed_wide", "riccati_masked_wide",
-                "riccati_masked_packed_wide")
+                "riccati_masked_packed_wide", "sl_score_rollout_generated",
+                "sl_winner_reroll_generated")
 
 
 def counters():
@@ -766,7 +806,9 @@ def counters():
                                    pb.RICCATI_MASKED_PACKED_LAUNCHES,
                                    pk.RICCATI_PACKED_WIDE_LAUNCHES,
                                    pb.RICCATI_MASKED_WIDE_LAUNCHES,
-                                   pb.RICCATI_MASKED_PACKED_WIDE_LAUNCHES)))
+                                   pb.RICCATI_MASKED_PACKED_WIDE_LAUNCHES,
+                                   fk.GENERATED_SCORE_LAUNCHES,
+                                   fk.GENERATED_REROLL_LAUNCHES)))
 
 
 def counted_solve(P, solve, args):
@@ -852,16 +894,17 @@ def per_iteration_split(name, spec, opts, xs, us, ws):
         f"line search {ls_host:.2f} ms host / {ls_dev:.2f} ms device-events")
 
 
-def run_preset(P, name, kw, fkm, B, T=T_MAIN):
+def run_preset(P, name, kw, fkm, B, T=T_MAIN, spec=None):
     """Acrobot at horizon T, f32, on the first B lanes of the protocol batch
     under one bench.py preset with the rollouts of ``fkm``; returns (the
-    main path's launch counts, wall s, the solution, its inputs)."""
+    main path's launch counts, wall s, the solution, its inputs).  ``spec``:
+    the acrobot written otherwise (phase 8c: its functions in lambdas)."""
     from iterativelqr_tpu_torch.models import acrobot
 
     name = (f"{name}/{fkm}" + ("" if B == B_MAIN else f"/B={B}")
-            + ("" if T == T_MAIN else f"/T={T}"))
+            + ("" if T == T_MAIN else f"/T={T}") + ("" if spec is None else "/generated"))
     dtype, device = torch.float32, torch.device("cuda")
-    spec = P.build_spec(*acrobot.problem(T)[:3])
+    spec = P.build_spec(*acrobot.problem(T)[:3]) if spec is None else spec
     opts = P.Options(**kw, forward_kernel=fkm)
     xs, us, ws = bench_inputs(B, T, dtype, device)
 
@@ -1437,10 +1480,10 @@ def check_ddp(P):
     """Phase 7c: full DDP per instance on the card in f64 (the reverse scan
     with the dynamics second derivatives; no kernel).  Particle T=11 from
     tests/test_ddp.py's guess: the DDP solve takes the Gauss-Newton
-    solve's iterations and iterates (xs within 1e-8).  Acrobot T=51 from
-    golden_acrobot.npz's controls: violation within the tolerance and the
-    objective at most 1.05 times the golden (Gauss-Newton) objective, as
-    tests/test_ddp.py asks of JAX's DDP."""
+    solve's iterations and iterates (xs within 1e-8).  Acrobot T=T_DDP
+    from golden_acrobot.npz's first controls: both solves feasible, and
+    DDP's objective at most 1.05 times the Gauss-Newton solve's of the
+    same run, as tests/test_ddp.py asks of JAX's DDP."""
     from iterativelqr_tpu_torch.models import acrobot, particle
 
     dev, dtype = torch.device("cuda"), torch.float64
@@ -1465,22 +1508,27 @@ def check_ddp(P):
 
     data = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests", "fixtures", "golden_acrobot.npz"))
-    T = data["xs"].shape[0]
+    T = T_DDP
     dyn, cost, con, x1, _ = acrobot.problem(T)
     spec = P.build_spec(dyn, cost, con)
-    us = torch.as_tensor(data["us0"], dtype=dtype, device=dev)
+    us = torch.as_tensor(data["us0"][: T - 1], dtype=dtype, device=dev)
     xs = torch.stack(P.rollout(dyn, x1.to(dev, dtype), us))
     ws = torch.zeros((T, 0), dtype=dtype, device=dev)
+    t0 = time.perf_counter()
+    gn = P.make_solve_fn(spec, P.Options(), device=dev)(xs, us, ws)
+    gn_wall = time.perf_counter() - t0
     opts = P.Options(ddp=True)
     t0 = time.perf_counter()
     sol = P.make_solve_fn(spec, opts, device=dev)(xs, us, ws)
     wall = time.perf_counter() - t0
-    viol, obj, gold = float(sol.max_violation), float(sol.objective), float(data["objective"])
-    log(f"[ddp] acrobot T={T} f64 per instance from golden_acrobot's controls: violation "
-        f"{viol:.3e}, objective {obj:.4f} (golden Gauss-Newton {gold:.4f}, ratio {obj / gold:.4f}), "
-        f"iterations {int(sol.iterations)}, AL rounds {int(sol.al_iterations)}, {wall:.1f} s")
-    if not (viol <= opts.constraint_tolerance and obj <= 1.05 * gold):
-        raise AssertionError("ddp acrobot: infeasible or objective above 1.05 x the golden")
+    viol, obj, ref = float(sol.max_violation), float(sol.objective), float(gn.objective)
+    log(f"[ddp] acrobot T={T} f64 per instance from golden_acrobot's first {T - 1} controls: "
+        f"violation {viol:.3e}, objective {obj:.4f} (Gauss-Newton in this run {ref:.4f}, "
+        f"{int(gn.iterations)} iterations, {gn_wall:.1f} s; ratio {obj / ref:.4f}), iterations "
+        f"{int(sol.iterations)}, AL rounds {int(sol.al_iterations)}, {wall:.1f} s")
+    if not (viol <= opts.constraint_tolerance and float(gn.max_violation) <= opts.constraint_tolerance
+            and obj <= 1.05 * ref):
+        raise AssertionError("ddp acrobot: infeasible or objective above 1.05 x Gauss-Newton's")
 
 
 def check_mpc(P):
@@ -1523,10 +1571,12 @@ def check_mpc(P):
 FARM_B, FARM_T, FARM_STEPS = B_MAIN, 11, 12
 
 
-def run_farm(P):
+def run_farm(P, spec=None, label="farm"):
     """Phase 7d, the farm (examples/mpc_farm.py's loop from the port's
     public pieces, on the library's particle problem, whose terminal goal
-    equality carries every plan to the goal): 4096 controllers, T=11, f32;
+    equality carries every plan to the goal; phase 8c: ``spec``, the
+    example's own tracking costs, on a generated model, whose K3/K4 must
+    launch in every warm solve too): 4096 controllers, T=11, f32;
     initial states N(0, 0.3) from numpy seed 0, plant noise 0.005 N(0,1);
     one cold SL solve, then 12 warm steps of shift, closed-loop re-roll
     over the lanes and warm SL solve (duals carried, penalties capped at
@@ -1536,7 +1586,8 @@ def run_farm(P):
     after each).  Reports
     plans/s (B x steps / wall of the warm steps), trips a step, and a split
     of one more warm step into re-roll, derive+backward and line search,
-    host against device-event time."""
+    host against device-event time.  Returns (plans/s, the warm solves'
+    launch counts)."""
     from iterativelqr_tpu_torch.core.solve_sl import make_batched_solve_sl
     from iterativelqr_tpu_torch.models import particle
     from iterativelqr_tpu_torch.ops.batching import lane_eval
@@ -1544,7 +1595,10 @@ def run_farm(P):
 
     dev, dtype = torch.device("cuda"), torch.float32
     B, T = FARM_B, FARM_T
-    spec = P.build_spec(*particle.problem(T)[:3])
+    generated = spec is not None
+    spec = P.build_spec(*particle.problem(T)[:3]) if spec is None else spec
+    launched = ("riccati_backward", "sl_score_rollout", "sl_winner_reroll") + (
+        ("sl_score_rollout_generated", "sl_winner_reroll_generated") if generated else ())
     # examples/mpc_farm.py's options, with the rollout kernels where the
     # card can run them (the default "scan" keeps the loops)
     opts = P.Options(verbose=False, record_traces=False, objective_tolerance=1.0e-8,
@@ -1574,10 +1628,10 @@ def run_farm(P):
     torch.cuda.synchronize()
     cold_wall = time.perf_counter() - t0
     viol = float(sol.max_violation.max())
-    log(f"[farm] cold SL solve B={B} T={T} f32: {cold_wall:.3f} s (first call), trips "
+    log(f"[{label}] cold SL solve B={B} T={T} f32: {cold_wall:.3f} s (first call), trips "
         f"{int(sol.iterations.max())}, max violation {viol:.3e}")
     if viol >= 5e-3:
-        raise AssertionError(f"farm: cold plans infeasible ({viol:.3e})")
+        raise AssertionError(f"{label}: cold plans infeasible ({viol:.3e})")
     total = collections.Counter()
     trips, walls = [], []
     for k in range(FARM_STEPS):
@@ -1591,17 +1645,17 @@ def run_farm(P):
         counts = {k_: c.launches for k_, c in counters().items()}
         total.update(counts)
         trips.append(int(sol.iterations.max()))
-        for kname in ("riccati_backward", "sl_score_rollout", "sl_winner_reroll"):
+        for kname in launched:
             if counts[kname] <= 0:
-                raise AssertionError(f"farm step {k}: {kname} was not launched "
+                raise AssertionError(f"{label} step {k}: {kname} was not launched "
                                      f"({trips[-1]} trips)")
         viol = float(sol.max_violation.max())
         if not viol < 5e-3:
-            raise AssertionError(f"farm step {k}: a plan is infeasible (max violation {viol:.3e})")
+            raise AssertionError(f"{label} step {k}: a plan is infeasible (max violation {viol:.3e})")
         x = plant(x, action)
     wall = sum(walls)
     dist = float((x - torch.tensor([1.0, 0.0], dtype=dtype, device=dev)).norm(dim=1).mean())
-    log(f"[farm] {FARM_STEPS} warm steps of B={B} controllers: {wall:.3f} s, "
+    log(f"[{label}] {FARM_STEPS} warm steps of B={B} controllers: {wall:.3f} s, "
         f"{B * FARM_STEPS / wall:.1f} plans/s; s a step {[round(w, 3) for w in walls]}; warm trips "
         f"a step {trips}; every plan feasible at every step (last max violation {viol:.3e}); "
         f"launches over the warm solves K1 {total['riccati_backward']}, K3 "
@@ -1617,9 +1671,227 @@ def run_farm(P):
     part = timed(*args)
     torch.cuda.synchronize()
     dev_ms = sections.device_ms()
-    log(f"[farm] one more warm step ({int(part.iterations.max())} trips), host / device-event ms: "
+    log(f"[{label}] one more warm step ({int(part.iterations.max())} trips), host / device-event ms: "
         + ", ".join(f"{k} {sections.host[k] * 1e3:.2f} / {dev_ms[k]:.2f}"
                     for k in ("reroll", "derive_backward", "line_search")))
+    return B * FARM_STEPS / wall, total
+
+
+# ---------------------------------------------------------------------------
+# phase 8: K3/K4 for user problems (generated device functions, w)
+# ---------------------------------------------------------------------------
+
+
+def user_problems():
+    """The user problems of phase 8 (tests/torch_user_problems.py: plain
+    torch lambdas and closures, none a registered model)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_user_problems
+
+    return torch_user_problems
+
+
+# label -> T of its kernel cell (8b)
+GENERATED_CASES = {"acrobot (lambdas)": T_MAIN, "farm": FARM_T, "demo (w)": FARM_T}
+
+
+def generated_spec(P, label, T):
+    up = user_problems()
+    if label == "acrobot (lambdas)":
+        return up.acrobot_lambdas(T)
+    return (up.farm_problem if label == "farm" else up.demo_problem)(T, "cuda")
+
+
+def build_generated(P, fk):
+    """Phase 8a: the generated models of the three user problems, their
+    nvcc runs started together; prints the build's seconds and ptxas's
+    registers and spills."""
+    from iterativelqr_tpu_torch import _build
+
+    models = {}
+    for label, T in GENERATED_CASES.items():
+        spec = generated_spec(P, label, T)
+        m = fk.device_model(spec, "cuda")
+        if m is None or m.generated is None:
+            raise AssertionError(f"{label}: no generated model ({fk.model_reason(spec, 'cuda')})")
+        models[label] = m
+        g = m.generated
+        log(f"[generated] {label}: {m.name}, nx={g.nx} nu={g.nu} nw={g.nw} nc={g.nc} "
+            f"(stage rows {g.nc_stage}, terminal {g.nc_term}); {g.ops_per_step()} operations a "
+            f"step and candidate; kStream {g.stream}; "
+            f"ops a program {[None if p is None else len(p.ops) for p in g.programs]}")
+    t0 = time.perf_counter()
+    paths = _build.build_generated(*(m.generated.translation_unit() for m in models.values()))
+    log(f"[build] {len(paths)} generated models built together in {time.perf_counter() - t0:.2f} s")
+    for label, path in zip(models, paths):
+        for line in _build.ptxas_report(path.with_suffix(".log")):
+            log(f"[build] {label}: {line}")
+    return models
+
+
+def check_generated_rollouts(P, fk):
+    """Phase 8b: K3 (head j0=0 and tail j0=8) and K4 of each generated
+    model against their plain versions at B=4096 in f64 and f32 (phase
+    3b's inputs and tolerances; the demo with a different target ramp in w
+    on every lane), K4's J equal to K3's, and the generated acrobot's J
+    against the hand-written acrobot kernel's on the same inputs; times,
+    bounds from the scalar program's operation count, shares.  Returns the
+    f32 records (K3's head block and K4) keyed "<kernel>/<label>"."""
+    from iterativelqr_tpu_torch.models import acrobot
+
+    tols = {torch.float64: 1e-10, torch.float32: 1e-4}
+    # the same operations from two sources: apart only by the compiler's
+    # contractions (tests/test_torch_cuda.py's tolerances)
+    hand_tols = {torch.float64: 1e-12, torch.float32: 1e-5}
+    records = {}
+    for label, T in GENERATED_CASES.items():
+        for dtype, tol in tols.items():
+            spec = generated_spec(P, label, T)
+            r, live, alpha = rollout_case(fk, "acrobot" if "acrobot" in label else label, T,
+                                          B_MAIN, dtype, SEED, spec=spec)
+            gen = r.model.generated
+            size = torch.finfo(dtype).bits // 8
+            dn = str(dtype).split(".")[-1]
+            j = torch.round(-torch.log2(alpha)).long()
+            J3 = fk.score_rollout(r, 0, 17, *live)
+            J4 = fk.winner_reroll(r, alpha, *live)[2]
+            J3j = J3[j, torch.arange(B_MAIN, device="cuda")]
+            same = (J4 == J3j) | (torch.isnan(J4) & torch.isnan(J3j))
+            if not bool(same.all()):
+                raise AssertionError(f"{label} {dn}: K4's J differs from K3's at the same alpha "
+                                     f"on {int((~same).sum())} lanes")
+            if "acrobot" in label:
+                hand = fk.Rollouts(P.build_spec(*acrobot.problem(T)[:3]), "cuda")
+                Jh = fk.score_rollout(hand, 0, 17, *live)
+                err, top = max_err(f"generated vs hand-written acrobot {dn}", (J3,), (Jh,),
+                                   hand_tols[dtype])
+                g_ms = cuda_ms(lambda: fk.score_rollout(r, 0, 8, *live))
+                h_ms = cuda_ms(lambda: fk.score_rollout(hand, 0, 8, *live))
+                log(f"[generated] acrobot T={T} B={B_MAIN} {dn}: K3's J of the generated model "
+                    f"against the hand-written kernel's, 17 candidates: max diff {err:.3e} of max "
+                    f"|J| {top:.3e}; head block generated {g_ms:.4f} ms, hand-written {h_ms:.4f} "
+                    f"ms ({g_ms / h_ms:.3f} x)")
+            runs = (
+                ("sl_score_rollout", "head j0=0 nb=8",
+                 lambda: (fk.score_rollout(r, 0, 8, *live),),
+                 lambda: (fk.score_rollout_reference(r, 0, 8, *live),), 8),
+                ("sl_score_rollout", "tail j0=8 nb=9",
+                 lambda: (fk.score_rollout(r, 8, 9, *live),),
+                 lambda: (fk.score_rollout_reference(r, 8, 9, *live),), 9),
+                ("sl_winner_reroll", "per-lane alpha",
+                 lambda: fk.winner_reroll(r, alpha, *live),
+                 lambda: fk.winner_reroll_reference(r, alpha, *live), None),
+            )
+            for kname, what, kern, plain, nb in runs:
+                outs = kern()
+                torch.cuda.synchronize()
+                err, top = max_err(f"{kname} {label} {dn} {what}", outs, plain(), tol)
+                k_ms = cuda_ms(kern)
+                p_ms = cuda_ms(plain, **PLAIN_REPS)
+                nbytes = rollout_bytes(spec, B_MAIN, size, nb)
+                ops = gen.ops_per_step() * (T - 1) * B_MAIN * (nb or 1)
+                b_ms, b_by = bound_ms(nbytes, ops)
+                log(f"[generated] {kname} {label} T={T} B={B_MAIN} {dn} {what}: max |kernel - "
+                    f"plain| {err:.3e}, max |plain| {top:.3e} (tol {tol:g} relative); kernel "
+                    f"{k_ms:.4f} ms, plain {p_ms:.3f} ms (median); bound {b_ms:.4f} ms ({b_by}; "
+                    f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} G operations from the program's "
+                    f"{gen.ops_per_step()} a step); {b_ms / k_ms:.1%} of the bound"
+                    + ring_line(fk.rollout_ring(r.model, dtype)))
+                if dtype == torch.float32 and what != "tail j0=8 nb=9":
+                    records[f"{kname}/{label}"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                                       bound_ms=b_ms, bound_by=b_by)
+    return records
+
+
+def demo_inputs(B, T, dtype, device):
+    """examples/sensitivity_demo.py's start (zero states and controls) for
+    B lanes, each with its own target ramp to (s, c) in w: s from [0.5,
+    1.5], c from [-0.3, 0.3] (numpy seed)."""
+    rng = np.random.default_rng(SEED)
+    ws = np.zeros((B, T, 2))
+    ws[:, :, 0] = np.linspace(0.0, 1.0, T)[None, :] * rng.uniform(0.5, 1.5, (B, 1))
+    ws[:, :, 1] = rng.uniform(-0.3, 0.3, (B, 1))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return t(np.zeros((B, T, 2))), t(np.zeros((B, T - 1, 1))), t(ws)
+
+
+def run_demo(P):
+    """Phase 8c: a B=4096 SL solve of examples/sensitivity_demo.py's
+    problem (T=11, f32, "auto" rollouts: K1 and the generated K3/K4), each
+    lane with its own target ramp in w; the solved fraction recomputed from
+    the trajectories must be >= 0.99.  Returns the launch counts."""
+    dev, dtype, T = torch.device("cuda"), torch.float32, FARM_T
+    spec = generated_spec(P, "demo (w)", T)
+    opts = P.Options(record_traces=False, forward_kernel="auto")
+    xs, us, ws = demo_inputs(B_MAIN, T, dtype, dev)
+    P.make_batched_solve_fn(spec, dataclasses.replace(opts, max_total_iterations=3),
+                            device=dev, dtype=dtype)(xs, us, ws)
+    torch.cuda.synchronize()
+    solve = P.make_batched_solve_fn(spec, opts, device=dev, dtype=dtype)
+    sol, stats, wall, counts = counted_solve(P, solve, (xs, us, ws))
+    name = "demo (w)/auto"
+    frac, frac_true = integrity(name, spec, sol, stats, ws, opts.constraint_tolerance, B_MAIN, T,
+                                2, 1)
+    check_launches(name, "auto", counts, "demo")
+    if min(counts["sl_score_rollout_generated"], counts["sl_winner_reroll_generated"]) <= 0:
+        raise AssertionError(f"{name}: the generated K3/K4 were not launched")
+    if frac_true < 0.99:
+        raise AssertionError(f"{name}: recomputed solved fraction {frac_true} < 0.99")
+    # the plans follow their lanes' targets: x_T = w_T within the tolerance
+    err = float((sol.xs[:, -1] - ws[:, -1]).abs().max())
+    log(f"[slice] {name}: B={B_MAIN} T={T} f32, a target ramp a lane; max |x_T - w_T| {err:.3e}")
+    report(name, sol, stats, frac, frac_true, wall, counts, opts.num_step_sizes, B_MAIN)
+    return counts
+
+
+def check_refusals(P, fk):
+    """Phase 8d: a stage cost with a data-dependent branch and one with an
+    op outside the whitelist (acrobot T=9, B=4, f32 on the card): under
+    forward_kernel="pallas" the solver refuses, naming the branch or the op;
+    under "auto" it picks the loops.  The whitelist case then solves on the
+    loops with no K3/K4 launch; the branch runs on no route (torch.func's
+    vmap refuses data-dependent control flow, as jax.vmap does), so there
+    only the choice is checked."""
+    from iterativelqr_tpu_torch.models import acrobot
+    from iterativelqr_tpu_torch.ops.sl_ops import SLOps
+
+    T, B, dev = 9, 4, torch.device("cuda")
+    dyn, cost, con, *_ = acrobot.problem(T)
+    cases = (("a data-dependent branch", "data-dependent branch", False,
+              P.Cost(lambda x, u: x[2] * x[2] if x[2] > 0 else u[0] * u[0], 4, 1)),
+             ("an op outside the whitelist", "aten.sinh", True,
+              P.Cost(lambda x, u: 0.1 * torch.sinh(u[0]) ** 2, 4, 1)))
+    xs, us, ws = bench_inputs(B, T, torch.float32, dev)
+    base = dict(record_traces=False, max_iterations=6, max_dual_updates=2)
+    for what, named, solvable, g in cases:
+        spec = P.build_spec(dyn, [g] * (T - 1) + cost[-1:], con)
+        try:
+            SLOps(spec, P.Options(**base, forward_kernel="pallas"), dev, torch.float32)
+        except ValueError as e:
+            if named not in str(e):
+                raise AssertionError(f"refusal of {what}: the message does not name "
+                                     f"{named!r}: {e}") from None
+            reason = str(e).split("this spec: ", 1)[-1]
+        else:
+            raise AssertionError(f'forward_kernel="pallas" did not refuse {what}')
+        auto = P.Options(**base, forward_kernel="auto")
+        if SLOps(spec, auto, dev, torch.float32).use_kernels:
+            raise AssertionError(f'"auto" picked the kernels for {what}')
+        line = f'[refusal] {what}: "pallas" refused ({reason[:160]}); "auto" picked the loops'
+        if solvable:
+            for c in counters().values():
+                c.reset()
+            sol = P.make_batched_solve_fn(spec, auto, device=dev, dtype=torch.float32)(xs, us, ws)
+            torch.cuda.synchronize()
+            counts = {k: c.launches for k, c in counters().items()}
+            k34 = (counts["sl_score_rollout"], counts["sl_winner_reroll"])
+            if max(k34) != 0 or counts["riccati_backward"] <= 0 or not bool(
+                    torch.isfinite(sol.xs).all()):
+                raise AssertionError(f'"auto" with {what}: K3/K4 {k34}, K1 '
+                                     f"{counts['riccati_backward']}")
+            line += (f" and solved there: K3/K4 launches {k34}, K1 {counts['riccati_backward']}, "
+                     f"{int(sol.iterations.max())} trips")
+        log(line)
 
 
 # ---------------------------------------------------------------------------
@@ -1920,8 +2192,38 @@ def main():
     check_ddp(P)
     at("phase 7c")
     check_mpc(P)
-    run_farm(P)
+    farm_rate, _ = run_farm(P)
     at("phase 7d")
+
+    # phase 8: K3/K4 for user problems, through generated device functions
+    build_generated(P, fk)
+    at("phase 8a")
+    gen_records = check_generated_rollouts(P, fk)
+    at("phase 8b")
+    gen_counts = {}
+    tuned_trips = pairs["tuned", B_MAIN]["pallas"][1]
+    gen_counts["acrobot (lambdas)"], wall, sol, _ = run_preset(
+        P, "tuned", TUNED, "pallas", B_MAIN, T_MAIN,
+        spec=generated_spec(P, "acrobot (lambdas)", T_MAIN))
+    for kname in ("sl_score_rollout_generated", "sl_winner_reroll_generated"):
+        if gen_counts["acrobot (lambdas)"][kname] <= 0:
+            raise AssertionError(f"tuned/generated: {kname} was not launched")
+    log(f"[generated] tuned acrobot T={T_MAIN} B={B_MAIN} f32 on the generated model: "
+        f"{int(sol.iterations.max())} trips, {wall:.3f} s; the hand-written model's (phase 4) "
+        f"{tuned_trips} trips, {pairs['tuned', B_MAIN]['pallas'][0]:.3f} s")
+    at("phase 8c tuned")
+    rate, gen_counts["farm"] = run_farm(P, generated_spec(P, "farm", FARM_T),
+                                        label="farm (example's costs)")
+    log(f"[generated] farm with examples/mpc_farm.py's own costs: {rate:.1f} plans/s; the "
+        f"library particle's (phase 7d) {farm_rate:.1f} plans/s ({rate / farm_rate:.3f} x)")
+    gen_counts["demo (w)"] = run_demo(P)
+    at("phase 8c")
+    check_refusals(P, fk)
+    at("phase 8d")
+    for key, rec in gen_records.items():
+        kname, label = key.split("/")
+        rec["launches"] = gen_counts[label][f"{kname}_generated"]
+        extra.append((kname, f"generated model={label}", rec))
 
     sources = {"riccati_backward": ("riccati_backward.cu", "iterativelqr_tpu/ops/packed_backward.py:509"),
                "riccati_backward_wide": ("riccati_backward_wide.cu", "iterativelqr_tpu/ops/packed_backward.py:574"),
@@ -1952,7 +2254,10 @@ def main():
         name=name,
         instance=instance,
         route="cuda",
-        source=f"iterativelqr_tpu_torch/csrc/{sources[name][0]}",
+        # a generated model's kernels: the rollout body of sl_rollout.cuh
+        # in a translation unit of its own (ops/device_functions.py)
+        source="iterativelqr_tpu_torch/csrc/" + (
+            "sl_rollout.cuh" if instance.startswith("generated") else sources[name][0]),
         replaces=sources[name][1],
         library_ms=None,
         **rec,

@@ -7,6 +7,11 @@ in ``.gitignore``) under a name keyed on a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one is reused.  Nothing is built
 at import: ``load_library`` runs the first time a CUDA tensor reaches a
 kernel, so the package imports on a machine without ``nvcc``.
+
+A generated device model (``ops/device_functions.py``) is one more
+translation unit, built by ``build_generated`` into a library of its own
+keyed on a hash of its text, ``csrc/``'s sources and the flags, at first
+use (when the solver that runs it is built for the card).
 """
 
 from __future__ import annotations
@@ -73,7 +78,7 @@ def _log_path() -> Path:
 
 def _run(cmds):
     """Start every command at once, wait for all; raise on the first that
-    failed.  Returns their combined output."""
+    failed.  Returns each command's output."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
              for cmd in cmds]
@@ -86,7 +91,7 @@ def _run(cmds):
     if failed:
         cmd, rc, out = failed
         raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
-    return "".join(outs)
+    return outs
 
 
 def build() -> Path:
@@ -105,13 +110,56 @@ def build() -> Path:
             obj = os.path.join(tmp, src.stem + ".o")
             objs.append(obj)
             cmds.append([nvcc, *COMPILE_FLAGS, "-o", obj, str(src)])
-        log = _run(cmds)
+        log = "".join(_run(cmds))
         lib = os.path.join(tmp, out.name)
-        log += _run([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        log += "".join(_run([[nvcc, *LINK_FLAGS, "-o", lib, *objs]]))
         Path(tmp, "build.log").write_text(log)
         os.replace(os.path.join(tmp, "build.log"), _log_path())
         os.replace(lib, out)
     return out
+
+
+def generated_library_path(source: str) -> Path:
+    """Where the library of a generated translation unit goes."""
+    h = hashlib.sha256(source.encode())
+    h.update(_source_hash().encode())
+    return BUILD_DIR / f"libilqr_gen_{h.hexdigest()[:16]}.so"
+
+
+def build_generated(*sources: str) -> list:
+    """Compile each generated translation unit (its text; it includes
+    ``sl_rollout.cuh`` from ``csrc/``) into a library of its own unless it
+    exists: one nvcc per source, all started together, then the links.
+    Returns the libraries' paths; raises with nvcc's log when one fails."""
+    outs = [generated_library_path(src) for src in sources]
+    todo = {out: src for out, src in zip(outs, sources) if not out.exists()}
+    if not todo:
+        return outs
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    # in a private directory, then renamed, as build()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        compiles, links = [], []
+        for out, src in todo.items():
+            cu = Path(tmp, out.stem + ".cu")
+            cu.write_text(src)
+            obj = str(cu.with_suffix(".o"))
+            compiles.append([nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-o", obj, str(cu)])
+            links.append([nvcc, *LINK_FLAGS, "-o", str(Path(tmp, out.name)), obj])
+        logs = _run(compiles)
+        _run(links)
+        for out, log in zip(todo, logs):
+            Path(tmp, out.stem + ".log").write_text(log)
+            os.replace(Path(tmp, out.stem + ".log"), out.with_suffix(".log"))
+            os.replace(Path(tmp, out.name), out)
+    return outs
+
+
+@functools.lru_cache(maxsize=None)
+def load_generated(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load a generated translation unit's library,
+    once per process."""
+    return ctypes.CDLL(str(build_generated(source)[0]))
 
 
 def _demangle(names):
@@ -127,13 +175,15 @@ def _demangle(names):
     return out if res.returncode == 0 and len(out) == len(names) else names
 
 
-def ptxas_report() -> list:
-    """One line per compiled kernel from the build log: its name, the
-    registers it uses and the bytes it spills."""
-    if not _log_path().exists():
+def ptxas_report(log: Path = None) -> list:
+    """One line per compiled kernel from a build log (the kernel library's,
+    or a generated library's ``.log``): its name, the registers it uses and
+    the bytes it spills."""
+    log = _log_path() if log is None else log
+    if not log.exists():
         return []
     names, regs, spills, props = [], {}, {}, None
-    for ln in _log_path().read_text().splitlines():
+    for ln in log.read_text().splitlines():
         if "Compiling entry function" in ln:
             names.append(ln.split("'")[1])
         elif "Function properties for" in ln:

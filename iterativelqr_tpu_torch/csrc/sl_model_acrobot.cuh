@@ -27,7 +27,7 @@ constexpr double kPi = 3.141592653589793;  // math.pi, the goal's q1
 // The stage constraint block is empty either way.
 template <bool kGoal>
 struct AcrobotModel {
-  static constexpr int NX = 4, NU = 1, NP = 0;
+  static constexpr int NX = 4, NU = 1, NW = 0, NP = 0;
   static constexpr int NC_STAGE = 0;
   static constexpr int NC_TERM = kGoal ? 4 : 0;
   static constexpr int NC = NC_TERM;            // the spec's padded nc
@@ -65,7 +65,7 @@ struct AcrobotModel {
 
   // acrobot_discrete: explicit midpoint (RK2)
   template <typename T>
-  __device__ static void dyn(const T* x, const T* u, const T* /*prm*/, T* xn) {
+  __device__ static void dyn(const T* x, const T* u, const T* /*w*/, const T* /*prm*/, T* xn) {
     using namespace acrobot_consts;
     T f1[NX], xm[NX], f2[NX];
     continuous(x, u[0], f1);
@@ -77,21 +77,21 @@ struct AcrobotModel {
   }
 
   template <typename T>
-  __device__ static T stage_cost(const T* x, const T* u, const T* /*prm*/) {
+  __device__ static T stage_cost(const T* x, const T* u, const T* /*w*/, const T* /*prm*/) {
     return T(0.1) * (x[2] * x[2] + x[3] * x[3]) + T(0.1) * (u[0] * u[0]);
   }
 
   template <typename T>
-  __device__ static T term_cost(const T* x, const T* /*prm*/) {
+  __device__ static T term_cost(const T* x, const T* /*w*/, const T* /*prm*/) {
     return T(0.1) * (x[2] * x[2] + x[3] * x[3]);
   }
 
   template <typename T>
-  __device__ static void stage_con(const T*, const T*, const T*, T*) {}
+  __device__ static void stage_con(const T*, const T*, const T*, const T*, T*) {}
 
   // goal_constraint: x - (pi, 0, 0, 0)
   template <typename T>
-  __device__ static void term_con(const T* x, const T* /*prm*/, T* c) {
+  __device__ static void term_con(const T* x, const T* /*w*/, const T* /*prm*/, T* c) {
     c[0] = x[0] - T(acrobot_consts::kPi);
     c[1] = x[1] - T(0);
     c[2] = x[2] - T(0);

@@ -14,7 +14,7 @@
 namespace sl_models {
 
 struct Car {
-  static constexpr int NX = 3, NU = 2, NP = 10;
+  static constexpr int NX = 3, NU = 2, NW = 0, NP = 10;
   static constexpr int NC_STAGE = 5, NC_TERM = 4;
   static constexpr int NC = 5;                       // the spec's padded nc
   static constexpr unsigned INEQ_STAGE = 0x1Fu;      // all five rows
@@ -34,7 +34,7 @@ struct Car {
 
   // car_discrete: explicit midpoint (RK2), h = 0.1
   template <typename T>
-  __device__ static void dyn(const T* x, const T* u, const T* /*prm*/, T* xn) {
+  __device__ static void dyn(const T* x, const T* u, const T* /*w*/, const T* /*prm*/, T* xn) {
     T f1[NX], xm[NX], f2[NX];
     continuous(x, u, f1);
 #pragma unroll
@@ -58,17 +58,17 @@ struct Car {
   }
 
   template <typename T>
-  __device__ static T stage_cost(const T* x, const T* u, const T* prm) {
+  __device__ static T stage_cost(const T* x, const T* u, const T* /*w*/, const T* prm) {
     return goal_dist_sq(x, prm) + T(1.0e-2) * (u[0] * u[0] + u[1] * u[1]);
   }
 
   template <typename T>
-  __device__ static T term_cost(const T* x, const T* prm) {
+  __device__ static T term_cost(const T* x, const T* /*w*/, const T* prm) {
     return T(1000.0) * goal_dist_sq(x, prm);
   }
 
   template <typename T>
-  __device__ static void stage_con(const T* x, const T* u, const T* prm, T* c) {
+  __device__ static void stage_con(const T* x, const T* u, const T* /*w*/, const T* prm, T* c) {
     c[0] = prm[3] - u[0];
     c[1] = prm[4] - u[1];
     c[2] = u[0] - prm[5];
@@ -77,7 +77,7 @@ struct Car {
   }
 
   template <typename T>
-  __device__ static void term_con(const T* x, const T* prm, T* c) {
+  __device__ static void term_con(const T* x, const T* /*w*/, const T* prm, T* c) {
     c[0] = x[0] - prm[0];
     c[1] = x[1] - prm[1];
     c[2] = x[2] - prm[2];

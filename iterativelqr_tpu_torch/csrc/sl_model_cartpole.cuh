@@ -20,7 +20,7 @@ constexpr double kPi = 3.141592653589793;  // math.pi
 }  // namespace cartpole_consts
 
 struct Cartpole {
-  static constexpr int NX = 4, NU = 1, NP = 2;
+  static constexpr int NX = 4, NU = 1, NW = 0, NP = 2;
   static constexpr int NC_STAGE = 2, NC_TERM = 4;
   static constexpr int NC = 4;                  // the spec's padded nc
   static constexpr unsigned INEQ_STAGE = 0x3u;  // both control limits
@@ -48,7 +48,7 @@ struct Cartpole {
 
   // cartpole_discrete: explicit midpoint (RK2)
   template <typename T>
-  __device__ static void dyn(const T* x, const T* u, const T* /*prm*/, T* xn) {
+  __device__ static void dyn(const T* x, const T* u, const T* /*w*/, const T* /*prm*/, T* xn) {
     using namespace cartpole_consts;
     T f1[NX], xm[NX], f2[NX];
     continuous(x, u[0], f1);
@@ -60,27 +60,27 @@ struct Cartpole {
   }
 
   template <typename T>
-  __device__ static T stage_cost(const T* x, const T* u, const T* prm) {
+  __device__ static T stage_cost(const T* x, const T* u, const T* /*w*/, const T* prm) {
     return ((T(0.01) * (u[0] * u[0]) + T(0.1) * (x[2] * x[2] + x[3] * x[3])) +
             prm[1] * (T(1) + cos(x[1]))) +
            T(0.1) * (x[0] * x[0]);
   }
 
   template <typename T>
-  __device__ static T term_cost(const T* x, const T* /*prm*/) {
+  __device__ static T term_cost(const T* x, const T* /*w*/, const T* /*prm*/) {
     return T(0.1) * (x[2] * x[2] + x[3] * x[3]);
   }
 
   // -u_limit <= u <= u_limit
   template <typename T>
-  __device__ static void stage_con(const T* /*x*/, const T* u, const T* prm, T* c) {
+  __device__ static void stage_con(const T* /*x*/, const T* u, const T* /*w*/, const T* prm, T* c) {
     c[0] = -prm[0] - u[0];
     c[1] = u[0] - prm[0];
   }
 
   // (x0, sin((theta - pi) / 2), xd, thetad)
   template <typename T>
-  __device__ static void term_con(const T* x, const T* /*prm*/, T* c) {
+  __device__ static void term_con(const T* x, const T* /*w*/, const T* /*prm*/, T* c) {
     c[0] = x[0];
     c[1] = sin((x[1] - T(cartpole_consts::kPi)) / T(2));
     c[2] = x[2];

@@ -13,7 +13,7 @@
 namespace sl_models {
 
 struct Particle {
-  static constexpr int NX = 2, NU = 1, NP = 2;
+  static constexpr int NX = 2, NU = 1, NW = 0, NP = 2;
   static constexpr int NC_STAGE = 0, NC_TERM = 2;
   static constexpr int NC = 2;                  // the spec's padded nc
   static constexpr unsigned INEQ_STAGE = 0u, INEQ_TERM = 0u;
@@ -24,27 +24,27 @@ struct Particle {
 
   // particle_discrete: A x + B u
   template <typename T>
-  __device__ static void dyn(const T* x, const T* u, const T* /*prm*/, T* xn) {
+  __device__ static void dyn(const T* x, const T* u, const T* /*w*/, const T* /*prm*/, T* xn) {
     xn[0] = (x[0] + x[1]) + T(0) * u[0];
     xn[1] = (T(0) * x[0] + x[1]) + u[0];
   }
 
   template <typename T>
-  __device__ static T stage_cost(const T* x, const T* u, const T* /*prm*/) {
+  __device__ static T stage_cost(const T* x, const T* u, const T* /*w*/, const T* /*prm*/) {
     return T(0.1) * (x[0] * x[0] + x[1] * x[1]) + T(0.1) * (u[0] * u[0]);
   }
 
   template <typename T>
-  __device__ static T term_cost(const T* x, const T* /*prm*/) {
+  __device__ static T term_cost(const T* x, const T* /*w*/, const T* /*prm*/) {
     return T(0.1) * (x[0] * x[0] + x[1] * x[1]);
   }
 
   template <typename T>
-  __device__ static void stage_con(const T*, const T*, const T*, T*) {}
+  __device__ static void stage_con(const T*, const T*, const T*, const T*, T*) {}
 
   // goal_constraint: x - goal
   template <typename T>
-  __device__ static void term_con(const T* x, const T* prm, T* c) {
+  __device__ static void term_con(const T* x, const T* /*w*/, const T* prm, T* c) {
     c[0] = x[0] - prm[0];
     c[1] = x[1] - prm[1];
   }

@@ -18,7 +18,7 @@ constexpr double kPi = 3.141592653589793;  // math.pi, the goal's angle
 }  // namespace pendulum_consts
 
 struct Pendulum {
-  static constexpr int NX = 2, NU = 1, NP = 0;
+  static constexpr int NX = 2, NU = 1, NW = 0, NP = 0;
   static constexpr int NC_STAGE = 0, NC_TERM = 2;
   static constexpr int NC = 2;                  // the spec's padded nc
   static constexpr unsigned INEQ_STAGE = 0u, INEQ_TERM = 0u;
@@ -36,7 +36,7 @@ struct Pendulum {
 
   // pendulum_discrete: explicit midpoint (RK2)
   template <typename T>
-  __device__ static void dyn(const T* x, const T* u, const T* /*prm*/, T* xn) {
+  __device__ static void dyn(const T* x, const T* u, const T* /*w*/, const T* /*prm*/, T* xn) {
     using namespace pendulum_consts;
     T f1[NX], xm[NX], f2[NX];
     continuous(x, u[0], f1);
@@ -48,21 +48,21 @@ struct Pendulum {
   }
 
   template <typename T>
-  __device__ static T stage_cost(const T* x, const T* u, const T* /*prm*/) {
+  __device__ static T stage_cost(const T* x, const T* u, const T* /*w*/, const T* /*prm*/) {
     return T(0.1) * (x[1] * x[1]) + T(0.1) * (u[0] * u[0]);
   }
 
   template <typename T>
-  __device__ static T term_cost(const T* x, const T* /*prm*/) {
+  __device__ static T term_cost(const T* x, const T* /*w*/, const T* /*prm*/) {
     return T(0.1) * (x[1] * x[1]);
   }
 
   template <typename T>
-  __device__ static void stage_con(const T*, const T*, const T*, T*) {}
+  __device__ static void stage_con(const T*, const T*, const T*, const T*, T*) {}
 
   // goal_constraint: x - (pi, 0)
   template <typename T>
-  __device__ static void term_con(const T* x, const T* /*prm*/, T* c) {
+  __device__ static void term_con(const T* x, const T* /*w*/, const T* /*prm*/, T* c) {
     c[0] = x[0] - T(pendulum_consts::kPi);
     c[1] = x[1] - T(0);
   }

@@ -15,7 +15,7 @@
 namespace sl_models {
 
 struct Quadrotor {
-  static constexpr int NX = 12, NU = 4, NP = 11;
+  static constexpr int NX = 12, NU = 4, NW = 0, NP = 11;
   static constexpr int NC_STAGE = 8, NC_TERM = 12;
   static constexpr int NC = 12;                      // the spec's padded nc
   static constexpr unsigned INEQ_STAGE = 0xFFu;      // all eight thrust bounds
@@ -72,7 +72,7 @@ struct Quadrotor {
 
   // quadrotor_discrete: explicit midpoint (RK2), h = 0.05
   template <typename T>
-  __device__ static void dyn(const T* x, const T* u, const T* /*prm*/, T* xn) {
+  __device__ static void dyn(const T* x, const T* u, const T* /*w*/, const T* /*prm*/, T* xn) {
     T f1[NX], xm[NX], f2[NX];
     continuous(x, u, f1);
 #pragma unroll
@@ -98,7 +98,7 @@ struct Quadrotor {
   }
 
   template <typename T>
-  __device__ static T stage_cost(const T* x, const T* u, const T* prm) {
+  __device__ static T stage_cost(const T* x, const T* u, const T* /*w*/, const T* prm) {
     T e[NX], du[NU];
     goal_error(x, prm, e);
 #pragma unroll
@@ -108,14 +108,14 @@ struct Quadrotor {
   }
 
   template <typename T>
-  __device__ static T term_cost(const T* x, const T* prm) {
+  __device__ static T term_cost(const T* x, const T* /*w*/, const T* prm) {
     T e[NX];
     goal_error(x, prm, e);
     return T(1.0) * sq(e, 0, NX);
   }
 
   template <typename T>
-  __device__ static void stage_con(const T* /*x*/, const T* u, const T* prm, T* c) {
+  __device__ static void stage_con(const T* /*x*/, const T* u, const T* /*w*/, const T* prm, T* c) {
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
       c[a] = prm[3 + a] - u[a];
@@ -124,7 +124,7 @@ struct Quadrotor {
   }
 
   template <typename T>
-  __device__ static void term_con(const T* x, const T* prm, T* c) {
+  __device__ static void term_con(const T* x, const T* /*w*/, const T* prm, T* c) {
     goal_error(x, prm, c);
   }
 };

@@ -281,11 +281,11 @@ def _kernel_fn(symbol: str, n_pointers: int):
     return fn
 
 
-def ring_entry(symbol: str, *args) -> tuple:
+def ring_entry(symbol: str, *args, lib=None) -> tuple:
     """(tiles, bytes of dynamic shared memory a block) from a C entry of the
-    kernel library that reports a kernel's ring of step tiles
+    kernel library (or ``lib``) that reports a kernel's ring of step tiles
     (``csrc/async_ring.cuh``); ``args`` are its int arguments."""
-    fn = getattr(_build.load_library(), symbol)
+    fn = getattr(_build.load_library() if lib is None else lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)] * 2
         fn.restype = ctypes.c_int

@@ -15,15 +15,29 @@ Both read the solver's live batch-last arrays (``ops/sl_ops.py``).  CPU
 tensors take the plain versions ``score_rollout_reference`` and
 ``winner_reroll_reference``: the rollout loops of ``SLOps.line_search``,
 which the ``forward_kernel="scan"`` path calls directly.  CUDA tensors
-launch the kernels of ``csrc/sl_forward.cu`` or raise.
+launch the kernels of ``csrc/sl_forward.cu`` (or of a generated model's
+library) or raise.
 
 A CUDA kernel cannot run arbitrary torch user code, so the kernels run the
-stage functions of registered models as device functions
-(``csrc/sl_model_*.cuh``).  ``device_model`` recognises a spec whose every
-stage type is one of a registered model's own function objects, by
-identity (car's and the quadrotor's are ``functools.partial``s of module
-functions over one problem's ``Parameters``), and returns the model with
-its parameters; anything else has no device model and keeps the loops.
+stage functions as device functions, found by ``device_model`` in two
+steps, as JAX feeds the user's jaxprs into Pallas:
+
+1. the registry of hand-written models (``csrc/sl_model_*.cuh``): a spec
+   whose every stage type is one of a registered model's own function
+   objects, by identity (car's and the quadrotor's are
+   ``functools.partial``s of module functions over one problem's
+   ``Parameters``), gets that model with its parameters;
+2. any other stage-uniform spec (``kernel_eligible``) gets a model
+   generated from its torch stage functions (``ops/device_functions.py``:
+   traced, lowered to a scalar program, printed as a header and built into
+   a library of its own at first use, ``_build.build_generated``).  Per-step
+   parameters ``w`` [T, npar, B] stream through the kernels with the other
+   step inputs.
+
+A spec that neither serves (stages that differ across steps, or a stage
+function the generator refuses: an op outside its whitelist, a branch on a
+traced value, another dtype) has no device model and keeps the loops;
+``model_reason`` says why, and ``forward_kernel="pallas"`` raises with it.
 
 The JAX module's ``reroll_fits`` is a VMEM budget rule of the TPU; a Hopper
 kernel writes its outputs straight to device memory, so the rule has no
@@ -36,6 +50,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import weakref
 from typing import Callable, Optional
 
 import numpy as np
@@ -45,14 +60,18 @@ from torch.func import vmap
 from .. import _build
 from ..core.spec import ProblemSpec
 from ..models import acrobot, car, cartpole, particle, pendulum, quadrotor
+from . import device_functions as df
 from .packed_backward import LaunchCounter, _check, ring_entry
 from .packed_pipeline import map2
 
+# every K3 / K4 launch, and those of a generated model's symbols
 SCORE_LAUNCHES = LaunchCounter()
 REROLL_LAUNCHES = LaunchCounter()
+GENERATED_SCORE_LAUNCHES = LaunchCounter()
+GENERATED_REROLL_LAUNCHES = LaunchCounter()
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
-_MAX_PARAMS = 16   # kMaxParams in csrc/sl_forward.cu
+_MAX_PARAMS = 16   # kMaxParams in csrc/sl_rollout.cuh
 
 
 def map3(fn):
@@ -88,10 +107,13 @@ def kernel_eligible(spec: ProblemSpec) -> bool:
 class DeviceModel:
     """A spec's model on the device: ``name`` picks the C entry points,
     ``params`` are the floats its device functions read (cast to the
-    solve's dtype in the kernel, as the torch functions cast them)."""
+    solve's dtype in the kernel, as the torch functions cast them);
+    ``generated`` is the generated model whose own library holds the
+    entry points (None: a registered model, in the kernel library)."""
 
     name: str
     params: tuple = ()
+    generated: Optional[df.GeneratedModel] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,18 +177,12 @@ def _rows(mask_row) -> tuple:
     return tuple(int(i) for i in np.nonzero(mask_row)[0])
 
 
-def device_model(spec: ProblemSpec) -> Optional[DeviceModel]:
+def _registered(spec: ProblemSpec) -> Optional[DeviceModel]:
     """The registered model whose own functions make up every stage type
     of ``spec``, with its parameters; None when there is none."""
-    if not kernel_eligible(spec) or spec.npar != 0 or not spec.dyn_types:
+    if spec.npar != 0:
         return None
-    objs = (
-        spec.dyn_types[int(spec.dyn_tidx[0])],
-        spec.cost_types[int(spec.cost_tidx[0])],
-        spec.cost_types[int(spec.cost_tidx[-1])],
-        spec.con_types[int(spec.con_tidx[0])],
-        spec.con_types[int(spec.con_tidx[-1])],
-    )
+    objs = df.stage_objects(spec)
     if any(o.num_parameter != 0 or (o.f is not None and o.num_state != spec.nx)
            for o in objs):
         return None
@@ -192,6 +208,50 @@ def device_model(spec: ProblemSpec) -> Optional[DeviceModel]:
     return None
 
 
+def _find_model(spec: ProblemSpec, device) -> tuple:
+    """(device model or None, the reason) for a solve on ``device``."""
+    if not spec.dyn_types:
+        return None, "the spec has no stage objects"
+    if not kernel_eligible(spec):
+        return None, ("the dynamics, cost or constraint stage types or the "
+                      "inequality rows differ across steps (kernel_eligible)")
+    model = _registered(spec)
+    if model is not None:
+        return model, f"the registered model {model.name}"
+    try:
+        gen = df.generate(spec, device)
+    except df.Refused as e:
+        return None, f"no device functions: {e}"
+    return DeviceModel(gen.name, (), gen), f"generated from the stage functions ({gen.name})"
+
+
+# a spec's (model, reason) per device type, found once: tracing takes
+# milliseconds a function
+_RESOLVED = weakref.WeakKeyDictionary()
+
+
+def _resolve(spec: ProblemSpec, device) -> tuple:
+    kind = torch.device(device).type
+    per_device = _RESOLVED.setdefault(spec, {})
+    if kind not in per_device:
+        per_device[kind] = _find_model(spec, torch.device(kind))
+    return per_device[kind]
+
+
+def device_model(spec: ProblemSpec, device="cpu") -> Optional[DeviceModel]:
+    """The model on the device of a solve of ``spec`` on ``device``: the
+    registered model whose own functions make up every stage type, else
+    one generated from the stage functions (traced on ``device``, where
+    their closed-over constants live); None when neither serves
+    (``model_reason`` says why)."""
+    return _resolve(spec, device)[0]
+
+
+def model_reason(spec: ProblemSpec, device="cpu") -> str:
+    """Why ``spec`` has the device model it has on ``device``, or none."""
+    return _resolve(spec, device)[1]
+
+
 def select_kernels(spec: ProblemSpec, options, device) -> bool:
     """Whether the Armijo line search runs K3/K4 rather than the loops:
     ``forward_kernel="pallas"`` always, raising where the kernels cannot
@@ -206,16 +266,19 @@ def select_kernels(spec: ProblemSpec, options, device) -> bool:
     # constraint-aware acceptance scores candidates by their max violation,
     # which the loops accumulate and the kernels do not emit
     viol_filter = options.constraint_aware_acceptance and spec.nc > 0
-    eligible = (kernel_eligible(spec) and device_model(spec) is not None
-                and not viol_filter)
+    eligible = device_model(spec, device) is not None and not viol_filter
     if not eligible and mode == "pallas":
+        why = ("constraint_aware_acceptance=True" if viol_filter
+               else model_reason(spec, device))
         raise ValueError(
             'forward_kernel="pallas" requires stage-uniform '
             "dynamics/cost/constraint dispatch "
             "(ops/sl_forward_kernel.kernel_eligible), a model with device "
-            "functions (ops/sl_forward_kernel.device_model; registered: "
-            f"{', '.join(DEVICE_MODELS)}) and constraint_aware_acceptance="
-            "False (the kernels do not score per-candidate violations)"
+            "functions (ops/sl_forward_kernel.device_model: registered, "
+            f"{', '.join(DEVICE_MODELS)}, or generated from the stage "
+            "functions' whitelisted ops) and constraint_aware_acceptance="
+            "False (the kernels do not score per-candidate violations); "
+            f"this spec: {why}"
         )
     return eligible
 
@@ -229,13 +292,12 @@ class Rollouts:
     """The line-search rollouts of one spec on one device: the spec's stage
     functions batched for the plain loops, their static per-step stage
     types, and the device model the kernels run (None when the spec has
-    none)."""
+    none; ``model_reason`` says why)."""
 
     def __init__(self, spec: ProblemSpec, device):
         Tm1 = spec.T - 1
         self.spec = spec
         self.device = torch.device(device)
-        self.model = device_model(spec)
         self.ineq_t = torch.as_tensor(spec.ineq_mask, device=self.device)
         self.cmask_t = torch.as_tensor(spec.c_mask, device=self.device)
         self.dyn2 = [map2(f) for f in spec.dyn_eval]
@@ -253,6 +315,21 @@ class Rollouts:
         self.cT = int(spec.con_tidx[-1])
         self._alphas = {}
         self._params = None
+
+    @property
+    def model(self) -> Optional[DeviceModel]:
+        return device_model(self.spec, self.device)
+
+    @property
+    def model_reason(self) -> str:
+        return model_reason(self.spec, self.device)
+
+    def prepare(self):
+        """Builds and loads the kernels of the device model now (a generated
+        model's library is compiled at its first use), so that no solve's
+        loop waits for nvcc.  Only on the card."""
+        if self.device.type == "cuda" and self.model is not None:
+            _library(self.model)
 
     def alphas(self, dtype, n: int) -> torch.Tensor:
         """alpha_j = 0.5**j for j < n (exact powers of two), on the device
@@ -371,13 +448,20 @@ def winner_reroll_reference(r: Rollouts, alpha, xbar, ubar, ws, K, k,
 # ---------------------------------------------------------------------------
 
 
+def _library(model: DeviceModel):
+    """The library that holds the model's entry points."""
+    if model.generated is None:
+        return _build.load_library()
+    return _build.load_generated(model.generated.translation_unit())
+
+
 def _kernel_fn(kind: str, model: DeviceModel, dtype):
     symbol = f"sl_{kind}_{model.name}_{_DTYPES[dtype]}"
-    fn = getattr(_build.load_library(), symbol)
+    fn = getattr(_library(model), symbol)
     if fn.argtypes is None:
-        # score: xbar ubar K k duals penalty J | T B j0 nb | params stream
-        # reroll: alpha xbar ubar K k duals penalty xs us J c | T B | params stream
-        n_ptr = 7 if kind == "score" else 11
+        # score: xbar ubar ws K k duals penalty J | T B j0 nb | params stream
+        # reroll: alpha xbar ubar ws K k duals penalty xs us J c | T B | params stream
+        n_ptr = 8 if kind == "score" else 12
         n_int = 4 if kind == "score" else 2
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_void_p, ctypes.c_void_p])
@@ -389,8 +473,9 @@ def rollout_ring(model: DeviceModel, dtype) -> tuple:
     """The ring of step tiles of K3 and K4 for a device model and dtype:
     (tiles, bytes of shared memory a block); (0, 0) for a model whose
     kernels load their step inputs in the step (``kStream`` false in its
-    ``csrc/sl_model_*.cuh``).  Builds the kernels on first use."""
-    return ring_entry(f"sl_ring_{model.name}_{_DTYPES[dtype]}")
+    ``csrc/sl_model_*.cuh``, or the generated model's).  Builds the
+    kernels on first use."""
+    return ring_entry(f"sl_ring_{model.name}_{_DTYPES[dtype]}", lib=_library(model))
 
 
 def _check_inputs(r: Rollouts, xbar, ubar, ws, K, k, duals, penalty):
@@ -399,9 +484,7 @@ def _check_inputs(r: Rollouts, xbar, ubar, ws, K, k, duals, penalty):
     spec = r.spec
     if r.model is None:
         raise ValueError(
-            "the rollout kernels have no device model for this spec; "
-            f"registered models: {', '.join(DEVICE_MODELS)}"
-        )
+            f"the rollout kernels have no device model for this spec: {r.model_reason}")
     device, dtype = xbar.device, xbar.dtype
     if dtype not in _DTYPES:
         raise ValueError(f"rollout kernels take float32 or float64, not {dtype}")
@@ -409,7 +492,7 @@ def _check_inputs(r: Rollouts, xbar, ubar, ws, K, k, duals, penalty):
     B = xbar.shape[-1]
     for name, a, shape in (
         ("xbar", xbar, (T, nx, B)), ("ubar", ubar, (T - 1, nu, B)),
-        ("ws", ws, (T, 0, B)), ("K", K, (T - 1, nu, nx, B)),
+        ("ws", ws, (T, spec.npar, B)), ("K", K, (T - 1, nu, nx, B)),
         ("k", k, (T - 1, nu, B)), ("duals", duals, (T, nc, B)),
         ("penalty", penalty, (T, nc, B)),
     ):
@@ -427,7 +510,7 @@ def score_rollout(r: Rollouts, j0: int, nb: int, xbar, ubar, ws, K, k,
     """K3: J [nb, B] of the candidates alpha_j = 0.5**j, j0 <= j < j0+nb.
 
     Inputs are the solver's live arrays: xbar [T,nx,B], ubar [T-1,nu,B],
-    ws [T,0,B], K [T-1,nu,nx,B], k [T-1,nu,B], duals/penalty [T,nc,B].
+    ws [T,npar,B], K [T-1,nu,nx,B], k [T-1,nu,B], duals/penalty [T,nc,B].
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream without synchronising, or raise.
     """
@@ -442,13 +525,15 @@ def score_rollout(r: Rollouts, j0: int, nb: int, xbar, ubar, ws, K, k,
     fn, symbol = _kernel_fn("score", r.model, dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(xbar.data_ptr(), ubar.data_ptr(), K.data_ptr(), k.data_ptr(),
-                 duals.data_ptr(), penalty.data_ptr(), J.data_ptr(),
+        err = fn(xbar.data_ptr(), ubar.data_ptr(), ws.data_ptr(), K.data_ptr(),
+                 k.data_ptr(), duals.data_ptr(), penalty.data_ptr(), J.data_ptr(),
                  T, B, int(j0), int(nb), ctypes.addressof(r._params), stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err} "
                            f"(T={T}, B={B}, j0={j0}, nb={nb})")
     SCORE_LAUNCHES.launches += 1
+    if r.model.generated is not None:
+        GENERATED_SCORE_LAUNCHES.launches += 1
     return J
 
 
@@ -472,7 +557,7 @@ def winner_reroll(r: Rollouts, alpha, xbar, ubar, ws, K, k, duals, penalty):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(alpha.data_ptr(), xbar.data_ptr(), ubar.data_ptr(),
-                 K.data_ptr(), k.data_ptr(), duals.data_ptr(),
+                 ws.data_ptr(), K.data_ptr(), k.data_ptr(), duals.data_ptr(),
                  penalty.data_ptr(), xs.data_ptr(), us.data_ptr(),
                  J.data_ptr(), c.data_ptr(), T, B,
                  ctypes.addressof(r._params), stream)
@@ -480,4 +565,6 @@ def winner_reroll(r: Rollouts, alpha, xbar, ubar, ws, K, k, duals, penalty):
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err} "
                            f"(T={T}, B={B})")
     REROLL_LAUNCHES.launches += 1
+    if r.model.generated is not None:
+        GENERATED_REROLL_LAUNCHES.launches += 1
     return xs, us, J, c

@@ -12,7 +12,8 @@ citations of the reference live there.
 The rollouts of the line search live in ``ops/sl_forward_kernel.py``:
 ``forward_kernel="pallas"`` (the reference's option value) runs the CUDA
 rollout kernels K3/K4 there, ``"scan"`` the plain loops, and ``"auto"`` the
-kernels when the solver runs on the card and the spec has a device model.
+kernels when the solver runs on the card and the spec has a device model
+(a registered one, or one generated from its stage functions).
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ class SLOps:
         self.rollouts = fk.Rollouts(spec, device)
         self._viol_filter = options.constraint_aware_acceptance and nc > 0
         self.use_kernels = fk.select_kernels(spec, options, device)
+        if self.use_kernels:
+            self.rollouts.prepare()   # a generated model is compiled now
         self.ineq_sl = self.rollouts.ineq_t[:, :, None]
         self.cmask_sl = self.rollouts.cmask_t[:, :, None]
         self.alphas = self.rollouts.alphas(dtype, options.num_step_sizes)

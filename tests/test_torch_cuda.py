@@ -11,8 +11,9 @@ This file imports torch and numpy only.
 import numpy as np
 import pytest
 import torch
+from torch_user_problems import acrobot_lambdas, demo_problem, farm_problem
 
-from iterativelqr_tpu_torch import Constraint, Cost, build_spec
+from iterativelqr_tpu_torch import Constraint, Cost, Options, build_spec
 from iterativelqr_tpu_torch.models import acrobot, car, cartpole, particle, pendulum, quadrotor
 from iterativelqr_tpu_torch.ops import packed_backward as pk
 from iterativelqr_tpu_torch.ops import sl_forward_kernel as fk
@@ -274,14 +275,15 @@ def test_rollout_kernels_match_plain(name, T, dtype, tol):
 
 @pytest.mark.cuda
 def test_rollout_kernels_refuse_what_they_cannot_run():
-    """A spec with no device model, a dtype without a kernel, and a
+    """A spec with no device model (a stage function with an op that does
+    not lower to a device function), a dtype without a kernel, and a
     non-contiguous input raise before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     T, B = 9, 64
     r, live = _rollout_case("car", T, B, torch.float32, seed=1)
     dyn, cost, con, *_ = acrobot.problem(T)
-    mine = Cost(lambda x, u: 0.3 * torch.dot(u, u), 4, 1)
+    mine = Cost(lambda x, u: 0.3 * torch.sinh(u[0]) ** 2, 4, 1)
     r_foreign = fk.Rollouts(build_spec(dyn, [mine] * (T - 1) + cost[-1:], con), "cuda")
     _, a_live = _rollout_case("acrobot", T, B, torch.float32, seed=1)
     with pytest.raises(ValueError, match="no device model"):
@@ -291,6 +293,106 @@ def test_rollout_kernels_refuse_what_they_cannot_run():
     K_nc = live[3].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         fk.winner_reroll(r, torch.ones(B, device="cuda"), *live[:3], K_nc, *live[4:])
+
+
+_USER = {"acrobot": acrobot_lambdas, "farm": farm_problem, "demo": demo_problem}
+
+
+def _user_case(name, T, B, dtype, seed):
+    """Live line-search arrays for a generated device model, from a numpy
+    seed: the acrobot's functions in lambdas, examples/mpc_farm.py's
+    problem, or examples/sensitivity_demo.py's with a different target ramp
+    in w on every lane; random non-converged gains, duals with lam = 0 on
+    half the lanes."""
+    spec = acrobot_lambdas(T) if name == "acrobot" else _USER[name](T, "cuda")
+    r = fk.Rollouts(spec, "cuda")
+    rng = np.random.default_rng(seed)
+    nx, nu, nc, npar, Tm1 = spec.nx, spec.nu, spec.nc, spec.npar, T - 1
+    x0 = (0.05 if name == "acrobot" else 0.3) * rng.standard_normal((nx, B))
+    ubar = 0.1 * rng.standard_normal((Tm1, nu, B))
+    K = 0.1 * rng.standard_normal((Tm1, nu, nx, B))
+    k = 0.1 * rng.standard_normal((Tm1, nu, B))
+    duals = np.abs(0.5 * rng.standard_normal((T, nc, B))) * (rng.uniform(size=B) < 0.5)
+    penalty = 10.0 * rng.uniform(0.5, 2.0, (T, nc, B))
+    ws = np.zeros((T, npar, B))
+    if npar:
+        ramp = np.linspace(0.0, 1.0, T)[:, None]
+        ws[:, 0] = ramp * rng.uniform(0.5, 1.5, B)
+        ws[:, 1] = rng.uniform(-0.2, 0.2, B)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda").contiguous()
+    xbar0 = torch.zeros((T, nx, B), dtype=dtype, device="cuda")
+    xbar0[0] = t(x0)
+    xbar = fk.winner_reroll_reference(
+        r, torch.zeros(B, dtype=dtype, device="cuda"), xbar0, t(ubar), t(ws),
+        t(0 * K), t(0 * k), t(duals), t(penalty))[0].contiguous()
+    return r, (xbar, t(ubar), t(ws), t(K), t(k), t(duals), t(penalty))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,T", [("acrobot", 101), ("farm", 11), ("demo", 11)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_generated_rollout_kernels_match_plain(name, T, dtype, tol):
+    """K3 (head and tail) and K4 of a generated device model against their
+    plain versions on the same card inputs, at B=4096, 1000, 4097 and 31
+    (aligned, ragged, one-value copies, one partial block), and K4's J
+    equal to K3's at the same alpha; the launches count on the generated
+    symbols.  Tolerances as the registered models'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for B in (4096, 1000, 4097, 31):
+        r, live = _user_case(name, T, B, dtype, seed=3)
+        assert r.model.generated is not None, r.model_reason
+        before = (fk.GENERATED_SCORE_LAUNCHES.launches, fk.GENERATED_REROLL_LAUNCHES.launches)
+        for j0, nb in ((0, 8), (8, 9)):
+            J = fk.score_rollout(r, j0, nb, *live)
+            torch.cuda.synchronize()
+            _close(J, fk.score_rollout_reference(r, j0, nb, *live), tol)
+        j = torch.as_tensor(np.random.default_rng(4).integers(0, 17, B), device="cuda")
+        alpha = (0.5 ** j).to(dtype)
+        outs = fk.winner_reroll(r, alpha, *live)
+        torch.cuda.synchronize()
+        for a, b in zip(outs, fk.winner_reroll_reference(r, alpha, *live)):
+            _close(a, b, tol)
+        J3 = fk.score_rollout(r, 0, 17, *live)[j, torch.arange(B, device="cuda")]
+        same = (outs[2] == J3) | (torch.isnan(outs[2]) & torch.isnan(J3))
+        assert bool(same.all()), (B, int((~same).sum()))
+        assert (fk.GENERATED_SCORE_LAUNCHES.launches,
+                fk.GENERATED_REROLL_LAUNCHES.launches) == (before[0] + 3, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_generated_acrobot_matches_the_hand_written_kernel(dtype, tol):
+    """The acrobot's functions in lambdas (a generated model) and the
+    registered acrobot (csrc/sl_model_acrobot.cuh) score the same
+    candidates alike on the same card inputs, T=101, B=4096: the same
+    operations, compiled from two sources."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    T, B = 101, 4096
+    r_gen, live = _user_case("acrobot", T, B, dtype, seed=5)
+    r_hand = fk.Rollouts(build_spec(*acrobot.problem(T)[:3]), "cuda")
+    assert r_hand.model.generated is None and r_gen.model.generated is not None
+    _close(fk.score_rollout(r_gen, 0, 17, *live), fk.score_rollout(r_hand, 0, 17, *live), tol)
+
+
+@pytest.mark.cuda
+def test_refused_specs_keep_the_loops_on_the_card():
+    """A data-dependent branch and an op outside the whitelist: "pallas"
+    raises naming it; "auto" takes the loops, and no K3/K4 launches."""
+    from iterativelqr_tpu_torch.ops.sl_ops import SLOps
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    T = 9
+    dyn, cost, con, *_ = acrobot.problem(T)
+    branch = Cost(lambda x, u: x[2] * x[2] if x[2] > 0 else u[0] * u[0], 4, 1)
+    sinh = Cost(lambda x, u: torch.sinh(u[0]) ** 2, 4, 1)
+    for g, what in ((branch, "data-dependent"), (sinh, "aten.sinh")):
+        spec = build_spec(dyn, [g] * (T - 1) + cost[-1:], con)
+        with pytest.raises(ValueError, match=what):
+            SLOps(spec, Options(forward_kernel="pallas"), "cuda")
+        assert not SLOps(spec, Options(forward_kernel="auto"), "cuda").use_kernels
 
 
 def _check_packed_masked(kernel, n, m, dtype, tol, Tm1):

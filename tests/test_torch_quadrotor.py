@@ -120,7 +120,9 @@ def test_problem_parameters_and_hover_controls():
 
 def test_device_model_registry():
     """The quadrotor's own functions, bound to one problem's parameters,
-    are recognised with those parameters; another cost is not."""
+    are recognised with those parameters; another cost is not the
+    registry's quadrotor (a model generated from the functions serves
+    it)."""
     m = fk.device_model(build_spec(*quadrotor.problem(9)[:3]))
     assert m == fk.DeviceModel(
         "quadrotor", (1.0, 1.0, 1.0) + (0.0,) * 4 + (6.0,) * 4)
@@ -130,7 +132,8 @@ def test_device_model_registry():
     assert len(moved.params) <= fk._MAX_PARAMS
     dyn, cost, con, *_ = quadrotor.problem(9)
     mine = Cost(lambda x, u: 0.05 * torch.dot(u, u), 12, 4)
-    assert fk.device_model(build_spec(dyn, [mine] * 8 + cost[-1:], con)) is None
+    other = fk.device_model(build_spec(dyn, [mine] * 8 + cost[-1:], con))
+    assert other.generated is not None and other.name.startswith("gen_")
 
 
 def test_quadrotor_solve_with_loops_matches_jax():

@@ -107,9 +107,10 @@ def test_pallas_path_matches_jax_kernels(name, T, u0):
 
 
 def test_eligibility_rules():
-    """Non-uniform per-step dispatch, a user function with no device
-    counterpart, and constraint-aware acceptance each keep the kernels off;
-    forward_kernel="pallas" then raises."""
+    """Non-uniform per-step dispatch, a user function with an op that does
+    not lower to a device function, and constraint-aware acceptance each
+    keep the kernels off; forward_kernel="pallas" then raises.  A user
+    function of whitelisted ops gets a generated device model."""
     T = 9
     dyn, cost, con, *_ = acrobot.problem(T)
     ub = 8.0
@@ -122,11 +123,17 @@ def test_eligibility_rules():
 
     mine = Cost(lambda x, u: 0.1 * torch.dot(u, u), 4, 1)
     foreign = build_spec(dyn, [mine] * (T - 1) + cost[-1:], con)
-    assert fk.kernel_eligible(foreign) and fk.device_model(foreign) is None
+    assert fk.kernel_eligible(foreign)
+    assert fk.device_model(foreign).generated is not None
+    assert fk.select_kernels(foreign, Options(forward_kernel="pallas", **_BASE), "cpu")
+    odd = Cost(lambda x, u: 0.1 * torch.sinh(u[0]) ** 2, 4, 1)
+    unlowered = build_spec(dyn, [odd] * (T - 1) + cost[-1:], con)
+    assert fk.kernel_eligible(unlowered) and fk.device_model(unlowered) is None
+    assert "aten.sinh" in fk.model_reason(unlowered)
 
     cspec = build_spec(*car.problem(T)[:3])
     pallas = Options(forward_kernel="pallas", **_BASE)
-    for spec, o in ((mixed, pallas), (foreign, pallas),
+    for spec, o in ((mixed, pallas), (unlowered, pallas),
                     (cspec, dataclasses.replace(
                         pallas, constraint_aware_acceptance=True))):
         with pytest.raises(ValueError, match="stage-uniform"):
@@ -143,7 +150,8 @@ def test_eligibility_rules():
 def test_device_model_registry():
     """Registered models are recognised by their own function objects, with
     their parameters; the semantic stage-type grouping keeps them
-    stage-uniform."""
+    stage-uniform.  Any other stage-uniform spec is not the registry's: a
+    model generated from its stage functions serves it."""
     T = 9
     aspec = build_spec(*acrobot.problem(T)[:3])
     assert len(np.unique(aspec.con_tidx[: T - 1])) == 1
@@ -163,11 +171,14 @@ def test_device_model_registry():
     # the functions of two different car problems in one spec
     d1, c1, k1, *_ = car.problem(T)
     _, c2, _, *_ = car.problem(T, x_goal=(0.0, 1.0, 0.0))
-    assert fk.device_model(build_spec(d1, c1[:-1] + c2[-1:], k1)) is None
+    two = fk.device_model(build_spec(d1, c1[:-1] + c2[-1:], k1))
+    assert two.name.startswith("gen_") and two.generated is not None
     # the same function under another name is not the model's
     renamed = Cost(lambda x, u: acrobot.stage_cost(x, u), 4, 1)
-    assert fk.device_model(build_spec(dyn, [renamed] * (T - 1) + cost[-1:],
-                                      acrobot.problem(T)[2])) is None
+    other = fk.device_model(build_spec(dyn, [renamed] * (T - 1) + cost[-1:],
+                                       acrobot.problem(T)[2]))
+    assert other.name.startswith("gen_") and other.generated is not None
+    assert other.params == () and other.name != two.name
 
 
 def test_auto_takes_the_loops_on_the_cpu():
