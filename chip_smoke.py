@@ -46,9 +46,10 @@ Phases, each of which raises (non-zero exit) when it fails:
    launches counted over each timed solve; the per-iteration split of
    derive+backward against line search in each;
 4c. the per-instance solver's vmap route at acrobot, f32 (bench.py's
-   initial guess), at T=T_LOOP=51: the literal make_batched_solve_fn(spec,
-   Options()) (traces on, the "auto" backward = the reverse scan, loop
-   rollouts) at B=B_VMAP_LOOP=14, and at B=4096 the tuned preset with
+   initial guess): the literal make_batched_solve_fn(spec, Options())
+   (traces on, the "auto" backward = the reverse scan, loop rollouts) at
+   B=B_VMAP_LOOP=14, T=T_VMAP_LOOP=41, and at B=4096, T=T_LOOP=51 the
+   tuned preset with
    traces through
    make_solve_fn(..., backward_impl=make_backward_dispatch(variant="v1" |
    "v2")).vmap() (K6a, K6b); then the same two dispatches on the quadrotor
@@ -67,8 +68,8 @@ Phases, each of which raises (non-zero exit) when it fails:
    T=101, car, quadrotor, particle and cartpole solutions
    (tests/fixtures/golden_*.npz) solved on the card through "pallas" in
    f64, and through the per-instance solver the golden car with
-   backward_pass="scan" and the golden acrobot T=101 with the default
-   "auto" (on one instance the associative scan);
+   backward_pass="scan" and the golden quadrotor with the default "auto"
+   (on one instance the associative scan);
 6a. the associative backward scan (ops/assoc.py) against the port's reverse
    scan on the card at (4, 1), (3, 2) T=101 and (12, 4) T=41, B=64 and one
    instance, f64 and f32; both timed (CUDA events, f32, acrobot's dims)
@@ -125,15 +126,54 @@ Phases, each of which raises (non-zero exit) when it fails:
    0.99) and the generated symbols' K3/K4 launches (> 0);
 8d. refusals: a stage cost with a data-dependent branch and one with an op
    outside the whitelist refuse under forward_kernel="pallas", naming it,
-   and take the loops under "auto" with no K3/K4 launch.
+   and take the loops under "auto" with no K3/K4 launch;
+9a. iterativelqr_tpu_torch/examples/pod_sweep.py at its default size: 65,536
+   instances at T=51, f32 (acrobot 32,768 and car 32,768 lanes) over
+   default_mesh() (every visible card), "auto" rollouts: per family the
+   wall, solves/s, the solved fraction recomputed from the returned
+   trajectories (>= 0.99), iterations and K1/K3/K4 launches (K1, K3 > 0);
+9b. make_sharded_solve_fn over [cuda:0, cuda:0] (two shards on one card,
+   advanced trip by trip in turns) on phase 4's tuned kernel inputs: every
+   lane's iterations, xs and us bitwise equal to phase 4's single-shot
+   solve, the stats reduced across shards equal to its batch_stats (counts
+   and maxima bitwise, means to f32 rounding); no speed is read;
+9c. per-device compaction (make_compacted_solve_fn(devices=[cuda:0,
+   cuda:0])) on phase 4's parity kernel inputs, every lane bitwise equal to
+   phase 4's single-shot parity solve;
+9d. the sharded solve across processes (tests/torch_distributed_worker.py):
+   two gloo ranks on cuda:0 and one NCCL rank at world size 1 (NCCL refuses
+   two ranks on one card), particle T=11, B=4096, f32, K1/K3/K4 in every
+   rank; each rank's global xs and stats equal the other's and a
+   one-process solve's bitwise; each process has a timeout; the processes
+   run while phases 9b and 9c run;
+9e. make_horizon_sharded_backward over [cuda:0] x 4 and x 8 against the
+   associative scan (1e-10 relative) and the reverse scan (1e-8) on a
+   pendulum T=1025 linearization in f64, then the long-horizon example's
+   solve (pendulum T=T_LONG=129, four chunks on the card);
+9f. utils/profiling.trace around a tuned solve on phase 4's kernel inputs,
+   cut to PROFILE_TRIPS=8 trips, after an untraced call and a timed one,
+   read from the exported trace: without Python frames, the ten device
+   operations with the most device time, the share of the solve's window
+   in which the card ran any device operation, and that share trip by
+   trip (a trip ends with its K4 launch); with Python frames, the three
+   longest idle gaps with the host operations and the port's Python
+   frames recorded over each; device time over the untraced wall;
+9g. utils/checkpoint save and load on the card of phase 9b's Solution and
+   phase 7d's MPCState: bitwise, device and dtype kept;
+9h. entry.dryrun_multichip(2) on [cuda:0, cuda:0]: the vmap, SL and
+   per-device compaction routes, iterations equal, xs within 2e-3,
+   reported violations equal to recomputed ones.
 
 Budget: the whole run stays under 800 s (1200 s limit).  For that,
 parity's loop cell runs on 4 lanes, tuned's loop cell on 16 and phase 4c's
-cell (a) on 14 (each was 4096), those three and 4c's cells (b) and (c)
-(and the kernel cells paired with them) at T=T_LOOP=51, phase 5's
-per-instance reverse-scan golden is the car's, phase 7c's acrobot DDP runs
-at T=T_DDP (was 51), and the splits time 5 iterations (were 20): the
-reasons and trip counts stand beside B_LOOP.
+cell (a) on 14 (each was 4096), the first two and 4c's cells (b) and (c)
+(and the kernel cells paired with them) at T=T_LOOP=51 and cell (a) at
+T=T_VMAP_LOOP=41, phase 5's per-instance reverse-scan golden is the car's
+and its "auto" golden the quadrotor's, phase 6b's
+tuned compaction at one grain, phase 7c's acrobot DDP at T=T_DDP (was
+51), phase 9e's long-horizon solve at T=T_LONG and phase 9f's trace
+over PROFILE_TRIPS trips, and the splits time 5 iterations
+(were 20): the reasons and trip counts stand beside B_LOOP.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -184,7 +224,22 @@ T_MAIN, B_MAIN = 101, 4096
 # - phase 5's per-instance golden with backward_pass="scan" solves the
 #   golden car (T=51, 13 iterations, about 4 s), not acrobot T=101 (69.3
 #   s): the reverse scan per instance is still held to a golden on the
-#   card, and the default "auto" stays on acrobot T=101.
+#   card.
+# - phase 5's per-instance golden with the default "auto" (on one
+#   instance the associative scan) solves the golden quadrotor (T=41, (12,
+#   4), 8 iterations, about 4 s on the CPU), not acrobot T=101 (108
+#   iterations, 56.5 s of a 654.6 s run): the associative scan per
+#   instance is still held to a golden on the card, at the widest dims,
+#   and phase 9e holds the time-sharded recursion, made of the same
+#   elements, against it at T=1025.
+# - T_VMAP_LOOP (was T_LOOP=51: 148 trips, 48.2 s of a 654.6 s run):
+#   phase 4c's cell (a) at T=41, 140 trips on the port's CPU path (f32,
+#   solved 1.0; T=31 took 328 trips, and cells (b) and (c) solve only
+#   0.941-0.988 of the lanes at T=21-31 there, so they keep T=51).  At
+#   B=14 > 41 // 7 = 5 "auto" still takes the reverse scan.
+# - COMPACT_GRAINS (was 128, 256 and 1024: 24.0 s of the run): phase 6b's
+#   tuned compaction runs at the module's GRAIN only, the best of the
+#   three on the card (PR 7-9).
 # - T_DDP (was 51, golden_acrobot.npz's horizon: 137 iterations, 87.4 s
 #   of a 683.8 s run): phase 7c's acrobot DDP per instance runs from the
 #   golden's first T_DDP - 1 controls (all 0.05) and is held to a
@@ -200,6 +255,7 @@ B_LOOP = 4
 B_LOOP_TUNED = 16
 B_VMAP_LOOP = 14
 T_LOOP = 51
+T_VMAP_LOOP = 41
 SEED = 0
 SPLIT_ITERATIONS = 5
 
@@ -1084,7 +1140,8 @@ def run_vmap_cell(P, variant, B, model="acrobot"):
 
     name = {"auto": "vmap/Options()", "v1": "vmap/tuned+K6a", "v2": "vmap/tuned+K6b"}[variant]
     device = torch.device("cuda")
-    T = T_LOOP if model == "acrobot" else MODEL_CELLS[model][0]
+    T = ((T_VMAP_LOOP if variant == "auto" else T_LOOP) if model == "acrobot"
+         else MODEL_CELLS[model][0])
     spec = P.build_spec(*getattr(models, model).problem(T)[:3])
     if model == "acrobot":
         xs, us, ws = bench_inputs(B, T, torch.float32, device)
@@ -1235,7 +1292,7 @@ def time_assoc_grid():
 # phase 6b: straggler compaction (core/solve_compact.py) on the kernel path
 # ---------------------------------------------------------------------------
 
-COMPACT_GRAINS = (128, 256, 1024)
+COMPACT_GRAINS = (128,)
 
 
 @contextlib.contextmanager
@@ -1566,6 +1623,7 @@ def check_mpc(P):
         f"a step {its}; final plan violation {float(sol.max_violation):.3e}, |x_T - goal| {err:.3e}")
     if not (bool(torch.isfinite(sol.xs).all()) and float(sol.max_violation) <= 5e-3 and err <= 5e-3):
         raise AssertionError("mpc: the final plan does not reach the goal within 5e-3")
+    return state
 
 
 FARM_B, FARM_T, FARM_STEPS = B_MAIN, 11, 12
@@ -1675,6 +1733,445 @@ def run_farm(P, spec=None, label="farm"):
         + ", ".join(f"{k} {sections.host[k] * 1e3:.2f} / {dev_ms[k]:.2f}"
                     for k in ("reroll", "derive_backward", "line_search")))
     return B * FARM_STEPS / wall, total
+
+
+# ---------------------------------------------------------------------------
+# phase 9: batch sharding, time sharding, profiling, checkpoint, dry run
+# ---------------------------------------------------------------------------
+
+POD_TOTAL, POD_T = 65536, 51
+DIST_T, DIST_B = 11, 4096
+T_LONG_CHECK = 1025
+# the long-horizon example's solve (pendulum, per instance, four chunks on
+# the card) at T_LONG, not its default T=1025: at 1025 it took 108
+# iterations and 208.9 s (NVIDIA H100 80GB HBM3, 700 W), about 1.9 s an
+# iteration of per-instance loop rollouts over 1,024 steps; the port's CPU
+# path takes the same 108 iterations at T=257, 385 and 1025, and the time
+# an iteration scales with T: T=257 took 69.6 s in a whole run and T=129
+# 46.9 s, which keeps the run inside its budget; the recursion is still
+# held at T=1025
+T_LONG = 129
+# phase 9f traces a tuned solve cut to PROFILE_TRIPS trips, after an
+# untraced call of the same solver: the whole solve (86 trips, traced with
+# Python frames) took 307 s with the profiler and the analysis of its
+# 187,023 device operations (NVIDIA H100 80GB HBM3, 700 W); traced from
+# the solver's first call its first 4 trips read busy 0.0444, its first 6
+# 0.0624 and all 86 0.0646; after an untraced call, 8 trips read 0.0531 to
+# 0.0616 trip by trip, and the Python tracer stretched a trip from about
+# 80 to 265 ms, hence the second trace without it
+PROFILE_TRIPS = 8
+SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_scratch")
+
+
+def main_path(P, label, fn, *args):
+    """``fn(*args)`` with every launch count set to 0 just before and read
+    just after (and the card synchronised); returns (its value, wall s,
+    counts)."""
+    for c in counters().values():
+        c.reset()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: c.launches for k, c in counters().items()}
+    log(f"[{label}] launches K1 {counts['riccati_backward']}, K3 {counts['sl_score_rollout']}, "
+        f"K4 {counts['sl_winner_reroll']}")
+    return out, wall, counts
+
+
+def run_pod_sweep(P):
+    """Phase 9a: iterativelqr_tpu_torch/examples/pod_sweep.py at its default
+    size (65,536 instances, T=51, f32: acrobot 32,768 and car 32,768 lanes)
+    over default_mesh() (every visible card), one family after the other;
+    per family the wall, solves/s, the solved fraction recomputed from the
+    returned trajectories, the iterations and the K1/K3/K4 launches."""
+    from iterativelqr_tpu_torch.examples import pod_sweep
+    from iterativelqr_tpu_torch.parallel import default_mesh
+
+    mesh = default_mesh()
+    opts = P.Options(verbose=False, record_traces=False, forward_kernel="auto")
+    total = collections.Counter()
+    for name, spec, scale, us0 in pod_sweep.families(POD_T):
+        (sol, stats, wall), _, counts = main_path(
+            P, f"pod_sweep {name}", pod_sweep.sweep, name, spec, scale, us0, POD_T,
+            POD_TOTAL // 2, mesh, opts)
+        total.update(counts)
+        B = POD_TOTAL // 2
+        ws = torch.zeros((B, POD_T, 0), device=sol.xs.device)
+        frac_true = recomputed_solved_fraction(spec, sol, ws, opts.constraint_tolerance)
+        log(f"[pod_sweep] {name}: {B} lanes T={POD_T} f32 over {mesh}: wall {wall:.3f} s, "
+            f"{B / wall:.1f} solves/s ({B * frac_true / wall:.1f} solved/s); solved fraction "
+            f"batch_stats {float(stats.solved_fraction):.4f} recomputed {frac_true:.4f}; "
+            f"iterations mean {float(sol.iterations.float().mean()):.2f} max "
+            f"{int(sol.iterations.max())}")
+        if counts["riccati_backward"] <= 0 or counts["sl_score_rollout"] <= 0:
+            raise AssertionError(f"pod_sweep {name}: K1 or K3 was not launched {counts}")
+        if frac_true < 0.99:
+            raise AssertionError(f"pod_sweep {name}: recomputed solved fraction {frac_true} < 0.99")
+    return total
+
+
+def lanes_equal(label, sol, ref, fields=("iterations", "xs", "us")):
+    """Every lane of ``sol`` bitwise equal to ``ref`` in ``fields``."""
+    for f in fields:
+        a, b = getattr(sol, f), getattr(ref, f)
+        if a.shape != b.shape or not torch.equal(a, b):
+            bad = int((a != b).reshape(a.shape[0], -1).any(dim=1).sum()) if a.shape == b.shape else -1
+            raise AssertionError(f"{label}: {f} differs from the single-shot solve on {bad} lanes")
+
+
+def stats_equal(label, stats, want):
+    """Counts and maxima bitwise; the two means to f32 rounding (summed in
+    another order)."""
+    for f in ("solved_fraction", "mean_iterations", "max_violation", "line_search_failures"):
+        if not torch.equal(getattr(stats, f), getattr(want, f)):
+            raise AssertionError(f"{label}: stats {f} {getattr(stats, f)} != {getattr(want, f)}")
+    for f in ("mean_violation", "mean_objective"):
+        a, b = float(getattr(stats, f)), float(getattr(want, f))
+        if abs(a - b) > 1e-5 * abs(b):
+            raise AssertionError(f"{label}: stats {f} {a} against {b}")
+
+
+def run_sharded(P, ref):
+    """Phase 9b: make_sharded_solve_fn over default_mesh([cuda:0, cuda:0])
+    (two shards on one card, advanced trip by trip in turns) on phase 4's
+    tuned kernel inputs (acrobot T=101, B=4096, forward_kernel="pallas"):
+    every lane bitwise equal to phase 4's single-shot solve, the stats
+    reduced across the shards equal to its batch_stats.  Two shards share
+    the card, so no speed is read from the wall.  Returns (Solution,
+    counts)."""
+    from iterativelqr_tpu_torch.models import acrobot
+    from iterativelqr_tpu_torch.parallel import default_mesh, make_sharded_solve_fn
+
+    ref_sol, ref_wall, inputs = ref
+    mesh = default_mesh([torch.device("cuda", 0)] * 2)
+    spec = P.build_spec(*acrobot.problem(T_MAIN)[:3])
+    solve = make_sharded_solve_fn(spec, P.Options(**TUNED, forward_kernel="pallas"), mesh=mesh)
+    (sol, stats), wall, counts = main_path(P, "sharded", solve, *inputs)
+    lanes_equal("sharded", sol, ref_sol)
+    stats_equal("sharded", stats, P.batch_stats(ref_sol))
+    log(f"[sharded] tuned acrobot T={T_MAIN} B={B_MAIN} over {mesh}: every lane's iterations, "
+        f"xs and us bitwise equal to the single-shot solve; reduced stats equal to its "
+        f"batch_stats (solved {float(stats.solved_fraction):.4f}); wall {wall:.3f} s "
+        f"(single-shot {ref_wall:.3f} s; one card, no speed read)")
+    check_launches("sharded", "pallas", counts, "acrobot")
+    return sol, counts
+
+
+def run_compacted_devices(P, ref):
+    """Phase 9c: per-device compaction (make_compacted_solve_fn with
+    devices=[cuda:0, cuda:0]) on phase 4's parity kernel inputs, every lane
+    bitwise equal to phase 4's single-shot parity solve."""
+    from iterativelqr_tpu_torch.core.solve_compact import make_compacted_solve_fn
+    from iterativelqr_tpu_torch.models import acrobot
+
+    ref_sol, ref_wall, inputs = ref
+    spec = P.build_spec(*acrobot.problem(T_MAIN)[:3])
+    devices = [torch.device("cuda", 0)] * 2
+    solve = make_compacted_solve_fn(spec, P.Options(**PARITY, forward_kernel="pallas"),
+                                    devices=devices, device="cuda", dtype=torch.float32)
+    sol, wall, counts = main_path(P, "compacted devices", solve, *inputs)
+    lanes_equal("compacted devices", sol, ref_sol)
+    log(f"[compacted devices] parity acrobot T={T_MAIN} B={B_MAIN} on {[str(d) for d in devices]}: "
+        f"sub-batches (shapes visited, repacks) "
+        f"{[(r.shapes, r.repacks) for r in solve.last_run]}; every lane's iterations, xs and us "
+        f"bitwise equal to the single-shot solve; wall {wall:.3f} s (single-shot {ref_wall:.3f} s)")
+    check_launches("compacted devices", "pallas", counts, "acrobot")
+    return counts
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(world, backend, outdir):
+    """Start ``world`` ranks of tests/torch_distributed_worker.py on the
+    card (particle T=DIST_T, B=DIST_B, the SL route with the kernels)."""
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                          "torch_distributed_worker.py")
+    init = f"tcp://127.0.0.1:{free_port()}"
+    return [subprocess.Popen([sys.executable, worker, init, str(world), str(r), outdir, "cuda",
+                              backend, str(DIST_T), str(DIST_B), "sl"],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def finish_ranks(procs, backend, outdir):
+    """Wait for the ranks, each with a timeout (a rank still running then
+    is killed); a failed rank fails the run.  Returns each rank's
+    results."""
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{backend} rank {r} of {len(procs)} failed ({p.returncode}):\n"
+                                 f"{out[-3000:]}")
+    return [np.load(os.path.join(outdir, f"rank{r}.npz")) for r in range(len(procs))]
+
+
+def start_distributed():
+    """Phase 9d, started: two gloo ranks sharing cuda:0 (NCCL refuses two
+    ranks on one card) and one NCCL rank at world size 1, started together
+    (two process groups, each on its own port); they run while phases 9b
+    and 9c run, whose walls are not read for speed.  Returns what
+    ``finish_distributed`` takes."""
+    import tempfile
+
+    os.makedirs(SCRATCH, exist_ok=True)
+    outdir = tempfile.mkdtemp(dir=SCRATCH)
+    runs = {}
+    for world, backend in ((2, "gloo"), (1, "nccl")):
+        os.makedirs(os.path.join(outdir, backend))
+        runs[world, backend] = start_ranks(world, backend, os.path.join(outdir, backend))
+    return outdir, runs, time.perf_counter()
+
+
+def finish_distributed(P, started):
+    """Phase 9d: the sharded solve across processes on the card; each rank
+    solves its rows through K1/K3/K4 (particle T=11, B=4096, f32).  Both
+    gloo ranks report the same global xs and stats, and those and the NCCL
+    rank's equal a one-process solve of the batch bitwise."""
+    import shutil
+
+    from iterativelqr_tpu_torch.models import particle
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_distributed_worker as worker
+
+    outdir, runs, t0 = started
+    try:
+        results = {key: finish_ranks(procs, key[1], os.path.join(outdir, key[1]))
+                   for key, procs in runs.items()}
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    spec = P.build_spec(*particle.problem(DIST_T, device="cuda")[:3])
+    opts = P.Options(**worker.ROUTES["sl"], forward_kernel="pallas")
+    args = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+            for a in worker.global_batch(spec, DIST_T, DIST_B)]
+    ref = P.make_batched_solve_fn(spec, opts, device="cuda", dtype=torch.float32)(*args)
+    want = P.batch_stats(ref)
+    for (world, backend), ranks in results.items():
+        for r, d in enumerate(ranks):
+            for f in ("xs", "us", "iterations", "max_violation", "objective"):
+                if not np.array_equal(d[f"sl_{f}"], getattr(ref, f).cpu().numpy()):
+                    raise AssertionError(f"{backend} rank {r}: global {f} differs from the "
+                                         "one-process solve")
+            for f in ("solved_fraction", "mean_iterations", "max_violation",
+                      "line_search_failures"):
+                if float(d[f"sl_stats_{f}"]) != float(getattr(want, f)):
+                    raise AssertionError(f"{backend} rank {r}: stats {f} differs")
+            for f in ranks[0].files:
+                if not np.array_equal(d[f], ranks[0][f]):
+                    raise AssertionError(f"{backend}: ranks 0 and {r} differ in {f}")
+            k1, k3, k4 = (int(v) for v in d["sl_launches"])
+            if min(k1, k3, k4) <= 0:
+                raise AssertionError(f"{backend} rank {r}: K1/K3/K4 launches {k1}/{k3}/{k4}")
+        log(f"[distributed] {backend}, {world} rank(s) on cuda:0, particle T={DIST_T} B={DIST_B} "
+            f"f32 (mesh of {int(ranks[0]['mesh_size'])} entries): every rank's global xs, us, "
+            f"iterations and stats equal, and equal to the one-process solve bitwise (solved "
+            f"{float(ranks[0]['sl_stats_solved_fraction']):.4f}); K1/K3/K4 launches by rank "
+            f"{[d['sl_launches'].tolist() for d in ranks]}")
+    log(f"[distributed] both groups' processes, started before phase 9b: {wall:.1f} s to "
+        "their end")
+
+
+def check_horizon(P):
+    """Phase 9e: make_horizon_sharded_backward over [cuda:0] x 4 and x 8
+    against backward_pass_associative (1e-10 relative) and the reverse scan
+    on one linearization of pendulum T=1025 in f64 (controls 0.01 + 0.01
+    N(0,1), rolled out from x1); then the long-horizon example's solve."""
+    from iterativelqr_tpu_torch.examples import long_horizon
+    from iterativelqr_tpu_torch.models import pendulum
+    from iterativelqr_tpu_torch.ops import derivatives as dv
+    from iterativelqr_tpu_torch.ops.assoc import backward_pass_associative
+    from iterativelqr_tpu_torch.ops.backward import backward_pass_scan
+    from iterativelqr_tpu_torch.ops.rollout import open_loop_rollout
+    from iterativelqr_tpu_torch.parallel import default_mesh, make_horizon_sharded_backward
+
+    dev, T = torch.device("cuda"), T_LONG_CHECK
+    dyn, cost, con, x1, _ = pendulum.problem(T, device=dev)
+    spec = P.build_spec(dyn, cost, con)
+    rng = np.random.default_rng(SEED)
+    us = torch.as_tensor(0.01 + 0.01 * rng.standard_normal((T - 1, 1)), device=dev)
+    ws = torch.zeros((T, 0), dtype=torch.float64, device=dev)
+    xs = open_loop_rollout(spec, x1, us, ws)
+    stacks = (*dv.dynamics_jacobians(spec, xs, us, ws), *dv.cost_gradients(spec, xs, us, ws),
+              *dv.cost_hessians(spec, xs, us, ws))
+    um = torch.as_tensor(spec.u_mask, device=dev)
+    reg = torch.zeros((), dtype=torch.float64, device=dev)
+    assoc = backward_pass_associative(*stacks, um, reg)
+    scan = backward_pass_scan(*stacks, um, reg)
+    for n in (4, 8):
+        mesh = default_mesh([torch.device("cuda", 0)] * n, "time")
+        bp = make_horizon_sharded_backward(mesh, "time")
+        out = bp(*stacks, um, reg)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: bp(*stacks, um, reg), reps=3, warmup=1)
+        errs = {}
+        for name, a, b, c in zip(("K", "k", "Qx", "Qu", "p"), out[:5], assoc[:5], scan[:5]):
+            ra = float((a - b).abs().max() / b.abs().max())
+            rs = float((a - c).abs().max() / c.abs().max())
+            errs[name] = (ra, rs)
+            if not ra <= 1e-10 or not rs <= 1e-8:
+                raise AssertionError(f"horizon x{n}: {name} {ra:.2e} from the associative scan, "
+                                     f"{rs:.2e} from the reverse scan")
+        if not (bool(out[5]) and bool(assoc[5])):
+            raise AssertionError(f"horizon x{n}: ok flags {bool(out[5])}, {bool(assoc[5])}")
+        log(f"[horizon] pendulum T={T} f64, {n} chunks on cuda:0: relative to the associative "
+            f"scan / the reverse scan " + ", ".join(f"{k} {a:.1e} / {b:.1e}" for k, (a, b) in
+                                                     errs.items()) + f"; {ms:.2f} ms a call")
+    sol, wall = long_horizon.main(["--horizon", str(T_LONG), "--device", "cuda"])
+    log(f"[horizon] long_horizon example: pendulum T={T_LONG}, 4 chunks on cuda:0: "
+        f"{int(sol.iterations)} iterations, objective {float(sol.objective):.6f}, violation "
+        f"{float(sol.max_violation):.3e}, wall {wall:.1f} s")
+    if not float(sol.max_violation) <= 5e-3:
+        raise AssertionError("long_horizon: the solve is infeasible")
+
+
+def busy_and_gaps(spans, t0, t1):
+    """(busy share of [t0, t1] under the union of the (start, end)
+    ``spans``, the three longest idle gaps as (start, end))."""
+    spans = sorted((max(a, t0), min(b, t1)) for a, b in spans if b > t0 and a < t1)
+    busy, gaps, cursor = 0.0, [], t0
+    for a, b in spans:
+        if a > cursor:
+            gaps.append((cursor, a))
+        if b > cursor:
+            busy += b - max(a, cursor)
+            cursor = b
+    if t1 > cursor:
+        gaps.append((cursor, t1))
+    return busy / (t1 - t0), sorted(gaps, key=lambda g: g[0] - g[1])[:3]
+
+
+def profile_tuned(P, ref):
+    """Phase 9f: utils/profiling.trace (CPU and CUDA activities) around a
+    tuned solve on phase 4's kernel inputs (acrobot T=101, B=4096), cut to
+    PROFILE_TRIPS trips, after one untraced call of the same solver and
+    one timed untraced call, read from the exported Chrome trace (one
+    clock for host, device and Python events).  A trace without Python
+    frames gives the ten device operations with the most device time, the
+    share of the solve's window in which the card ran any device operation
+    and that share trip by trip (a trip ends where its K4 re-roll ends); a
+    second trace with Python frames (``with_stack``) gives its own share,
+    and the three longest idle gaps with the host operations and the
+    port's innermost Python frames recorded over each.  The profiler
+    stretches the host, so device time over the untraced wall is printed
+    beside the traced shares."""
+    import glob
+    import shutil
+
+    from iterativelqr_tpu_torch.models import acrobot
+    from iterativelqr_tpu_torch.utils import profiling
+
+    _, _, inputs = ref
+    spec = P.build_spec(*acrobot.problem(T_MAIN)[:3])
+    solve = P.make_batched_solve_fn(
+        spec, P.Options(**TUNED, forward_kernel="pallas", max_total_iterations=PROFILE_TRIPS),
+        device="cuda", dtype=torch.float32)
+    solve(*inputs)      # the solver's first call stays out of the windows
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solve(*inputs)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    span = lambda e: (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+
+    def traced(with_stack):
+        logdir = os.path.join(SCRATCH, "profile" + ("_stack" if with_stack else ""))
+        shutil.rmtree(logdir, ignore_errors=True)
+        t0 = time.perf_counter()
+        with profiling.trace(logdir, with_stack=with_stack):
+            with profiling.annotate("tuned_solve"):
+                sol = solve(*inputs)
+                torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        (path,) = glob.glob(os.path.join(logdir, "*.json"))
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        window = max((e for e in events if e.get("cat") == "user_annotation"
+                      and e.get("name") == "tuned_solve"),
+                     key=lambda e: float(e.get("dur", 0.0)))
+        device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if not device:
+            raise AssertionError("profile: the trace holds no device operation")
+        w0, w1 = span(window)
+        spans = [span(e) for e in device]
+        busy, gaps = busy_and_gaps(spans, w0, w1)
+        dev_total = sum(float(e.get("dur", 0.0)) for e in device)
+        log(f"[profile] tuned acrobot T={T_MAIN} B={B_MAIN} f32, {int(sol.iterations.max())} "
+            f"trips after an untraced call, {'with' if with_stack else 'without'} Python "
+            f"frames: traced window {(w1 - w0) / 1e3:.1f} ms (wall with the profiler "
+            f"{wall:.2f} s, untraced {plain_wall * 1e3:.1f} ms), device operations "
+            f"{len(device)}, device busy {busy:.4f} of the window (idle {1 - busy:.4f}), "
+            f"device time {dev_total / 1e3:.1f} ms, {dev_total / 1e6 / plain_wall:.4f} of "
+            f"the untraced wall; trace {os.path.getsize(path) / 1e6:.1f} MB")
+        return events, device, spans, (w0, w1), gaps
+
+    events, device, spans, (w0, w1), _ = traced(with_stack=False)
+    ends = sorted(span(e)[1] for e in device
+                  if "sl_rollout_kernel" in e["name"] and "Reroll" in e["name"])
+    if not ends:
+        raise AssertionError("profile: the trace holds no K4 launch")
+    trips = [busy_and_gaps(spans, a, b)[0] for a, b in zip([w0] + ends[:-1], ends)]
+    rest = busy_and_gaps(spans, ends[0], ends[-1])[0] if len(ends) > 1 else float("nan")
+    log(f"[profile] busy share trip by trip ({len(ends)} K4 launches): "
+        f"{[round(b, 4) for b in trips]}; trips 2 to {len(trips)}: {rest:.4f}; after the "
+        f"last K4 {(w1 - ends[-1]) / 1e3:.1f} ms")
+    by_name, count = collections.Counter(), collections.Counter()
+    for e in device:
+        by_name[e["name"]] += float(e.get("dur", 0.0))
+        count[e["name"]] += 1
+    dev_total = sum(by_name.values())
+    for name, us_ in by_name.most_common(10):
+        log(f"[profile] top device op: {us_ / 1e3:9.2f} ms {count[name]:7d} x "
+            f"{us_ / dev_total:.3f} of device time  {name[:110]}")
+
+    events, _, _, (w0, _), gaps = traced(with_stack=True)
+    frames = [e for e in events if e.get("cat") == "python_function"]
+    host = [e for e in events if e.get("cat") == "cpu_op"]
+    for a, b in gaps:
+        over = lambda e: span(e)[0] < b and span(e)[1] > a
+        ops = collections.Counter(e["name"] for e in host if over(e))
+        # innermost (shortest) first
+        mine = sorted((e for e in frames if over(e) and "iterativelqr_tpu_torch/" in e["name"]),
+                      key=lambda e: float(e.get("dur", 0.0)))
+        names = list(dict.fromkeys(e["name"].split("iterativelqr_tpu_torch/")[-1] for e in mine))
+        log(f"[profile] idle gap {(b - a) / 1e3:.2f} ms at +{(a - w0) / 1e3:.1f} ms: host ops "
+            f"{dict(ops.most_common(6))}; innermost Python frames of the port {names[:4]}; "
+            f"{len(frames)} frames recorded")
+
+
+def check_checkpoint(P, sol, mpc_state):
+    """Phase 9g: a Solution (phase 9b) and an MPCState (phase 7d) through
+    utils/checkpoint save and load on the card: bitwise, device and dtype
+    kept."""
+    import dataclasses as dc
+
+    from iterativelqr_tpu_torch.utils import checkpoint
+
+    os.makedirs(SCRATCH, exist_ok=True)
+    for name, state in (("solution", sol), ("mpc_state", mpc_state)):
+        path = checkpoint.save(os.path.join(SCRATCH, f"ckpt_{name}"), state)
+        like = type(state)(**{f.name: torch.zeros_like(getattr(state, f.name))
+                              for f in dc.fields(state)})
+        back = checkpoint.load(path, like)
+        for a, b in zip(checkpoint.tree_leaves(back), checkpoint.tree_leaves(state)):
+            if not (torch.equal(a, b) and a.device == b.device and a.dtype == b.dtype):
+                raise AssertionError(f"checkpoint {name}: a leaf came back changed")
+        os.remove(path)
+        log(f"[checkpoint] {name}: {len(checkpoint.tree_leaves(state))} leaves saved and "
+            f"loaded on {b.device}, bitwise, dtypes kept")
 
 
 # ---------------------------------------------------------------------------
@@ -1977,7 +2474,7 @@ def check_vmap_card_vs_cpu(P):
 
 
 def check_golden_per_instance(P, backward_pass, fixture):
-    """A golden solution (``fixture``: car, acrobot_T101) through the
+    """A golden solution (``fixture``: car, quadrotor) through the
     per-instance solver on the card (make_solve_fn(spec,
     Options(adaptive_penalty=False)), one instance, f64) with
     ``backward_pass`` "scan" or the default "auto" (on one instance the
@@ -2147,7 +2644,7 @@ def main():
     at("phase 5 card vs cpu")
     for fixture in GOLDEN:
         check_golden(P, fixture)
-    for backward_pass, fixture in (("scan", "car"), ("auto", "acrobot_T101")):
+    for backward_pass, fixture in (("scan", "car"), ("auto", "quadrotor")):
         check_golden_per_instance(P, backward_pass, fixture)
     at("phase 5 golden")
 
@@ -2191,7 +2688,7 @@ def main():
     at("phase 7b")
     check_ddp(P)
     at("phase 7c")
-    check_mpc(P)
+    mpc_state = check_mpc(P)
     farm_rate, _ = run_farm(P)
     at("phase 7d")
 
@@ -2224,6 +2721,30 @@ def main():
         kname, label = key.split("/")
         rec["launches"] = gen_counts[label][f"{kname}_generated"]
         extra.append((kname, f"generated model={label}", rec))
+
+    # phase 9: the batch-sharded, time-sharded and multi-process routes
+    launches.update(run_pod_sweep(P))
+    at("phase 9a")
+    started = start_distributed()
+    sharded_sol, counts = run_sharded(P, single_shot["tuned"])
+    launches.update(counts)
+    at("phase 9b")
+    launches.update(run_compacted_devices(P, single_shot["parity"]))
+    at("phase 9c")
+    finish_distributed(P, started)
+    at("phase 9d")
+    check_horizon(P)
+    at("phase 9e")
+    profile_tuned(P, single_shot["tuned"])
+    at("phase 9f")
+    check_checkpoint(P, sharded_sol, mpc_state)
+    at("phase 9g")
+    from iterativelqr_tpu_torch.entry import dryrun_multichip
+
+    dryrun_multichip(2)
+    log("[entry] dryrun_multichip(2) on [cuda:0, cuda:0]: the vmap, SL and per-device "
+        "compaction routes agree (iterations, xs within 2e-3, reported violations recomputed)")
+    at("phase 9h")
 
     sources = {"riccati_backward": ("riccati_backward.cu", "iterativelqr_tpu/ops/packed_backward.py:509"),
                "riccati_backward_wide": ("riccati_backward_wide.cu", "iterativelqr_tpu/ops/packed_backward.py:574"),

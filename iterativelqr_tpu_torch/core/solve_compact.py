@@ -29,8 +29,15 @@ Each trip tests ``all(stop)`` on the host, as the single-shot solver does.
 ``GRAIN`` keeps every batch shape a multiple of the kernels' 32-lane blocks
 and 16-byte aligned; tests lower it to force repacks at small B.  The JAX
 module's program-cache plumbing (``interpret``, ``cache_dir``,
-``cache_key``) has no counterpart here, and its per-device route
-(``devices`` with more than one device) waits for ROADMAP M17.
+``cache_key``) has no counterpart here.
+
+Per-device compaction (``devices`` with more than one entry, JAX's
+``solve_sharded``): the batch splits into one contiguous sub-batch a device
+(``np.linspace`` bounds, so any B) and each runs its own compaction loop.
+The loops advance trip by trip in turns (``solve_sl.py::run_interleaved``),
+so every device has its next trip queued before any device's stop flags
+are synced; entries may repeat a device.  Per-lane results are bitwise the
+single-device loop's.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ import torch
 
 from .options import Options
 from .solve import Solution
-from .solve_sl import make_sl_parts
+from .solve_sl import make_sl_parts, run_interleaved
 from .spec import ProblemSpec
 
 # lanes a batch shape is a multiple of (a multiple of 32: the kernels'
@@ -100,22 +107,18 @@ def make_compacted_solve_fn(
     are built at their first use.  ``rescue_options`` replaces the strong
     rescue's default schedule (the options with no iteration cap and
     ``regularization_initial = max(reg_init, 1e-3)``).  The solve runs on
-    ``device`` in ``dtype`` (the card unless the caller passes "cpu").
+    ``device`` in ``dtype`` (the card unless the caller passes "cpu");
+    ``devices`` with more than one entry runs one compaction loop a device
+    (module docstring), with the inputs and the Solution on ``device``.
     The returned callable's ``last_run`` is the ``CompactionRecord`` of its
-    latest call.
+    latest call (with ``devices``, a list of them, one a sub-batch).
 
     Exit diagnostics: trajectories, iterates, duals and violations equal
     the single-shot SL solver's bitwise; ``K``, ``k`` and
     ``gradient_norm`` come from one finish on the full batch and may
     differ on PD-marginal lanes, as in the JAX module.
     """
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            "per-device compaction across several devices is not ported yet "
-            "(ROADMAP M17)")
     device = torch.device(device)
-    parts = make_sl_parts(spec, options, device=device, dtype=dtype,
-                          dual_warm_start=dual_warm_start)
     rescue_schedules = []
     if rescue:
         if options.early_round_iteration_cap is not None:
@@ -126,8 +129,15 @@ def make_compacted_solve_fn(
         rescue_schedules.append(("rescue_strong", rescue_options or dataclasses.replace(
             options, early_round_iteration_cap=None,
             regularization_initial=max(options.regularization_initial, 1.0e-3))))
-    rescue_parts = {}
+    built = {}
     tol = options.constraint_tolerance
+
+    def parts_on(dev, tag="solve", opts=options):
+        """The SL parts of one schedule on one device, built at first use."""
+        if (tag, dev) not in built:
+            built[tag, dev] = make_sl_parts(spec, opts, device=dev, dtype=dtype,
+                                            dual_warm_start=dual_warm_start)
+        return built[tag, dev]
 
     def gather(tree, idx):
         return type(tree)(*(a.index_select(-1, idx) for a in tree))
@@ -135,30 +145,25 @@ def make_compacted_solve_fn(
     def scatter(full, small, idx):
         return type(full)(*(f.index_copy(-1, idx, s) for f, s in zip(full, small)))
 
-    def run_rescue(sol, failed, inputs, tag, opts_r):
+    def run_rescue(sol, failed, inputs, dev, tag, opts_r):
         """Re-solve the lanes ``failed`` from their original inputs under
         ``opts_r`` in one grain-sized batch (tiled to fill; the replicas
         are discarded) and patch their rows of ``sol``."""
-        if tag not in rescue_parts:
-            rescue_parts[tag] = make_sl_parts(spec, opts_r, device=device, dtype=dtype,
-                                              dual_warm_start=dual_warm_start)
         Br = max(GRAIN, _round_up(failed.size, GRAIN))
-        sel = torch.as_tensor(np.resize(failed, Br), device=device)
-        sol_r = _run_to_stop(rescue_parts[tag], tuple(a.index_select(0, sel) for a in inputs))
-        rows = torch.as_tensor(failed, device=device)
+        sel = torch.as_tensor(np.resize(failed, Br), device=dev)
+        sol_r = _run_to_stop(parts_on(dev, tag, opts_r),
+                             tuple(a.index_select(0, sel) for a in inputs))
+        rows = torch.as_tensor(failed, device=dev)
         n = failed.size
         return Solution(**{
             f.name: getattr(sol, f.name).index_copy(0, rows, getattr(sol_r, f.name)[:n])
             for f in dataclasses.fields(sol)})
 
-    def solve(xs_b, us_b, ws_b, *warm) -> Solution:
-        inputs = (xs_b, us_b, ws_b) + warm
-        for i, a in enumerate(inputs):
-            if a.dtype != dtype or a.device.type != device.type:
-                raise ValueError(f"argument {i}: {a.dtype} on {a.device}, but the "
-                                 f"solver was built for {dtype} on {device}")
-        record = CompactionRecord()
-        solve.last_run = record
+    def compact(inputs, dev, record):
+        """One compaction loop on ``dev`` (where ``inputs`` are), as a
+        generator that yields after queueing each trip and returns the
+        Solution."""
+        parts = parts_on(dev)
         carry_full, ws_full = parts.init(*inputs)
         B0 = carry_full.stop.shape[-1]
         carry, ws_cur, idx = carry_full, ws_full, None
@@ -171,6 +176,7 @@ def make_compacted_solve_fn(
                     break
                 carry = body(carry)
                 trips += 1
+                yield
             if record.shapes and record.shapes[-1][0] == Bc:
                 record.shapes[-1] = (Bc, record.shapes[-1][1] + trips)
             else:
@@ -189,7 +195,7 @@ def make_compacted_solve_fn(
             if idx is not None:
                 carry_full = scatter(carry_full, carry, idx)
                 sel = idx.cpu().numpy()[sel]          # to full-batch lanes
-            idx = torch.as_tensor(sel, device=device)
+            idx = torch.as_tensor(sel, device=dev)
             carry, ws_cur = gather(carry_full, idx), ws_full.index_select(-1, idx)
             record.repacks += 1
         if idx is not None:
@@ -200,19 +206,50 @@ def make_compacted_solve_fn(
             failed = np.flatnonzero(~(sol.max_violation.cpu().numpy() <= tol))
             if failed.size:
                 record.rescued[tag] = int(failed.size)
-                sol = run_rescue(sol, failed, inputs, tag, opts_r)
-        if record.rescued["rescue"]:
+                sol = run_rescue(sol, failed, inputs, dev, tag, opts_r)
+        return sol
+
+    def log_rescues(records):
+        """One warning a rescue kind, summed over the sub-batches."""
+        lanes = sum(r.rescued["rescue"] for r in records)
+        if lanes:
             _log.warning(
                 "[compact] rescue: %d lane(s) exited infeasible under the "
-                "truncated schedule; re-solved at the exact uncapped schedule",
-                record.rescued["rescue"])
-        if record.rescued["rescue_strong"]:
+                "truncated schedule; re-solved at the exact uncapped schedule", lanes)
+        lanes = sum(r.rescued["rescue_strong"] for r in records)
+        if lanes:
             _log.warning(
                 "[compact] strong rescue: %d lane(s) infeasible/NaN even "
                 "uncapped; re-solved at escalated initial regularization (%g)",
-                record.rescued["rescue_strong"],
-                rescue_schedules[-1][1].regularization_initial)
-        return sol
+                lanes, rescue_schedules[-1][1].regularization_initial)
+
+    parts_on(device)     # checks the rollout-kernel choice now
+
+    def solve(xs_b, us_b, ws_b, *warm) -> Solution:
+        inputs = (xs_b, us_b, ws_b) + warm
+        for i, a in enumerate(inputs):
+            if a.dtype != dtype or a.device.type != device.type:
+                raise ValueError(f"argument {i}: {a.dtype} on {a.device}, but the "
+                                 f"solver was built for {dtype} on {device}")
+        if devices is None or len(devices) <= 1:
+            record = CompactionRecord()
+            solve.last_run = record
+            (sol,) = run_interleaved([compact(inputs, device, record)])
+            log_rescues([record])
+            return sol
+        # per-device compaction: contiguous sub-batches, np.linspace bounds
+        bounds = np.linspace(0, int(xs_b.shape[0]), len(devices) + 1).astype(int)
+        subs = [(torch.device(d), int(lo), int(hi))
+                for d, lo, hi in zip(devices, bounds[:-1], bounds[1:]) if hi > lo]
+        records = [CompactionRecord() for _ in subs]
+        solve.last_run = records
+        sols = run_interleaved([
+            compact(tuple(a[lo:hi].to(dev) for a in inputs), dev, rec)
+            for (dev, lo, hi), rec in zip(subs, records)])
+        log_rescues(records)
+        return Solution(**{
+            f.name: torch.cat([getattr(s, f.name).to(device) for s in sols], dim=0)
+            for f in dataclasses.fields(Solution)})
 
     solve.last_run = None
     return solve

@@ -276,10 +276,39 @@ def make_batched_solve_sl(
     )
 
     def solve_batch(xs_init, us_init, ws_b, *warm) -> Solution:
-        s, ws = parts.init(xs_init, us_init, ws_b, *warm)
-        step = parts.body(ws)
-        while not bool(s.stop.all()):
-            s = step(s)
-        return parts.finish(s, ws)
+        return run_interleaved([sl_trips(parts, xs_init, us_init, ws_b, *warm)])[0]
 
     return solve_batch
+
+
+def sl_trips(parts: SLParts, *args):
+    """The single-shot SL solve of ``args`` as a generator: it yields after
+    queueing each loop trip (before that trip's ``all(stop)`` test, the
+    trip's only sync outside the body) and returns the Solution."""
+    s, ws = parts.init(*args)
+    step = parts.body(ws)
+    while not bool(s.stop.all()):
+        s = step(s)
+        yield
+    return parts.finish(s, ws)
+
+
+def run_interleaved(gens):
+    """Drive generators in turns, one step of each a round, until each has
+    returned; returns their values in order.  With one solve a device,
+    every device has its next trip queued before any device's stop flags
+    are synced, so the devices overlap on one host thread (the JAX
+    package's per-device dispatch, ``core/solve_compact.py::
+    solve_sharded``)."""
+    results = [None] * len(gens)
+    live = list(enumerate(gens))
+    while live:
+        nxt = []
+        for i, g in live:
+            try:
+                next(g)
+                nxt.append((i, g))
+            except StopIteration as done:
+                results[i] = done.value
+        live = nxt
+    return results

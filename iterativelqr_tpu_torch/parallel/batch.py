@@ -35,6 +35,13 @@ def _sl_eligible(options: Options, callback) -> bool:
     )
 
 
+def _use_sl(options: Options, callback) -> bool:
+    """The batched route: the SL solver for ``batched_solver="sl"``, and
+    for "auto" wherever ``_sl_eligible`` holds; the vmap route otherwise."""
+    return options.batched_solver == "sl" or (
+        options.batched_solver == "auto" and _sl_eligible(options, callback))
+
+
 def make_batched_solve_fn(
     spec: ProblemSpec,
     options: Options = Options(),
@@ -59,9 +66,7 @@ def make_batched_solve_fn(
     a TPU or with ``interpret=True``, and the port's CPU path (the kernels'
     plain versions) plays the part of ``interpret=True``.
     """
-    use_sl = options.batched_solver == "sl" or (
-        options.batched_solver == "auto" and _sl_eligible(options, callback)
-    )
+    use_sl = _use_sl(options, callback)
     device = torch.device(device)
     eff_in_axes = tuple(in_axes) + ((0, 0) if dual_warm_start else ())
     if use_sl:
@@ -100,17 +105,37 @@ class BatchStats(NamedTuple):
     line_search_failures: torch.Tensor
 
 
+def _partial_stats(sol: Solution, constraint_tolerance=None):
+    """The sums, counts and maximum from which ``BatchStats`` reduce, so
+    that one batch and shards of it (added, maxima taken) share one code
+    path: (sums [solved, iterations, violation, objective, failures,
+    lanes] in the solution's dtype, max violation [1])."""
+    if constraint_tolerance is None:
+        constraint_tolerance = sol.tol_constraint
+    dt = sol.objective.dtype
+    solved = (sol.max_violation <= constraint_tolerance).to(torch.float32).sum()
+    sums = torch.stack([
+        solved.to(dt),
+        sol.iterations.to(torch.float32).sum().to(dt),
+        sol.max_violation.sum(), sol.objective.sum(),
+        (~sol.status).to(dt).sum(),
+        torch.tensor(float(sol.xs.shape[0]), dtype=dt, device=sol.xs.device)])
+    return sums, sol.max_violation.max().reshape(1)
+
+
+def _stats_from(sums, vmax) -> BatchStats:
+    solved, iters, viol, obj, failures, lanes = sums.unbind()
+    return BatchStats(
+        solved_fraction=solved.to(torch.float32) / lanes.to(torch.float32),
+        mean_iterations=iters.to(torch.float32) / lanes.to(torch.float32),
+        max_violation=vmax[0],
+        mean_violation=viol / lanes,
+        mean_objective=obj / lanes,
+        line_search_failures=failures.to(torch.int32),
+    )
+
+
 def batch_stats(sol: Solution, constraint_tolerance=None) -> BatchStats:
     """Defaults to the tolerance the solve ran with (``sol.tol_constraint``);
     pass a value only to re-bucket at a different threshold."""
-    if constraint_tolerance is None:
-        constraint_tolerance = sol.tol_constraint
-    solved = sol.max_violation <= constraint_tolerance
-    return BatchStats(
-        solved_fraction=solved.to(torch.float32).mean(),
-        mean_iterations=sol.iterations.to(torch.float32).mean(),
-        max_violation=sol.max_violation.max(),
-        mean_violation=sol.max_violation.mean(),
-        mean_objective=sol.objective.mean(),
-        line_search_failures=(~sol.status).to(torch.int32).sum(),
-    )
+    return _stats_from(*_partial_stats(sol, constraint_tolerance))

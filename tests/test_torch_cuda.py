@@ -498,20 +498,12 @@ def test_associative_scan_on_the_card_matches_the_cpu(dtype, tol):
         _assert_close_scaled([o.cpu() for o in out[:5]], ref[:5], tol)
 
 
-@pytest.mark.cuda
-def test_compacted_solve_on_the_card_matches_single_shot():
-    """core/solve_compact.py on the card with a grain of 32 lanes (car T=8,
-    B=256, f32, the rollout kernels): the batch repacks, and each lane's
-    iterations equal the single-shot SL solve's."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+def _car_spread(T=8, B=256):
+    """Car T=8, B=256, f32 on the card: x0 = x1 + 0.3 N(0,1), controls
+    0.01, states rolled out; the options of the compaction tests with the
+    rollout kernels."""
     from torch.func import vmap
 
-    from iterativelqr_tpu_torch import Options
-    from iterativelqr_tpu_torch.core import solve_compact
-    from iterativelqr_tpu_torch.core.solve_sl import make_batched_solve_sl
-
-    T, B = 8, 256
     dyn, cost, con, x1, _ = car.problem(T)
     spec = build_spec(dyn, cost, con)
     x = torch.as_tensor(x1.numpy() + 0.3 * np.random.default_rng(11).standard_normal((B, 3)),
@@ -523,7 +515,21 @@ def test_compacted_solve_on_the_card_matches_single_shot():
         xs.append(x)
     args = (torch.stack(xs, dim=1), us, torch.zeros((B, T, 0), device="cuda"))
     opts = Options(record_traces=False, backward_pass="packed", max_iterations=10,
-                   max_dual_updates=4, forward_kernel="pallas")
+                   max_dual_updates=4, forward_kernel="pallas", batched_solver="sl")
+    return spec, opts, args
+
+
+@pytest.mark.cuda
+def test_compacted_solve_on_the_card_matches_single_shot():
+    """core/solve_compact.py on the card with a grain of 32 lanes (car T=8,
+    B=256, f32, the rollout kernels): the batch repacks, and each lane's
+    iterations equal the single-shot SL solve's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from iterativelqr_tpu_torch.core import solve_compact
+    from iterativelqr_tpu_torch.core.solve_sl import make_batched_solve_sl
+
+    spec, opts, args = _car_spread()
     ref = make_batched_solve_sl(spec, opts, device="cuda")(*args)
     grain = solve_compact.GRAIN
     solve_compact.GRAIN = 32
@@ -535,3 +541,53 @@ def test_compacted_solve_on_the_card_matches_single_shot():
     assert solve.last_run.repacks >= 1
     assert torch.equal(out.iterations, ref.iterations)
     torch.testing.assert_close(out.xs, ref.xs, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["sharded", "compacted"])
+def test_two_entries_on_one_card_equal_one_solve(route):
+    """Two mesh entries on cuda:0 (car T=8, B=256, f32, the kernels): the
+    batch-sharded SL solve (parallel/shard.py) against the single-shot SL
+    solve, and per-device compaction against the single-device loop;
+    every lane's iterations, xs and us bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from iterativelqr_tpu_torch.core import solve_compact
+    from iterativelqr_tpu_torch.core.solve_sl import make_batched_solve_sl
+    from iterativelqr_tpu_torch.parallel import default_mesh, make_sharded_solve_fn
+
+    spec, opts, args = _car_spread()
+    devices = [torch.device("cuda", 0)] * 2
+    if route == "sharded":
+        ref = make_batched_solve_sl(spec, opts, device="cuda")(*args)
+        out, _ = make_sharded_solve_fn(spec, opts, mesh=default_mesh(devices))(*args)
+    else:
+        grain = solve_compact.GRAIN
+        solve_compact.GRAIN = 32
+        try:
+            ref = solve_compact.make_compacted_solve_fn(spec, opts, chunk=4)(*args)
+            out = solve_compact.make_compacted_solve_fn(spec, opts, chunk=4, devices=devices)(*args)
+        finally:
+            solve_compact.GRAIN = grain
+    for f in ("iterations", "xs", "us"):
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f
+
+
+@pytest.mark.cuda
+def test_vmap_route_over_distinct_cards_equals_one_card():
+    """The vmap route over two cards against the same two shards on cuda:0
+    (car T=8, B=256, f32, traces on): iterations, xs, us and the stats
+    bitwise equal."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from iterativelqr_tpu_torch.parallel import default_mesh, make_sharded_solve_fn
+
+    spec, _, args = _car_spread()
+    opts = Options(max_iterations=10, max_dual_updates=4, batched_solver="vmap")
+    two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    out, stats = make_sharded_solve_fn(spec, opts, mesh=default_mesh(two))(*args)
+    ref, want = make_sharded_solve_fn(spec, opts, mesh=default_mesh(two[:1] * 2))(*args)
+    for f in ("iterations", "xs", "us"):
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f
+    for f in stats._fields:
+        assert torch.equal(getattr(stats, f), getattr(want, f)), f

@@ -190,11 +190,21 @@ def test_rescue_detects_nan_lanes(grain, caplog):
     assert bool((others <= opts.constraint_tolerance).all())
 
 
-def test_devices_refused():
-    spec, *_ = spread_batch(4)
-    with pytest.raises(NotImplementedError, match="M17"):
-        make_compacted_solve_fn(spec, Options(**BASE), devices=["cuda:0", "cuda:1"],
-                                device="cpu", dtype=DT)
+@pytest.mark.parametrize("n_dev,B", [(2, 64), (3, 64)])
+def test_compacted_multi_device_matches_single(grain, n_dev, B):
+    """Per-device compaction (tests/test_solve_compact.py::
+    test_compacted_multi_device_matches_single): one compaction loop a
+    device on contiguous sub-batches, advanced in turns; every lane equals
+    the single-device loop's bitwise.  Three devices split B=64 as 21 /
+    21 / 22 (np.linspace bounds: B need not divide)."""
+    spec, xs, us, ws = spread_batch(B)
+    opts = Options(**BASE)
+    ref, ref_run = compacted(spec, opts, xs, us, ws, chunk=6)
+    out, runs = compacted(spec, opts, xs, us, ws, chunk=6, devices=["cpu"] * n_dev)
+    assert len(runs) == n_dev and ref_run.repacks >= 1
+    assert [b for b, _ in (r.shapes[0] for r in runs)] == list(
+        np.diff(np.linspace(0, B, n_dev + 1).astype(int)))
+    assert_solutions_equal(out, ref)
 
 
 def test_batched_entry_is_the_single_shot_solver():
