@@ -48,8 +48,8 @@ Phases, each of which raises (non-zero exit) when it fails:
 4c. the per-instance solver's vmap route at acrobot, f32 (bench.py's
    initial guess): the literal make_batched_solve_fn(spec, Options())
    (traces on, the "auto" backward = the reverse scan, loop rollouts) at
-   B=B_VMAP_LOOP=14, T=T_VMAP_LOOP=41, and at B=4096, T=T_LOOP=51 the
-   tuned preset with
+   B=B_VMAP_LOOP=14, T=T_VMAP_LOOP=41, and at B=B_VMAP_K6=64,
+   T=T_LOOP=51 the tuned preset with
    traces through
    make_solve_fn(..., backward_impl=make_backward_dispatch(variant="v1" |
    "v2")).vmap() (K6a, K6b); then the same two dispatches on the quadrotor
@@ -111,8 +111,9 @@ Phases, each of which raises (non-zero exit) when it fails:
    problems written as torch lambdas and closures
    (tests/torch_user_problems.py): the acrobot's functions in lambdas,
    examples/mpc_farm.py's problem and examples/sensitivity_demo.py's (a
-   target path in the per-step parameters w); their nvcc runs started
-   together, the build's seconds and ptxas's registers and spills;
+   target path in the per-step parameters w), and phase 8e's two; their
+   nvcc runs started together, the build's seconds and ptxas's registers
+   and spills in f32 and f64;
 8b. their K3 (head j0=0, tail j0=8) and K4 against the plain versions at
    B=4096 in f64 and f32 (acrobot T=101, the farm and the demo T=11, the
    demo with a different target ramp on every lane), K4's J = K3's J, and
@@ -125,8 +126,24 @@ Phases, each of which raises (non-zero exit) when it fails:
    demo with a target ramp a lane in w; solved fractions recomputed (>=
    0.99) and the generated symbols' K3/K4 launches (> 0);
 8d. refusals: a stage cost with a data-dependent branch and one with an op
-   outside the whitelist refuse under forward_kernel="pallas", naming it,
-   and take the loops under "auto" with no K3/K4 launch;
+   outside the whitelist (a matrix decomposition) refuse under
+   forward_kernel="pallas", naming it, and take the loops under "auto"
+   with no K3/K4 launch;
+8e. two problems as users write them (tests/torch_user_problems.py):
+   models/quadrotor.py's at (12, 4), T=41, with a rotation matrix built
+   with stack and used through @, the inertia a diagonal matrix with
+   linalg.cross, quadratic-form costs; models/car.py's at T=51 with
+   constant indexing, a vector_norm obstacle row and d @ Q @ d costs.  Their
+   generated K3 (head, tail) and K4 against the plain versions at B=4096
+   in f64 and f32, K4's J = K3's J, K3's J against the registered
+   hand-written model's on the same inputs; times beside the hand-written
+   kernels', bounds, shares; then B=4096 f32 SL solves with
+   forward_kernel="pallas" from phase 4's inputs (K1 for the car, K2 for
+   the quadrotor, the generated K3/K4): the recomputed solved fraction >=
+   0.99 and within 0.01 of the registered model's phase 4 solve; and the
+   generated K3/K4 of a problem using every elementwise function and
+   reduction the generator lowers against their plain versions (f64,
+   f32);
 9a. iterativelqr_tpu_torch/examples/pod_sweep.py at its default size: 65,536
    instances at T=51, f32 (acrobot 32,768 and car 32,768 lanes) over
    default_mesh() (every visible card), "auto" rollouts: per family the
@@ -144,12 +161,14 @@ Phases, each of which raises (non-zero exit) when it fails:
    two gloo ranks on cuda:0 and one NCCL rank at world size 1 (NCCL refuses
    two ranks on one card), particle T=11, B=4096, f32, K1/K3/K4 in every
    rank; each rank's global xs and stats equal the other's and a
-   one-process solve's bitwise; each process has a timeout; the processes
-   run while phases 9b and 9c run;
+   one-process solve's bitwise; the gloo ranks also run the time-sharded
+   recursion across the two processes (pendulum linearizations, f64),
+   equal on both ranks and within 1e-12 of the one-process recursion; each
+   process has a timeout; the processes run while phases 9b and 9c run;
 9e. make_horizon_sharded_backward over [cuda:0] x 4 and x 8 against the
    associative scan (1e-10 relative) and the reverse scan (1e-8) on a
    pendulum T=1025 linearization in f64, then the long-horizon example's
-   solve (pendulum T=T_LONG=129, four chunks on the card);
+   solve (pendulum T=T_LONG=65, four chunks on the card);
 9f. utils/profiling.trace around a tuned solve on phase 4's kernel inputs,
    cut to PROFILE_TRIPS=8 trips, after an untraced call and a timed one,
    read from the exported trace: without Python frames, the ten device
@@ -165,15 +184,17 @@ Phases, each of which raises (non-zero exit) when it fails:
    reported violations equal to recomputed ones.
 
 Budget: the whole run stays under 800 s (1200 s limit).  For that,
-parity's loop cell runs on 4 lanes, tuned's loop cell on 16 and phase 4c's
-cell (a) on 14 (each was 4096), the first two and 4c's cells (b) and (c)
+parity's loop cell runs on 4 lanes, tuned's loop cell on 16, phase 4c's
+cell (a) on 14 and its acrobot cells (b) and (c) on 64 (each was 4096),
+the first two and 4c's cells (b) and (c)
 (and the kernel cells paired with them) at T=T_LOOP=51 and cell (a) at
-T=T_VMAP_LOOP=41, phase 5's per-instance reverse-scan golden is the car's
-and its "auto" golden the quadrotor's, phase 6b's
-tuned compaction at one grain, phase 7c's acrobot DDP at T=T_DDP (was
-51), phase 9e's long-horizon solve at T=T_LONG and phase 9f's trace
-over PROFILE_TRIPS trips, and the splits time 5 iterations
-(were 20): the reasons and trip counts stand beside B_LOOP.
+T=T_VMAP_LOOP=41, phase 5's
+per-instance reverse-scan golden is the car's and its "auto" golden the
+quadrotor's, phase 6b's tuned compaction at one grain, phase 7c's acrobot
+DDP at T=T_DDP (was 51), phase 9e's long-horizon solve at T=T_LONG and
+phase 9f's trace over PROFILE_TRIPS trips, the splits time 5 iterations
+(were 20) and a plain version's time is one run after its check
+(PLAIN_REPS): the reasons and trip counts stand beside B_LOOP.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -221,6 +242,9 @@ T_MAIN, B_MAIN = 101, 4096
 #   51.1 s of a 760 s run, loop rollouts on 4096 lanes, 86 trips); K6a and
 #   K6b stay held and timed at B=4096, T=101 in phase 3c, and the
 #   quadrotor cells (d) and (e) keep T=41.
+# - tuned's loop cell keeps T=51: at T=41 it took 106 trips on the card
+#   against 87 (37.3 s on a host that ran the whole script in 841.7 s), and
+#   parity's 140 on the port's CPU path against 84.
 # - phase 5's per-instance golden with backward_pass="scan" solves the
 #   golden car (T=51, 13 iterations, about 4 s), not acrobot T=101 (69.3
 #   s): the reverse scan per instance is still held to a golden on the
@@ -237,6 +261,13 @@ T_MAIN, B_MAIN = 101, 4096
 #   solved 1.0; T=31 took 328 trips, and cells (b) and (c) solve only
 #   0.941-0.988 of the lanes at T=21-31 there, so they keep T=51).  At
 #   B=14 > 41 // 7 = 5 "auto" still takes the reverse scan.
+# - B_VMAP_K6 (was 4096: 140 trips, timed solves of 43.9 and 50.5 s in a 789.5 s run on
+#   an NVIDIA H100 80GB HBM3 at 700 W): phase 4c's acrobot cells (b) and
+#   (c), tuned + K6a / K6b on the loop rollouts at T=51.  Their trips are
+#   the slowest lane's: on the port's CPU path (f32) 118 at B=256 and 108
+#   on its first 64 lanes, solved 1.0; T=41 took 164 trips (solved
+#   0.996).  K6a and K6b stay held and timed at B=4096, T=101 in phase
+#   3c, and the quadrotor cells (d) and (e) keep B=4096.
 # - COMPACT_GRAINS (was 128, 256 and 1024: 24.0 s of the run): phase 6b's
 #   tuned compaction runs at the module's GRAIN only, the best of the
 #   three on the card (PR 7-9).
@@ -254,6 +285,7 @@ T_DDP = 8
 B_LOOP = 4
 B_LOOP_TUNED = 16
 B_VMAP_LOOP = 14
+B_VMAP_K6 = 64
 T_LOOP = 51
 T_VMAP_LOOP = 41
 SEED = 0
@@ -317,7 +349,11 @@ def ring_line(ring):
 
 
 # the plain versions take 0.1-0.4 s a call: timed over fewer runs
-PLAIN_REPS = dict(reps=3, warmup=1)
+# a plain version runs once for its check just before it is timed, so its
+# time is one run with no further warm-up (3 runs after one warm-up took
+# about 55 s of an 811.9 s run; 2 runs, an estimated 27 s, left a whole
+# run of 789.5 s only 10 s under the budget)
+PLAIN_REPS = dict(reps=1, warmup=0)
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -455,7 +491,7 @@ def check_riccati(pk, label):
                 k_ms = cuda_ms(lambda: pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg))
                 p_ms = cuda_ms(lambda: pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg),
                                **PLAIN_REPS)
-                line += f"; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms (median of 10)"
+                line += f"; kernel {k_ms:.4f} ms (median of 10), plain {p_ms:.3f} ms (one run)"
                 if dtype == torch.float32:
                     # each input read once, each output written once
                     nbytes = sum(a.numel() * a.element_size()
@@ -609,7 +645,7 @@ def check_packed_masked(pk, pb, label, dims=None):
                     e_ms = cuda_ms(entry)
                     p_ms = cuda_ms(plain, **PLAIN_REPS)
                     line += (f"; kernel {k_ms:.4f} ms, entry with layout {e_ms:.4f} ms, "
-                             f"plain {p_ms:.3f} ms (median)")
+                             f"plain {p_ms:.3f} ms (one run)")
                     if dtype == torch.float32:
                         nbytes = sum(a.numel() * a.element_size() for a in (*kin, *out))
                         ops = riccati_ops(n, m) * Tm1 * B
@@ -642,8 +678,8 @@ def rollout_case(fk, name, T, B, dtype, seed, spec=None):
     has per-step parameters, a target ramp in w, different on every lane."""
     from iterativelqr_tpu_torch import build_spec, models
 
+    mod = getattr(models, name, None)
     if spec is None:
-        mod = getattr(models, name)
         spec = build_spec(*mod.problem(T)[:3])
     r = fk.Rollouts(spec, "cuda")
     rng = np.random.default_rng(seed)
@@ -779,7 +815,7 @@ def check_rollouts(fk, models=ROLLOUT_MODELS):
                 ops = OPS_PER_STEP[name] * (T - 1) * B_MAIN * (nb or 1)
                 line = (f"[rollout] {kname} {name} T={T} B={B_MAIN} {dn} {what}: "
                         f"max |kernel - plain| {err:.3e}, max |plain| {top:.3e} (tol {tol:g} relative); "
-                        f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms (median)")
+                        f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms (one run)")
                 if dtype == torch.float32:
                     b_ms, b_by = bound_ms(nbytes, ops)
                     line += (f"; bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
@@ -1025,18 +1061,22 @@ def model_inputs(model, B, T, dtype, device):
     return torch.stack(xs, dim=1).contiguous(), us, ws
 
 
-def run_model(P, model, fkm):
+def run_model(P, model, fkm, spec=None, label=None):
     """Car T=51 or quadrotor T=41 (phase 7b: particle T=11, pendulum T=51
     or cartpole T=101), B=4096, f32, ``Options(record_traces=False)``,
     with the rollouts of ``fkm``; returns (recomputed solved fraction,
-    launch counts)."""
+    launch counts, wall s).  ``spec``: the model's problem as a user
+    writes it (phase 8e), on the SL route by name, under ``label``."""
     from iterativelqr_tpu_torch import models
 
     T = {**MODEL_CELLS, **NEW_MODEL_CELLS}[model][0]
-    name = f"{model}/{fkm}"
+    name = f"{label or model}/{fkm}"
     dtype, device = torch.float32, torch.device("cuda")
-    spec = P.build_spec(*getattr(models, model).problem(T)[:3])
-    opts = P.Options(record_traces=False, forward_kernel=fkm)
+    if spec is None:
+        spec = P.build_spec(*getattr(models, model).problem(T)[:3])
+        opts = P.Options(record_traces=False, forward_kernel=fkm)
+    else:
+        opts = P.Options(record_traces=False, forward_kernel=fkm, batched_solver="sl")
     xs, us, ws = model_inputs(model, B_MAIN, T, dtype, device)
     P.make_batched_solve_fn(spec, dataclasses.replace(opts, max_total_iterations=3),
                             device=device, dtype=dtype)(xs, us, ws)
@@ -1049,7 +1089,7 @@ def run_model(P, model, fkm):
     log(f"[slice] {name}: B={B_MAIN} T={T} f32 candidates={opts.num_step_sizes}")
     report(name, sol, stats, frac, frac_true, wall, counts, opts.num_step_sizes, B_MAIN)
     per_iteration_split(name, spec, opts, xs, us, ws)
-    return frac_true, counts
+    return frac_true, counts, wall
 
 
 # ---------------------------------------------------------------------------
@@ -1527,7 +1567,7 @@ def run_new_models(P):
     launch counts of each model's timed solve."""
     counts = {}
     for model in NEW_MODEL_CELLS:
-        frac, counts[model] = run_model(P, model, "auto")
+        frac, counts[model], _ = run_model(P, model, "auto")
         if frac < 0.99:
             raise AssertionError(f"{model}: recomputed solved fraction {frac} < 0.99")
     return counts
@@ -1749,8 +1789,11 @@ T_LONG_CHECK = 1025
 # path takes the same 108 iterations at T=257, 385 and 1025, and the time
 # an iteration scales with T: T=257 took 69.6 s in a whole run and T=129
 # 46.9 s, which keeps the run inside its budget; the recursion is still
-# held at T=1025
-T_LONG = 129
+# held at T=1025.  Then cut to T=65 for the run's budget (T=129: 33.5 s
+# of a 726.7 s run and 46.2 s of an 811.9 s one on a slower host, NVIDIA
+# H100 80GB HBM3, 700 W); the CPU path takes the same 108 iterations at
+# T=65 (violation 1.8e-4)
+T_LONG = 65
 # phase 9f traces a tuned solve cut to PROFILE_TRIPS trips, after an
 # untraced call of the same solver: the whole solve (86 trips, traced with
 # Python frames) took 307 s with the profiler and the analysis of its
@@ -1888,14 +1931,15 @@ def free_port():
         return s.getsockname()[1]
 
 
-def start_ranks(world, backend, outdir):
+def start_ranks(world, backend, outdir, routes):
     """Start ``world`` ranks of tests/torch_distributed_worker.py on the
-    card (particle T=DIST_T, B=DIST_B, the SL route with the kernels)."""
+    card (particle T=DIST_T, B=DIST_B, the SL route with the kernels; the
+    route "horizon": the time-sharded recursion across the ranks)."""
     worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                           "torch_distributed_worker.py")
     init = f"tcp://127.0.0.1:{free_port()}"
     return [subprocess.Popen([sys.executable, worker, init, str(world), str(r), outdir, "cuda",
-                              backend, str(DIST_T), str(DIST_B), "sl"],
+                              backend, str(DIST_T), str(DIST_B), routes],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(world)]
 
@@ -1929,9 +1973,9 @@ def start_distributed():
     os.makedirs(SCRATCH, exist_ok=True)
     outdir = tempfile.mkdtemp(dir=SCRATCH)
     runs = {}
-    for world, backend in ((2, "gloo"), (1, "nccl")):
+    for world, backend, routes in ((2, "gloo", "sl,horizon"), (1, "nccl", "sl")):
         os.makedirs(os.path.join(outdir, backend))
-        runs[world, backend] = start_ranks(world, backend, os.path.join(outdir, backend))
+        runs[world, backend] = start_ranks(world, backend, os.path.join(outdir, backend), routes)
     return outdir, runs, time.perf_counter()
 
 
@@ -1939,7 +1983,11 @@ def finish_distributed(P, started):
     """Phase 9d: the sharded solve across processes on the card; each rank
     solves its rows through K1/K3/K4 (particle T=11, B=4096, f32).  Both
     gloo ranks report the same global xs and stats, and those and the NCCL
-    rank's equal a one-process solve of the batch bitwise."""
+    rank's equal a one-process solve of the batch bitwise.  The gloo ranks
+    also run the time-sharded recursion across the two processes (one
+    "time" entry a rank, cuda:0 both) on the worker's pendulum
+    linearizations in f64: both return the same global results, within
+    1e-12 of the one-process recursion over [cuda:0] x 2."""
     import shutil
 
     from iterativelqr_tpu_torch.models import particle
@@ -1981,6 +2029,33 @@ def finish_distributed(P, started):
             f"iterations and stats equal, and equal to the one-process solve bitwise (solved "
             f"{float(ranks[0]['sl_stats_solved_fraction']):.4f}); K1/K3/K4 launches by rank "
             f"{[d['sl_launches'].tolist() for d in ranks]}")
+    from iterativelqr_tpu_torch.parallel import default_mesh, make_horizon_sharded_backward
+
+    ranks = results[2, "gloo"]
+    one = make_horizon_sharded_backward(default_mesh([torch.device("cuda", 0)] * 2, "time"),
+                                        "time")
+    errs = []
+    for T_h, lanes in worker.HORIZON:
+        stacks, um, reg = worker.horizon_case(P, T_h, lanes, "cuda")
+        for name, want in zip(worker.HORIZON_NAMES, one(*stacks, um, reg)):
+            want = want.cpu().numpy()
+            for r, d in enumerate(ranks):
+                got = d[f"horizon_T{T_h}_{name}"]
+                if got.shape != want.shape:
+                    raise AssertionError(f"horizon T={T_h} {name}: rank {r} shape {got.shape}")
+                if name == "ok":
+                    if not (got.all() and want.all()):
+                        raise AssertionError(f"horizon T={T_h}: ok flags {got}, {want}")
+                    continue
+                err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+                if not err <= 1e-12:
+                    raise AssertionError(f"horizon T={T_h} {name}: rank {r} {err:.2e} from the "
+                                         "one-process recursion")
+                errs.append(err)
+    log(f"[distributed] gloo, 2 ranks on cuda:0: the time-sharded recursion across the "
+        f"processes (mesh of {int(ranks[0]['horizon_mesh_size'])} entries; pendulum T="
+        f"{', '.join(str(t) for t, _ in worker.HORIZON)} f64) equals the one-process recursion "
+        f"over [cuda:0] x 2 on both ranks: max relative diff {max(errs):.1e}")
     log(f"[distributed] both groups' processes, started before phase 9b: {wall:.1f} s to "
         "their end")
 
@@ -2190,6 +2265,22 @@ def user_problems():
 
 # label -> T of its kernel cell (8b)
 GENERATED_CASES = {"acrobot (lambdas)": T_MAIN, "farm": FARM_T, "demo (w)": FARM_T}
+# phase 8e: label -> (the registered model with the same math, T)
+MATRIX_CASES = {"quadrotor (matrices)": ("quadrotor", T_QUAD), "car (user)": ("car", T_CAR)}
+
+
+# phase 8e: every elementwise function and reduction the generator lowers,
+# in one problem (tests/torch_user_problems.py::math_problem), at this T
+MATH_LABEL, MATH_T = "math (every function)", 51
+
+
+def matrix_spec(label):
+    """A phase 8e problem: models/quadrotor.py's written with matrices, or
+    models/car.py's with constant indices, a norm and quadratic forms
+    (tests/torch_user_problems.py), its constants on the card."""
+    up = user_problems()
+    model, T = MATRIX_CASES[label]
+    return (up.quadrotor_matrix if model == "quadrotor" else up.car_user)(T, "cuda")
 
 
 def generated_spec(P, label, T):
@@ -2200,14 +2291,16 @@ def generated_spec(P, label, T):
 
 
 def build_generated(P, fk):
-    """Phase 8a: the generated models of the three user problems, their
-    nvcc runs started together; prints the build's seconds and ptxas's
-    registers and spills."""
+    """Phase 8a: the generated models of the three user problems and of
+    phase 8e's two, their nvcc runs started together; prints the build's
+    seconds and ptxas's registers and spills in f32 and f64."""
     from iterativelqr_tpu_torch import _build
 
     models = {}
-    for label, T in GENERATED_CASES.items():
-        spec = generated_spec(P, label, T)
+    cases = [(label, generated_spec(P, label, T)) for label, T in GENERATED_CASES.items()]
+    cases += [(label, matrix_spec(label)) for label in MATRIX_CASES]
+    cases.append((MATH_LABEL, user_problems().math_problem(MATH_T, "cuda")))
+    for label, spec in cases:
         m = fk.device_model(spec, "cuda")
         if m is None or m.generated is None:
             raise AssertionError(f"{label}: no generated model ({fk.model_reason(spec, 'cuda')})")
@@ -2226,27 +2319,41 @@ def build_generated(P, fk):
     return models
 
 
-def check_generated_rollouts(P, fk):
-    """Phase 8b: K3 (head j0=0 and tail j0=8) and K4 of each generated
-    model against their plain versions at B=4096 in f64 and f32 (phase
-    3b's inputs and tolerances; the demo with a different target ramp in w
-    on every lane), K4's J equal to K3's, and the generated acrobot's J
-    against the hand-written acrobot kernel's on the same inputs; times,
-    bounds from the scalar program's operation count, shares.  Returns the
-    f32 records (K3's head block and K4) keyed "<kernel>/<label>"."""
-    from iterativelqr_tpu_torch.models import acrobot
+def check_generated_rollouts(P, fk, cases):
+    """Phases 8b and 8e, kernels: K3 (head j0=0 and tail j0=8) and K4 of each
+    generated model against their plain versions at B=4096 in f64 and f32
+    (phase 3b's inputs and tolerances for the model named; the demo with a
+    different target ramp in w on every lane), K4's J equal to K3's, and,
+    where a registered model computes the same math, K3's J over 17
+    candidates against its hand-written kernel's on the same inputs; in
+    the dtypes ``timed`` names, times beside the hand-written kernels',
+    bounds from the scalar program's operation count and shares; where a
+    registered model computes the same math in fewer operations (a
+    matrix written by hand keeps products by its literal zeros, which the
+    program must do: 0 * inf is NaN), also the bound and share from the
+    count of that model's own generated program, the function's
+    arithmetic.  ``cases``: (label, the model whose
+    inputs it takes, T, its spec in a dtype-free maker, the registered
+    model or None, J tolerances against it by dtype, the dtypes timed).
+    Returns the f32 records (K3's head block and K4) keyed
+    "<kernel>/<label>"."""
+    from iterativelqr_tpu_torch import models
+    from iterativelqr_tpu_torch.ops import device_functions
 
     tols = {torch.float64: 1e-10, torch.float32: 1e-4}
-    # the same operations from two sources: apart only by the compiler's
-    # contractions (tests/test_torch_cuda.py's tolerances)
-    hand_tols = {torch.float64: 1e-12, torch.float32: 1e-5}
     records = {}
-    for label, T in GENERATED_CASES.items():
+    for label, name, T, make, hand_model, hand_tols, timed in cases:
+        hand, hand_ops = None, None
+        if hand_model is not None:
+            hand_spec = P.build_spec(*getattr(models, hand_model).problem(T)[:3])
+            hand = fk.Rollouts(hand_spec, "cuda")
+            hand_ops = device_functions.generate(hand_spec).ops_per_step()
         for dtype, tol in tols.items():
-            spec = generated_spec(P, label, T)
-            r, live, alpha = rollout_case(fk, "acrobot" if "acrobot" in label else label, T,
-                                          B_MAIN, dtype, SEED, spec=spec)
+            spec = make()
+            r, live, alpha = rollout_case(fk, name, T, B_MAIN, dtype, SEED, spec=spec)
             gen = r.model.generated
+            if gen is None:
+                raise AssertionError(f"{label}: no generated model ({r.model_reason})")
             size = torch.finfo(dtype).bits // 8
             dn = str(dtype).split(".")[-1]
             j = torch.round(-torch.log2(alpha)).long()
@@ -2257,47 +2364,89 @@ def check_generated_rollouts(P, fk):
             if not bool(same.all()):
                 raise AssertionError(f"{label} {dn}: K4's J differs from K3's at the same alpha "
                                      f"on {int((~same).sum())} lanes")
-            if "acrobot" in label:
-                hand = fk.Rollouts(P.build_spec(*acrobot.problem(T)[:3]), "cuda")
-                Jh = fk.score_rollout(hand, 0, 17, *live)
-                err, top = max_err(f"generated vs hand-written acrobot {dn}", (J3,), (Jh,),
-                                   hand_tols[dtype])
-                g_ms = cuda_ms(lambda: fk.score_rollout(r, 0, 8, *live))
-                h_ms = cuda_ms(lambda: fk.score_rollout(hand, 0, 8, *live))
-                log(f"[generated] acrobot T={T} B={B_MAIN} {dn}: K3's J of the generated model "
-                    f"against the hand-written kernel's, 17 candidates: max diff {err:.3e} of max "
-                    f"|J| {top:.3e}; head block generated {g_ms:.4f} ms, hand-written {h_ms:.4f} "
-                    f"ms ({g_ms / h_ms:.3f} x)")
+            if hand is not None:
+                err, top = max_err(f"{label} {dn}: generated vs hand-written {hand_model}", (J3,),
+                                   (fk.score_rollout(hand, 0, 17, *live),), hand_tols[dtype])
+                log(f"[generated] {label} T={T} B={B_MAIN} {dn}: K3's J of the generated model "
+                    f"against the hand-written {hand_model} kernel's, 17 candidates: max diff "
+                    f"{err:.3e} of max |J| {top:.3e} (tol {hand_tols[dtype]:g} relative)")
             runs = (
                 ("sl_score_rollout", "head j0=0 nb=8",
-                 lambda: (fk.score_rollout(r, 0, 8, *live),),
+                 lambda r=r: (fk.score_rollout(r, 0, 8, *live),),
                  lambda: (fk.score_rollout_reference(r, 0, 8, *live),), 8),
                 ("sl_score_rollout", "tail j0=8 nb=9",
-                 lambda: (fk.score_rollout(r, 8, 9, *live),),
+                 lambda r=r: (fk.score_rollout(r, 8, 9, *live),),
                  lambda: (fk.score_rollout_reference(r, 8, 9, *live),), 9),
                 ("sl_winner_reroll", "per-lane alpha",
-                 lambda: fk.winner_reroll(r, alpha, *live),
+                 lambda r=r: fk.winner_reroll(r, alpha, *live),
                  lambda: fk.winner_reroll_reference(r, alpha, *live), None),
             )
             for kname, what, kern, plain, nb in runs:
                 outs = kern()
                 torch.cuda.synchronize()
                 err, top = max_err(f"{kname} {label} {dn} {what}", outs, plain(), tol)
+                if dtype not in timed:
+                    log(f"[generated] {kname} {label} T={T} B={B_MAIN} {dn} {what}: max |kernel "
+                        f"- plain| {err:.3e}, max |plain| {top:.3e} (tol {tol:g} relative)")
+                    continue
                 k_ms = cuda_ms(kern)
+                beside = ""
+                if hand is not None:
+                    h_ms = cuda_ms(lambda: kern(hand))
+                    beside = f", the hand-written {hand_model} kernel {h_ms:.4f} ms ({k_ms / h_ms:.3f} x)"
                 p_ms = cuda_ms(plain, **PLAIN_REPS)
                 nbytes = rollout_bytes(spec, B_MAIN, size, nb)
-                ops = gen.ops_per_step() * (T - 1) * B_MAIN * (nb or 1)
+                steps = (T - 1) * B_MAIN * (nb or 1)
+                ops = gen.ops_per_step() * steps
                 b_ms, b_by = bound_ms(nbytes, ops)
+                rec = dict(ops_per_step=gen.ops_per_step())
+                arith = ""
+                if hand_ops is not None and hand_ops < gen.ops_per_step():
+                    a_ms, a_by = bound_ms(nbytes, hand_ops * steps)
+                    rec.update(arithmetic_ops_per_step=hand_ops, arithmetic_bound_ms=a_ms)
+                    arith = (f"; against the function's arithmetic (the registered "
+                             f"{hand_model}'s generated {hand_ops} a step) {a_ms:.4f} ms "
+                             f"({a_by}), {a_ms / k_ms:.1%}")
                 log(f"[generated] {kname} {label} T={T} B={B_MAIN} {dn} {what}: max |kernel - "
                     f"plain| {err:.3e}, max |plain| {top:.3e} (tol {tol:g} relative); kernel "
-                    f"{k_ms:.4f} ms, plain {p_ms:.3f} ms (median); bound {b_ms:.4f} ms ({b_by}; "
-                    f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} G operations from the program's "
-                    f"{gen.ops_per_step()} a step); {b_ms / k_ms:.1%} of the bound"
-                    + ring_line(fk.rollout_ring(r.model, dtype)))
+                    f"{k_ms:.4f} ms{beside}, plain {p_ms:.3f} ms (one run); bound {b_ms:.4f} ms "
+                    f"({b_by}; {nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} G operations from the "
+                    f"program's {gen.ops_per_step()} a step); {b_ms / k_ms:.1%} of the bound"
+                    + arith + ring_line(fk.rollout_ring(r.model, dtype)))
                 if dtype == torch.float32 and what != "tail j0=8 nb=9":
-                    records[f"{kname}/{label}"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                                       bound_ms=b_ms, bound_by=b_by)
+                    records[f"{kname}/{label}"] = dict(
+                        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                        **rec)
     return records
+
+
+# the same operations from two sources: apart only by the compiler's
+# contractions (tests/test_torch_cuda.py's tolerances)
+SAME_OPS_TOLS = {torch.float64: 1e-12, torch.float32: 1e-5}
+# the same math in another order of operations: the plain versions'
+PLAIN_TOLS = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+def phase_8b_cases(P):
+    """Phase 8b's cases for check_generated_rollouts."""
+    return [(label, "acrobot" if "acrobot" in label else label, T,
+             functools.partial(generated_spec, P, label, T),
+             "acrobot" if "acrobot" in label else None, SAME_OPS_TOLS,
+             (torch.float64, torch.float32))
+            for label, T in GENERATED_CASES.items()]
+
+
+def phase_8e_cases():
+    """Phase 8e's cases for check_generated_rollouts: the two problems
+    against their registered models, timed in f32 (the dtype of their
+    solves), and the problem of every elementwise function and reduction
+    the generator lowers against its plain version (torch's CUDA
+    functions) alone, untimed (it runs in no solve)."""
+    math = functools.partial(user_problems().math_problem, MATH_T, "cuda")
+    return [(label, model, T, functools.partial(matrix_spec, label), model, PLAIN_TOLS,
+             (torch.float32,))
+            for label, (model, T) in MATRIX_CASES.items()] + [
+        (MATH_LABEL, "math", MATH_T, math, None, None, ())]
 
 
 def demo_inputs(B, T, dtype, device):
@@ -2356,8 +2505,9 @@ def check_refusals(P, fk):
     dyn, cost, con, *_ = acrobot.problem(T)
     cases = (("a data-dependent branch", "data-dependent branch", False,
               P.Cost(lambda x, u: x[2] * x[2] if x[2] > 0 else u[0] * u[0], 4, 1)),
-             ("an op outside the whitelist", "aten.sinh", True,
-              P.Cost(lambda x, u: 0.1 * torch.sinh(u[0]) ** 2, 4, 1)))
+             ("an op outside the whitelist (a matrix decomposition)", "aten.linalg_inv_ex", True,
+              P.Cost(lambda x, u: 0.1 * torch.linalg.inv((1.0 + u * u).reshape(1, 1))[0, 0],
+                     4, 1)))
     xs, us, ws = bench_inputs(B, T, torch.float32, dev)
     base = dict(record_traces=False, max_iterations=6, max_dual_updates=2)
     for what, named, solvable, g in cases:
@@ -2389,6 +2539,32 @@ def check_refusals(P, fk):
             line += (f" and solved there: K3/K4 launches {k34}, K1 {counts['riccati_backward']}, "
                      f"{int(sol.iterations.max())} trips")
         log(line)
+
+
+def run_matrix_solves(P, model_fracs, walls):
+    """Phase 8e, solves: each user problem at B=4096 in f32 on the SL route
+    with forward_kernel="pallas" (the generated K3/K4; the car's backward
+    K1, the quadrotor's K2), from phase 4's inputs for the registered model
+    with the same math; the solved fraction recomputed from the
+    trajectories must be >= 0.99 and within 0.01 of the registered model's
+    phase 4 solve.  Returns the launch counts keyed by label."""
+    counts = {}
+    for label, (model, T) in MATRIX_CASES.items():
+        frac, counts[label], wall = run_model(P, model, "pallas", spec=matrix_spec(label),
+                                              label=label)
+        k34 = (counts[label]["sl_score_rollout_generated"],
+               counts[label]["sl_winner_reroll_generated"])
+        if min(k34) <= 0:
+            raise AssertionError(f"{label}: the generated K3/K4 were not launched {k34}")
+        ref = model_fracs[model]["pallas"]
+        if frac < 0.99 or abs(frac - ref) > 0.01:
+            raise AssertionError(f"{label}: recomputed solved fraction {frac} (the registered "
+                                 f"{model}'s {ref})")
+        log(f"[generated] {label} B={B_MAIN} T={T} f32: solved {frac:.4f} recomputed, the "
+            f"registered {model}'s {ref:.4f}; wall {wall:.3f} s, the registered {model}'s "
+            f"{walls[model, 'pallas']:.3f} s ({wall / walls[model, 'pallas']:.3f} x); generated "
+            f"K3/K4 launches {k34}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2612,10 +2788,11 @@ def main():
             (w_s, t_s), (w_p, t_p) = pair["scan"], pair["pallas"]
             log(f"[slice] {name} B={B} T={T_LOOP if B != B_MAIN else T_MAIN}, same lanes: loops {w_s:.3f} s ({t_s} trips), kernels "
                 f"{w_p:.3f} s ({t_p} trips); {w_s / w_p:.2f} x")
+    model_fracs, walls = {}, {}
     for model in MODEL_CELLS:
-        fracs = {}
+        fracs = model_fracs[model] = {}
         for fkm in ("scan", "pallas"):
-            fracs[fkm], counts = run_model(P, model, fkm)
+            fracs[fkm], counts, walls[model, fkm] = run_model(P, model, fkm)
             launches.update(counts)
         log(f"[slice] {model}: recomputed solved fraction scan {fracs['scan']:.4f}, "
             f"pallas {fracs['pallas']:.4f}")
@@ -2626,8 +2803,8 @@ def main():
         at(f"phase 4 {model}")
 
     sols = {}
-    for variant, B, model in (("auto", B_VMAP_LOOP, "acrobot"), ("v1", B_MAIN, "acrobot"),
-                              ("v2", B_MAIN, "acrobot"), ("v1", B_MAIN, "quadrotor"),
+    for variant, B, model in (("auto", B_VMAP_LOOP, "acrobot"), ("v1", B_VMAP_K6, "acrobot"),
+                              ("v2", B_VMAP_K6, "acrobot"), ("v1", B_MAIN, "quadrotor"),
                               ("v2", B_MAIN, "quadrotor")):
         sols[variant, model], counts = run_vmap_cell(P, variant, B, model)
         launches.update(counts)
@@ -2695,7 +2872,7 @@ def main():
     # phase 8: K3/K4 for user problems, through generated device functions
     build_generated(P, fk)
     at("phase 8a")
-    gen_records = check_generated_rollouts(P, fk)
+    gen_records = check_generated_rollouts(P, fk, phase_8b_cases(P))
     at("phase 8b")
     gen_counts = {}
     tuned_trips = pairs["tuned", B_MAIN]["pallas"][1]
@@ -2717,10 +2894,14 @@ def main():
     at("phase 8c")
     check_refusals(P, fk)
     at("phase 8d")
+    gen_records.update(check_generated_rollouts(P, fk, phase_8e_cases()))
+    gen_counts.update(run_matrix_solves(P, model_fracs, walls))
+    at("phase 8e")
     for key, rec in gen_records.items():
         kname, label = key.split("/")
-        rec["launches"] = gen_counts[label][f"{kname}_generated"]
-        extra.append((kname, f"generated model={label}", rec))
+        if label in gen_counts:     # the math problem runs in no solve
+            rec["launches"] = gen_counts[label][f"{kname}_generated"]
+            extra.append((kname, f"generated model={label}", rec))
 
     # phase 9: the batch-sharded, time-sharded and multi-process routes
     launches.update(run_pod_sweep(P))

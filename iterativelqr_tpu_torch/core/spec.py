@@ -32,11 +32,37 @@ def _normalize_fn(f: Callable, num_parameter: int) -> Callable:
 
 
 def _probe_size(fn, n, m, p) -> int:
-    """Output size of ``fn`` on zero inputs (the JAX package uses
-    ``jax.eval_shape``; a tiny CPU evaluation does the same here)."""
-    z = lambda d: torch.zeros(d, dtype=torch.float64)
-    out = fn(z(n), z(m), z(p))
-    return int(out.numel())
+    """Output size of ``fn`` on zero inputs, evaluated on fake tensors as
+    the JAX package uses ``jax.eval_shape``: nothing runs, so closed-over
+    constants may live on any device.  The inputs go on the CPU first,
+    then on each device a tensor of the failed attempt lived on.  A
+    function no fake attempt takes (a branch on a value) runs once on CPU
+    zeros."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class _Devices(TorchDispatchMode):
+        def __init__(self, seen):
+            super().__init__()
+            self.seen = seen
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            for a in tree_leaves((args, kwargs)):
+                if isinstance(a, torch.Tensor) and a.device not in self.seen:
+                    self.seen.append(a.device)
+            return func(*args, **(kwargs or {}))
+
+    devices = [torch.device("cpu")]
+    for d in devices:  # grows while it runs
+        z = lambda k: torch.zeros(k, dtype=torch.float64, device=d)
+        try:
+            with FakeTensorMode(allow_non_fake_inputs=True), _Devices(devices):
+                return int(fn(z(n), z(m), z(p)).numel())
+        except Exception:  # noqa: BLE001 -- the next device, or the CPU run below
+            pass
+    z = lambda k: torch.zeros(k, dtype=torch.float64)
+    return int(fn(z(n), z(m), z(p)).numel())
 
 
 class Dynamics:

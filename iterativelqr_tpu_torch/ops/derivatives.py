@@ -5,8 +5,9 @@ evaluated over its statically known timesteps and the rows are put back in
 time order.  Arguments are ``[..., T, dim]`` tensors: one instance, or a
 batch with leading lane axes (the per-instance solver's batched form); the
 timesteps of a group and the lanes are one flattened ``torch.func.vmap``
-(``ops/batching.py::lane_eval``).  ``stage_derivatives`` (a fused pass
-only a JAX test calls) is not ported.
+(``ops/batching.py::lane_eval``).  ``stage_derivatives`` is the fused
+pass of the JAX module, one evaluation a combined (dynamics, cost) stage
+type; as there, the solver does not call it.
 """
 
 from __future__ import annotations
@@ -113,6 +114,37 @@ def dynamics_hessians(spec: ProblemSpec, xs, us, ws):
     ``ops/backward.py::riccati_step``."""
     return _grouped(spec.dyn_hess, spec.dyn_groups,
                     (xs[..., :-1, :], us, ws[..., :-1, :]))
+
+
+def stage_derivatives(spec: ProblemSpec, xs, us, ws):
+    """All cost and dynamics derivative stacks in one pass: each combined
+    (dynamics, cost) stage type evaluates its Jacobians, gradients and
+    Hessians in one vmapped function over its timesteps; the terminal
+    cost is evaluated apart (u = 0).  The solver does not call it (the
+    JAX package's note: the fused pass won alone and lost in the solve).
+
+    Returns (fx [..., T-1, nx, nx], fu [..., T-1, nx, nu], gx [..., T, nx],
+    gu [..., T-1, nu], gxx [..., T, nx, nx], guu [..., T-1, nu, nu], gux
+    [..., T-1, nu, nx]), equal to the separate stacks."""
+    Tm1 = spec.T - 1
+    n_cost = len(spec.cost_eval)
+    comb = np.asarray(spec.dyn_tidx) * n_cost + np.asarray(spec.cost_tidx[:Tm1])
+    keys = np.unique(comb)
+
+    def per_t(di, gi):
+        dj, cg, ch = spec.dyn_jac[di], spec.cost_grad[gi], spec.cost_hess[gi]
+        return lambda x, u, w: (*dj(x, u, w), *cg(x, u, w), *ch(x, u, w))
+
+    fns = [per_t(*divmod(int(k), n_cost)) for k in keys]
+    groups = [np.nonzero(comb == k)[0] for k in keys]
+    fx, fu, gx, gu, gxx, guu, gux = _grouped(fns, groups, (xs[..., :-1, :], us,
+                                                           ws[..., :-1, :]))
+    gT = int(spec.cost_tidx[-1])
+    last = (xs[..., -1:, :], us.new_zeros(us.shape[:-2] + (1, spec.nu)), ws[..., -1:, :])
+    gxT, _ = lane_eval(spec.cost_grad[gT], *last)
+    gxxT, _, _ = lane_eval(spec.cost_hess[gT], *last)
+    return (fx, fu, torch.cat([gx, gxT], dim=-2), gu, torch.cat([gxx, gxxT], dim=-3), guu,
+            gux)
 
 
 def constraint_values(spec: ProblemSpec, xs, us, ws):

@@ -36,7 +36,8 @@ steps, as JAX feeds the user's jaxprs into Pallas:
 
 A spec that neither serves (stages that differ across steps, or a stage
 function the generator refuses: an op outside its whitelist, a branch on a
-traced value, another dtype) has no device model and keeps the loops;
+traced value, a data-dependent shape, a random op, sorting, a matrix
+decomposition, another dtype) has no device model and keeps the loops;
 ``model_reason`` says why, and ``forward_kernel="pallas"`` raises with it.
 
 The JAX module's ``reroll_fits`` is a VMEM budget rule of the TPU; a Hopper
@@ -276,8 +277,11 @@ def select_kernels(spec: ProblemSpec, options, device) -> bool:
             "(ops/sl_forward_kernel.kernel_eligible), a model with device "
             "functions (ops/sl_forward_kernel.device_model: registered, "
             f"{', '.join(DEVICE_MODELS)}, or generated from the stage "
-            "functions' whitelisted ops) and constraint_aware_acceptance="
-            "False (the kernels do not score per-candidate violations); "
+            "functions: every op of ops/device_functions.WHITELIST lowers; a "
+            "branch on a traced value, a data-dependent shape, a random op, "
+            "sorting and matrix decompositions do not) and "
+            "constraint_aware_acceptance=False (the kernels do not score "
+            "per-candidate violations); "
             f"this spec: {why}"
         )
     return eligible

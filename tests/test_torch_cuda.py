@@ -11,7 +11,9 @@ This file imports torch and numpy only.
 import numpy as np
 import pytest
 import torch
-from torch_user_problems import acrobot_lambdas, demo_problem, farm_problem
+import iterativelqr_tpu_torch as P
+from torch_user_problems import (acrobot_lambdas, car_user, demo_problem, farm_problem,
+                                 padded_actionless, padded_lift_project, quadrotor_matrix)
 
 from iterativelqr_tpu_torch import Constraint, Cost, Options, build_spec
 from iterativelqr_tpu_torch.models import acrobot, car, cartpole, particle, pendulum, quadrotor
@@ -170,8 +172,10 @@ def test_riccati_kernel_rejects_what_it_was_not_built_for():
             kin4[7].contiguous(), kin4[8].contiguous(), reg)
 
 
-def _rollout_case(name, T, B, dtype, seed):
-    """Live line-search arrays on the card, from a numpy seed: states
+def _rollout_case(name, T, B, dtype, seed, spec=None):
+    """Live line-search arrays on the card, from a numpy seed (for the
+    registered model ``name``, or ``spec``, the same problem written
+    otherwise): states
     rolled out from noisy controls, random non-converged gains, duals with
     lam = 0 on half the lanes (there an inequality row with c < 0 is
     inactive) and, for car and the quadrotor, lanes that head through the
@@ -182,7 +186,7 @@ def _rollout_case(name, T, B, dtype, seed):
     dyn, cost, con = mod.problem(T)[:3]
     if name == "acrobot_nc0":
         con = [Constraint() for _ in range(T)]   # the goal dropped: no constraint rows
-    spec = build_spec(dyn, cost, con)
+    spec = build_spec(dyn, cost, con) if spec is None else spec
     r = fk.Rollouts(spec, "cuda")
     rng = np.random.default_rng(seed)
     nx, nu, nc, Tm1 = spec.nx, spec.nu, spec.nc, T - 1
@@ -283,7 +287,7 @@ def test_rollout_kernels_refuse_what_they_cannot_run():
     T, B = 9, 64
     r, live = _rollout_case("car", T, B, torch.float32, seed=1)
     dyn, cost, con, *_ = acrobot.problem(T)
-    mine = Cost(lambda x, u: 0.3 * torch.sinh(u[0]) ** 2, 4, 1)
+    mine = Cost(lambda x, u: 0.3 * torch.sort(torch.cat([u, x[:1]])).values[0] ** 2, 4, 1)
     r_foreign = fk.Rollouts(build_spec(dyn, [mine] * (T - 1) + cost[-1:], con), "cuda")
     _, a_live = _rollout_case("acrobot", T, B, torch.float32, seed=1)
     with pytest.raises(ValueError, match="no device model"):
@@ -377,9 +381,84 @@ def test_generated_acrobot_matches_the_hand_written_kernel(dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,T", [("quadrotor", 41), ("car", 51)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_matrix_user_problems_match_plain_and_the_registered_models(name, T, dtype, tol):
+    """tests/torch_user_problems.py's quadrotor_matrix and car_user
+    (matrices, constant indices, vector_norm; generated device models):
+    K3 (head and tail) and K4 against their plain versions, and K3's J
+    against the registered hand-written model's on the same inputs (the
+    same math in another order of operations), at the lane counts and
+    tolerances of test_rollout_kernels_match_plain.  (At B=4096 these
+    inputs hold a tumbling quadrotor lane, |J| = 1.1e8, on which the
+    hand-written kernel and its plain version differ by 7.7e-8 of J, the
+    generated ones by 3.9e-8: over the 1e-10 of the batch's largest J for
+    both.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    user = {"quadrotor": quadrotor_matrix, "car": car_user}[name](T, "cuda")
+    r_hand = fk.Rollouts(build_spec(*{"quadrotor": quadrotor, "car": car}[name].problem(T)[:3]),
+                         "cuda")
+    assert r_hand.model.generated is None
+    for B in (1000, 4097, 31):
+        r, live = _rollout_case(name, T, B, dtype, seed=3, spec=user)
+        assert r.model.generated is not None, r.model_reason
+        for j0, nb in ((0, 8), (8, 9)):
+            J = fk.score_rollout(r, j0, nb, *live)
+            torch.cuda.synchronize()
+            _close(J, fk.score_rollout_reference(r, j0, nb, *live), tol)
+            _close(J, fk.score_rollout(r_hand, j0, nb, *live), tol)
+        alpha = (0.5 ** torch.as_tensor(np.random.default_rng(4).integers(0, 17, B),
+                                        device="cuda")).to(dtype)
+        for a, b in zip(fk.winner_reroll(r, alpha, *live),
+                        fk.winner_reroll_reference(r, alpha, *live)):
+            _close(a, b, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["actionless", "lift_project"])
+def test_padded_problems_run_k1_on_the_sl_route(name):
+    """tests/test_torch_padding.py's padded problems (actionless steps at
+    (2, 1), R2 -> R3 -> R2 at (3, 2)) on the SL route with
+    backward_pass="packed", f64, B=64: K1 runs their backward passes, and
+    the card's solve equals the CPU path's (equal iterations, trajectories
+    within 1e-10), with the padding exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B = 64
+    make = {"actionless": padded_actionless, "lift_project": padded_lift_project}[name]
+    x0 = 0.3 * np.random.default_rng(3).standard_normal((B, 2))
+    extra = {"max_dual_updates": 12} if name == "lift_project" else {}
+    opts = Options(verbose=False, record_traces=False, batched_solver="sl",
+                   backward_pass="packed", **extra)
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        spec = make(P, torch, device=dev)
+        xs = torch.zeros((B, spec.T, spec.nx), dtype=torch.float64, device=dev)
+        xs[:, 0, :2] = torch.as_tensor(x0, device=dev)
+        us = torch.zeros((B, spec.T - 1, spec.nu), dtype=torch.float64, device=dev)
+        ws = torch.zeros((B, spec.T, 0), dtype=torch.float64, device=dev)
+        before = pk.RICCATI_LAUNCHES.launches
+        sols[dev] = P.make_batched_solve_fn(spec, opts, device=dev, dtype=torch.float64)(
+            xs, us, ws)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert pk.RICCATI_LAUNCHES.launches > before
+    card, cpu = sols["cuda"], sols["cpu"]
+    assert torch.equal(card.iterations.cpu(), cpu.iterations)
+    _assert_close_scaled([card.xs.cpu(), card.us.cpu()], [cpu.xs, cpu.us], 1e-10)
+    assert float(card.max_violation.max()) <= 5e-3
+    if name == "actionless":
+        assert bool((card.us[:, 1::2] == 0).all()) and bool((card.K[:, 1::2] == 0).all())
+    else:
+        assert bool((card.xs[:, 0, 2] == 0).all()) and bool((card.xs[:, 3, 2] == 0).all())
+
+
+@pytest.mark.cuda
 def test_refused_specs_keep_the_loops_on_the_card():
-    """A data-dependent branch and an op outside the whitelist: "pallas"
-    raises naming it; "auto" takes the loops, and no K3/K4 launches."""
+    """A data-dependent branch and an op outside the whitelist (a matrix
+    decomposition): "pallas" raises naming it; "auto" takes the loops, and
+    no K3/K4 launches."""
     from iterativelqr_tpu_torch.ops.sl_ops import SLOps
 
     if not torch.cuda.is_available():
@@ -387,8 +466,8 @@ def test_refused_specs_keep_the_loops_on_the_card():
     T = 9
     dyn, cost, con, *_ = acrobot.problem(T)
     branch = Cost(lambda x, u: x[2] * x[2] if x[2] > 0 else u[0] * u[0], 4, 1)
-    sinh = Cost(lambda x, u: torch.sinh(u[0]) ** 2, 4, 1)
-    for g, what in ((branch, "data-dependent"), (sinh, "aten.sinh")):
+    inv = Cost(lambda x, u: torch.linalg.inv((1.0 + u * u).reshape(1, 1))[0, 0], 4, 1)
+    for g, what in ((branch, "data-dependent"), (inv, "aten.linalg_inv_ex")):
         spec = build_spec(dyn, [g] * (T - 1) + cost[-1:], con)
         with pytest.raises(ValueError, match=what):
             SLOps(spec, Options(forward_kernel="pallas"), "cuda")

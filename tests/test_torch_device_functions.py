@@ -4,19 +4,28 @@
 - The interpreted scalar program of every stage function equals the torch
   function to 1e-13 relative on random f64 inputs: all five objects of the
   six library models, examples/mpc_farm.py's and
-  examples/sensitivity_demo.py's functions in torch, and one function for
-  each whitelisted op.  The program reorders nothing but the terms of a
-  sum, dot or mv (left to right; torch's CPU reduction may pair them).
+  examples/sensitivity_demo.py's functions in torch, the problems of every
+  elementwise function and of the mixed ops, and one function for each
+  whitelisted op family (products and layout, constant indices and writes
+  at them, the math functions, reductions).  The program reorders nothing
+  but the terms of a sum, product or reduction (left to right; torch's CPU
+  reduction and BLAS may pair them).
+- The quadrotor written with matrices and the car as users write it equal
+  the registered models' functions to 1e-12; a particle with quadratic-form
+  costs is generated.
 - The printed header compiles as host C++ (``__host__``/``__device__``
   defined empty) and, called through ctypes, gives the interpreter's values
   to 1e-13 (libm's sin and torch's may differ in the last bit).
 - The generated acrobot counts its operations within 10% of
   chip_smoke.py's hand count, and ``kStream`` follows the hand headers.
-- Refusals name the op or the data-dependent branch.
+- Refusals name the op or the cause (a data-dependent branch or shape,
+  sorting, a matrix decomposition, an integer value).
 - Tracing leaves no fake tensor in ``models/_const.py``'s cache.
 
-The solver-level parity with the JAX package's interpret-mode K3/K4 is in
-tests/test_torch_generated_solve.py.  Imports torch, numpy and the port.
+Each op family against JAX's kernel evaluator is in
+tests/test_torch_device_functions_jax.py; the solver-level parity with the
+JAX package's interpret-mode K3/K4 in tests/test_torch_generated_solve.py
+and tests/test_torch_generated_solve_ops.py.  Imports torch, numpy and the port.
 """
 
 import ctypes
@@ -28,7 +37,8 @@ import pytest
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch._subclasses.fake_tensor import FakeTensor
-from torch_user_problems import acrobot_lambdas, demo_problem, farm_problem
+from torch_user_problems import (acrobot_lambdas, car_user, demo_problem, farm_problem,
+                                 math_problem, mixed_problem, quadrotor_matrix)
 
 from iterativelqr_tpu_torch import Constraint, Cost, Dynamics, build_spec
 from iterativelqr_tpu_torch.models import _const, acrobot, car, cartpole, particle, pendulum, quadrotor
@@ -52,12 +62,13 @@ _SPECS = {
     **{m: (lambda m=m: _library_spec(m))
        for m in ("acrobot", "car", "quadrotor", "particle", "pendulum", "cartpole")},
     "farm": lambda: farm_problem(9), "demo": lambda: demo_problem(9),
+    "math": lambda: math_problem(9), "mixed": lambda: mixed_problem(9),
 }
 _SPEC_CASES = [(s, i) for s in _SPECS for i in range(5)
                if not (s in ("acrobot", "particle", "pendulum", "farm", "demo") and i == 3)]
 
-# one function per whitelisted op (and what `where` and `clamp` bring),
-# of (x [3], u [2], w [2])
+# one function per whitelisted op or op family (and what `where` and
+# `clamp` bring), of (x [3], u [2], w [2])
 _OP_CASES = {
     "add": lambda x, u, w: x + u[0] + 2,
     "sub": lambda x, u, w: x - w[1] - 0.5,
@@ -94,8 +105,78 @@ _OP_CASES = {
     + torch.where((x < w[0]) & (x >= -1.0) | ~(x == u[1]), 1.0, x) + (x != 0.3).to(x.dtype)
     + torch.where(torch.logical_or(x > 1.0, torch.logical_not(x < -1.0)), x, -x),
     "closure": lambda x, u, w: x - _GOAL,
+    # matrix products and layout ops (their aten graphs: unsqueeze, mm and
+    # squeeze_; permute and mv; einsum's permutes, views and bmm)
+    "mm": lambda x, u, w: torch.cat([(x @ _Q.to(x) @ x).reshape(1), x @ _A.to(x),
+                                     u @ _R.to(x) @ u[:, None]]),
+    "permute": lambda x, u, w: _A.to(x).T @ x + torch.einsum("ij,j->i", _A.to(x), x)
+    + _A.to(x).permute(1, 0)[2] * x[1],
+    "bmm": lambda x, u, w: (x.reshape(1, 1, 3) @ _A.to(x).reshape(1, 3, 3)).reshape(3)
+    + (torch.stack([x, 2.0 * x]) @ _A.to(x)).sum(0),
+    "addmm": lambda x, u, w: torch.nn.functional.linear(x, _A.to(x)[:2], _BIAS.to(x)),
+    "linalg_cross": lambda x, u, w: torch.linalg.cross(x, _A.to(x) @ x),
+    "layout": lambda x, u, w: torch.cat([
+        x[0].expand(3) + x, u.repeat(2), x[None].squeeze(0), _A.to(x).t()[0] * x,
+        _A.to(x).transpose(0, 1)[1] * x, x.flip(0), torch.diagonal(_A.to(x)) * x,
+        (lambda a, b, c: torch.stack([a * b, c]))(*x), x.split(2)[1], torch.diag(x) @ x]),
+    # constant integer indices, writes at them, constant makers
+    "index": lambda x, u, w: torch.cat([x[_IDX], x[[0, 2]], torch.index_select(x, 0, _IDX),
+                                        torch.gather(x, 0, _IDX), (_A.to(x) * x)[:, _IDX][1],
+                                        x[torch.arange(2)], x[torch.tensor([2, 0])]]),
+    "writes": lambda x, u, w: _writes(x, u, w),
+    # elementwise math
+    "atan2": lambda x, u, w: torch.atan2(x, 1.0 + x * x) + torch.atan2(x - 0.5, x[0]),
+    "sinh": lambda x, u, w: torch.sinh(x) + torch.cosh(x) + torch.asinh(x)
+    + torch.acosh(1.5 + x * x) + torch.atanh(0.5 * torch.tanh(x)),
+    "inverse trig": lambda x, u, w: torch.atan(x) + torch.asin(0.9 * torch.tanh(x))
+    + torch.acos(0.5 * torch.tanh(x)),
+    "sigmoid": lambda x, u, w: torch.sigmoid(x) + torch.nn.functional.softplus(x)
+    + torch.nn.functional.softplus(30.0 * x) + torch.nn.functional.softplus(x, 2.0, 1.0),
+    "log1p": lambda x, u, w: torch.log1p(x * x) + torch.expm1(x) + torch.erf(x),
+    "rsqrt": lambda x, u, w: torch.rsqrt(1.0 + x * x) + torch.reciprocal(2.0 + x * x),
+    "sign": lambda x, u, w: torch.sign(x) * x + torch.relu(x) + torch.sign(x - x),
+    "hypot": lambda x, u, w: torch.hypot(x, u[0]) + torch.hypot(x, x),
+    "pow (real exponent)": lambda x, u, w: (1.0 + x * x) ** 2.5 + torch.abs(x) ** 1.7
+    + 2.0 ** x + (1.5 + x * x) ** (0.5 + u[0] * u[0]) + (1.0 + x * x) ** 20,
+    # 0.0 * a and -0.0 * a are equal in Python but not under atan2: two
+    # registers, not one
+    "signed zero": lambda x, u, w: torch.stack([
+        torch.atan2(0.0 * x[0], -1.0 - x[1] * x[1]), torch.atan2(-0.0 * x[0], -1.0 - x[1] * x[1])]),
+    # reductions
+    "amax": lambda x, u, w: torch.amax(_A.to(x) * x, 1) + torch.amin(_A.to(x) * x, 0)
+    + torch.amax(x),
+    "max": lambda x, u, w: torch.stack([torch.max(x), torch.min(x), torch.max(x, 0).values,
+                                        torch.min(_A.to(x) * x, 1, keepdim=True).values[1, 0],
+                                        torch.max(x, u[0])[1]]),
+    "prod": lambda x, u, w: torch.prod(x) + torch.prod(_A.to(x) * x, 1) + torch.mean(x)
+    + torch.mean(_A.to(x) * x, 0),
+    "linalg_vector_norm": lambda x, u, w: torch.stack([
+        torch.linalg.vector_norm(x), torch.linalg.vector_norm(x, 1),
+        torch.linalg.vector_norm(x, float("inf")), torch.linalg.vector_norm(x, -float("inf")),
+        torch.linalg.vector_norm(x, 3), torch.norm(u), *torch.linalg.vector_norm(
+            _A.to(x) * x, dim=1, keepdim=True)[:, 0]]),
 }
 _GOAL = torch.tensor([0.5, -1.0, 2.0])
+_rng = np.random.default_rng(5)
+_A = torch.as_tensor(_rng.standard_normal((3, 3)))
+_Q = torch.as_tensor(np.diag([1.0, 0.5, 2.0]) + 0.1)
+_R = torch.diag(torch.tensor([0.3, 0.05], dtype=torch.float64))
+_BIAS = torch.tensor([0.25, -1.5], dtype=torch.float64)
+_IDX = torch.tensor([2, 0, 2])
+
+
+def _writes(x, u, w):
+    """Writes at constant indices and constant makers."""
+    z = torch.zeros_like(x)
+    z[1] = u[0]
+    z[0:2] += w
+    v = x.new_zeros(3).index_put((_IDX[:2],), u)
+    y = (torch.ones(3, dtype=x.dtype) * 2.0 + torch.full((3,), 0.5, dtype=x.dtype)
+         + torch.ones_like(x) + torch.zeros_like(x).fill_(0.25) + x.new_ones(3)
+         + x.new_full((3,), -1.0) + torch.full_like(x, 3.0))
+    e = (torch.eye(3, dtype=x.dtype) @ x + torch.arange(3, dtype=x.dtype) * x
+         + torch.tensor([1, -2, 3]).to(x) * x)     # an integer constant cast to values
+    return z + v + y + e
 
 
 def _rand(rng, n, B=6):
@@ -161,7 +242,7 @@ def _ops_spec():
 
 
 @pytest.mark.parametrize("name", ["acrobot", "car", "quadrotor", "cartpole", "farm", "demo",
-                                  "ops"])
+                                  "ops", "math"])
 def test_printed_header_compiles_and_matches(name, tmp_path):
     cxx = shutil.which("c++") or shutil.which("g++")
     if cxx is None:
@@ -213,11 +294,15 @@ def test_acrobot_operation_count_and_ring():
 
 
 _REFUSALS = {
-    "sinh": (lambda x, u, w: torch.sinh(x), "aten.sinh"),
-    "atan2": (lambda x, u, w: torch.atan2(x, 1.0 + x * x), "aten.atan2"),
+    "sort": (lambda x, u, w: torch.sort(x).values, "aten.sort"),
+    "inv": (lambda x, u, w: torch.linalg.inv(torch.outer(x, x) + torch.eye(2, dtype=x.dtype))
+            @ x, "aten.linalg_inv_ex"),
     "branch": (lambda x, u, w: x if x[0] > 0 else -x, "data-dependent branch"),
     "integer": (lambda x, u, w: (x * 3).to(torch.int64).to(x.dtype), "dtype torch.int64"),
-    "pow": (lambda x, u, w: (1.0 + x * x) ** 2.5, "exponent 2.5"),
+    "mask": (lambda x, u, w: x[x > 0].sum() * x, "boolean-mask indexing"),
+    # torch.cat promotes the integers to values: refused, not read as indices
+    "integer in cat": (lambda x, u, w: torch.cat([x, torch.tensor([1, 2])])[1:],
+                       "lowers only as an index"),
 }
 
 
@@ -293,3 +378,42 @@ def test_empty_and_parameter_blocks():
     m = df.generate(spec)
     assert (m.nc, m.nc_stage, m.nc_term, m.ineq) == (4, 4, 0, (0, 1, 2, 3))
     assert "INEQ_STAGE = 15u" in m.header
+
+
+@pytest.mark.parametrize("name", ["quadrotor_matrix", "car_user"])
+def test_user_problem_programs_equal_the_registered_models(name):
+    """The generated programs of models/quadrotor.py's and models/car.py's
+    problems written as users write them (matrices, constant indexing,
+    vector_norm) equal the registered hand-written models' functions to
+    1e-12: the same math in another order of operations."""
+    user = {"quadrotor_matrix": quadrotor_matrix, "car_user": car_user}[name](9)
+    lib = _library_spec(name.split("_")[0])
+    model = fk.device_model(user)
+    assert model is not None and model.generated is not None, fk.model_reason(user)
+    assert "generated" in fk.model_reason(user)
+    gen = model.generated
+    assert (gen.nx, gen.nu, gen.nc) == (lib.nx, lib.nu, lib.nc)
+    assert (gen.ineq, gen.ineq_T) == (df._rows(lib.ineq_mask[0]), df._rows(lib.ineq_mask[-1]))
+    rng = np.random.default_rng(13)
+    x = 0.5 * _rand(rng, lib.nx)
+    u = 0.5 * _rand(rng, lib.nu) + (2.4525 if name == "quadrotor_matrix" else 0.0)
+    w = _rand(rng, 0)
+    for slot, prog, o in zip(_SLOTS, gen.programs, df.stage_objects(lib)):
+        uu = torch.zeros_like(u) if slot.startswith("term") else u
+        _close(df.run(prog, x, uu, w), _per_instance(o._fn, x, uu, w), 1e-12)
+
+
+def test_matrix_costs_are_generated():
+    """A particle whose costs are quadratic forms 0.5 x @ Q @ x (the form
+    the generator refused before it lowered products) gets a generated
+    model, and its program equals the torch function."""
+    Q = torch.tensor([[1.0, 0.1], [0.1, 0.5]], dtype=torch.float64)
+    dyn, _, con, _, _ = particle.problem(9, device="cpu")
+    stage = Cost(lambda x, u: 0.5 * x @ Q @ x + 0.05 * u @ u, 2, 1)
+    term = Cost(lambda x, u: 0.5 * x @ Q @ x, 2, 0)
+    spec = build_spec(dyn, [stage] * 8 + [term], con)
+    assert "generated" in fk.model_reason(spec), fk.model_reason(spec)
+    prog = fk.device_model(spec).generated.programs[1]
+    rng = np.random.default_rng(14)
+    x, u, w = _rand(rng, 2), _rand(rng, 1), _rand(rng, 0)
+    _close(df.run(prog, x, u, w), _per_instance(stage._fn, x, u, w))

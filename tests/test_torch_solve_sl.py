@@ -155,13 +155,13 @@ def test_live_progress_needs_m13(capsys):
 
 def test_pallas_rollout_kernels_refuse_a_model_without_device_functions():
     """A user function the registry does not know and the generator cannot
-    lower (an op outside its whitelist) has no device model:
+    lower (a matrix decomposition, which stays refused) has no device model:
     forward_kernel="pallas" refuses the spec at build time, naming the
     models that have device functions and the op."""
     dyn, cost, con, *_ = acrobot.problem(T)
-    mine = Cost(lambda x, u: 0.2 * torch.sinh(u[0]) ** 2, 4, 1)
+    mine = Cost(lambda x, u: 0.2 * torch.linalg.inv((1.0 + u * u).reshape(1, 1))[0, 0], 4, 1)
     tspec = build_spec(dyn, [mine] * (T - 1) + cost[-1:], con)
-    with pytest.raises(ValueError, match="stage-uniform.*acrobot, car.*aten.sinh"):
+    with pytest.raises(ValueError, match="stage-uniform.*acrobot, car.*aten.linalg_inv_ex"):
         make_batched_solve_fn(
             tspec, Options(record_traces=False, forward_kernel="pallas"),
             device="cpu")

@@ -12,7 +12,7 @@ from torch.func import vmap
 
 from iterativelqr_tpu.core.spec import build_spec as jax_build_spec
 from iterativelqr_tpu.models import acrobot as jax_acrobot
-from iterativelqr_tpu_torch import Cost, Dynamics, build_spec
+from iterativelqr_tpu_torch import Constraint, Cost, Dynamics, build_spec
 from iterativelqr_tpu_torch.models import acrobot
 from iterativelqr_tpu_torch.ops.derivatives import constraint_values
 from iterativelqr_tpu_torch.ops.packed_pipeline import _grouped_bt2
@@ -184,3 +184,18 @@ def test_derivatives_keep_the_input_dtype(specs, dtype):
     outs = (tspec.dyn_jac[0](x, u, w) + tspec.cost_grad[0](x, u, w)
             + tspec.cost_hess[0](x, u, w) + tspec.con_jac[1](x, u, w))
     assert all(o.dtype == dtype for o in outs)
+
+
+def test_sizes_are_probed_without_running_on_the_constants_device():
+    """Dynamics and Constraint find their output sizes on fake tensors, as
+    the JAX package's ``eval_shape``: closed-over constants on another
+    device than the CPU (``meta`` stands in for the card here) need no
+    ``num_next_state`` or ``num_constraint``; a branch on a value still
+    probes on CPU zeros."""
+    Q = torch.eye(3, dtype=torch.float64, device="meta")
+    idx = torch.tensor([0, 2], device="meta")
+    dyn = Dynamics(lambda x, u: torch.cat([x @ Q, u]), 3, 2)
+    con = Constraint(lambda x, u: torch.cat([x[idx], torch.linalg.vector_norm(u).reshape(1)]),
+                     3, 2, indices_inequality=(2,))
+    branch = Dynamics(lambda x, u: x if float(u[0]) > 0 else torch.cat([x, u]), 3, 2)
+    assert (dyn.num_next_state, con.num_constraint, branch.num_next_state) == (5, 3, 5)
