@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Times the port's hand-written kernels on one CUDA card, at the shapes of
 chip_smoke.py's phases 3, 3b and 3c (B=4096; K1, K5, K6 acrobot (4, 1)
-T=101 and K6 (3, 2); K2, and K5, K6 at (12, 4), quadrotor T=41; K3 and K4
-acrobot T=101, car T=51, quadrotor T=41).  A case that a checkout cannot
-run (an instantiation it lacks raises NotImplementedError) is left out of
-that checkout's results.
+T=101, K1 also at car's (3, 2) and particle's (2, 1), K6 (3, 2); K2, and
+K5, K6 at (12, 4), quadrotor T=41; K3 and K4 acrobot T=101, car T=51,
+quadrotor T=41).  A case that a checkout cannot run (an instantiation it
+lacks raises NotImplementedError) is left out of that checkout's results.
+Each case's outputs on its inputs are hashed (SHA-256 of their bytes), and
+cases that every tree ran are reported bitwise equal or not across the
+trees.
 
     python3 chip_kernel_times.py [--repeats 3] [--tree DIR ...] [--only TEXT] [--out FILE]
 
@@ -24,6 +27,7 @@ chip_smoke.py's (loaded from beside this script).  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -51,6 +55,8 @@ def _cases(cs, pk, pb, fk, torch):
         # B=4097: a ragged edge whose runs are not 16-byte aligned
         for label, n, m, T, make, nb in (("K1", 4, 1, cs.T_MAIN, cs.random_stacks, B),
                                          ("K1", 4, 1, cs.T_MAIN, cs.random_stacks, B + 1),
+                                         ("K1", 3, 2, cs.T_MAIN, cs.wide_stacks, B),
+                                         ("K1", 2, 1, cs.T_MAIN, cs.random_stacks, B),
                                          ("K2", 12, 4, cs.T_QUAD, cs.wide_stacks, B),
                                          ("K2", 12, 4, cs.T_QUAD, cs.wide_stacks, B + 1)):
             if nb != B and dtype == torch.float64:
@@ -116,16 +122,26 @@ def child(tree: Path, label: str, repeats: int, only):
     cs = _smoke()
     t0 = time.perf_counter()
     _build.load_library()
+    if hasattr(pk, "build"):
+        # the recursion's libraries, built at first use: all of them now
+        pk.build(*cs.REGISTERED_DIMS, dtypes=cs.DTYPES)
     build_s = time.perf_counter() - t0
     cases = [c for c in _cases(cs, pk, pb, fk, torch)
              if not only or any(o in c[0] for o in only)]
+    digests = {}
+    for name, run, _ in cases:
+        out = run()
+        h = hashlib.sha256()
+        for a in (out if isinstance(out, (tuple, list)) else (out,)):
+            h.update(a.detach().contiguous().cpu().numpy().tobytes())
+        digests[name] = h.hexdigest()
     times = {name: [] for name, _, _ in cases}
     for _ in range(repeats):
         for name, run, _ in cases:
             times[name].append(cs.cuda_ms(run, reps=20, warmup=3))
     res = {"tree": label, "build_s": build_s, "ptxas": _build.ptxas_report(),
            "cases": {name: {"ms": times[name], "median_ms": statistics.median(times[name]),
-                            "bound_ms": bound}
+                            "bound_ms": bound, "digest": digests[name]}
                      for name, _, bound in cases}}
     print("RESULT " + json.dumps(res), flush=True)
 
@@ -169,6 +185,11 @@ def main():
                   f"(repeats {', '.join(f'{t:.4f}' for t in c['ms'])}; spread {spread:.4f}); "
                   f"bound {c['bound_ms']:.4f} ms, {c['bound_ms'] / c['median_ms']:.1%} of it",
                   flush=True)
+    shared = set.intersection(*(set(r["cases"]) for r in results))
+    for name in sorted(shared):
+        same = len({r["cases"][name]["digest"] for r in results}) == 1
+        print(f"[bitwise] {name}: outputs {'equal' if same else 'DIFFER'} across "
+              f"{len(results)} runs", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": smi, "results": results}, indent=1))

@@ -8,10 +8,13 @@ Phases, each of which raises (non-zero exit) when it fails:
 
 1. identity: card name and power limit, torch / CUDA / nvcc versions;
 2. build: compiles the port's kernels from csrc/ (one nvcc per source, all
-   at once; timed) and prints ptxas's registers and spills per kernel;
-3. K1 (csrc/riccati_backward.cu) against its plain PyTorch version on the
+   at once; timed), then the recursion's libraries at the registered
+   models' dims (4, 1), (3, 2), (2, 1) and (12, 4) in f32 and f64 (one
+   translation unit each, written by ops/packed_backward.py, all nvcc runs
+   at once; timed), and prints ptxas's registers and spills per kernel;
+3. K1 (csrc/riccati_backward.cuh) against its plain PyTorch version on the
    card at the main path's shapes (acrobot n=4, m=1, T=101, B=4096), and K2
-   (csrc/riccati_backward_wide.cu) at the quadrotor's (n=12, m=4, T=41,
+   (csrc/riccati_backward_wide.cuh) at the quadrotor's (n=12, m=4, T=41,
    B=4096), in f64 and f32, each plus a batch with indefinite Quu on some
    lanes (ok = 0); median times of both, the bounds and the kernel's share
    of its bound, and K1's ring of step tiles (tiles, dynamic shared memory
@@ -25,9 +28,9 @@ Phases, each of which raises (non-zero exit) when it fails:
    rows; median times of both, the byte and operation bounds and the
    share of the bound, and the model's ring (or its direct loads);
 3c. K5, K6a and K6b against their plain versions at B=4096, f64 and f32:
-   on K1's template (csrc/riccati_backward.cu) at (4, 1), T=101, and for
+   on K1's template (csrc/riccati_backward.cuh) at (4, 1), T=101, and for
    K6a/K6b also (3, 2) with the last action masked and its derivative
-   entries nonzero; on K2's template (csrc/riccati_backward_wide.cu) at the
+   entries nonzero; on K2's template (csrc/riccati_backward_wide.cuh) at the
    quadrotor's (12, 4), T=41, the last action masked too; a per-lane
    regularizer; each with a batch whose Quu is indefinite on every 61st
    lane; the kernel's median time, its batch-leading entry's (with the
@@ -168,7 +171,7 @@ Phases, each of which raises (non-zero exit) when it fails:
 9e. make_horizon_sharded_backward over [cuda:0] x 4 and x 8 against the
    associative scan (1e-10 relative) and the reverse scan (1e-8) on a
    pendulum T=1025 linearization in f64, then the long-horizon example's
-   solve (pendulum T=T_LONG=65, four chunks on the card);
+   solve (pendulum T=T_LONG=33, four chunks on the card);
 9f. utils/profiling.trace around a tuned solve on phase 4's kernel inputs,
    cut to PROFILE_TRIPS=8 trips, after an untraced call and a timed one,
    read from the exported trace: without Python frames, the ten device
@@ -182,6 +185,26 @@ Phases, each of which raises (non-zero exit) when it fails:
 9h. entry.dryrun_multichip(2) on [cuda:0, cuda:0]: the vmap, SL and
    per-device compaction routes, iterations equal, xs within 2e-3,
    reported violations equal to recomputed ones.
+
+10. the recursion at any user problem's (n, m) (ops/packed_backward.py::
+   riccati_plan picks K1's or K2's template and its parameters; each
+   (n, m, dtype) is a library built at first use): (d, run first) the
+   planar quadrotor of tests/torch_user_problems.py at (6, 2), its
+   recursion's library and generated K3/K4 built together (seconds), then
+   B=4096, T=101, f32, the tuned preset's options on the SL route with the
+   kernels ("pallas") and with the loop rollouts ("scan") on the same
+   lanes: trips, walls, K1/K2 and generated K3/K4 launches (> 0), the
+   recomputed solved fraction (>= 0.99, within 0.01 of each other) and the
+   objectives lane by lane; (a) the libraries of the grid (3, 1), (4, 2),
+   (5, 1), (5, 2), (6, 2), (7, 3), (13, 4), (14, 7), (24, 8) in f32 and
+   f64, and of both templates at the dims where the rule chooses between
+   them, built together: seconds, each plan's parameters against its
+   library's ring entry, registers and spills; (b) K1 or K2, K5, K6a and
+   K6b at every grid dims against their plain versions, f64 and f32,
+   B=1000, T=41, phase 3c's case and tolerances (the f32 kernels against
+   the f64 plain versions); (c) K1/K2 at (6, 2) and (13, 4), f32, B=4096,
+   T=101, against the bound and the plain version, and both templates in
+   turns at the dims of the rule's choice.
 
 Budget: the whole run stays under 800 s (1200 s limit).  For that,
 parity's loop cell runs on 4 lanes, tuned's loop cell on 16, phase 4c's
@@ -203,6 +226,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line, and
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -379,6 +403,20 @@ def cuda_ms(fn, reps=10, warmup=2):
 # ---------------------------------------------------------------------------
 
 
+def _fresh(make):
+    """``make``, its results kept (phases 3, 3c, 7a and 10 draw the same
+    stacks for each case and dtype: numpy's einsum takes seconds at
+    B=4096), handed out as copies the caller may write."""
+    kept = functools.lru_cache(maxsize=4)(make)
+
+    @functools.wraps(make)
+    def fresh(*args):
+        return [a.copy() for a in kept(*args)]
+
+    return fresh
+
+
+@_fresh
 def random_stacks(seed, B, Tm1, n, m):
     """Well-conditioned batch-last derivative stacks for m=1 (numpy, f64)."""
     rng = np.random.default_rng(seed)
@@ -394,6 +432,7 @@ def random_stacks(seed, B, Tm1, n, m):
     return [fx, fu, gx, gu, gxx, guu, gux]
 
 
+@_fresh
 def wide_stacks(seed, B, Tm1, n, m):
     """Well-conditioned batch-last derivative stacks for m > 1 (numpy, f64):
     the scheme of tests/test_packed_pipeline.py's streamed-output test,
@@ -1792,8 +1831,10 @@ T_LONG_CHECK = 1025
 # held at T=1025.  Then cut to T=65 for the run's budget (T=129: 33.5 s
 # of a 726.7 s run and 46.2 s of an 811.9 s one on a slower host, NVIDIA
 # H100 80GB HBM3, 700 W); the CPU path takes the same 108 iterations at
-# T=65 (violation 1.8e-4)
-T_LONG = 65
+# T=65 (violation 1.8e-4).  Then cut to T=33 for phase 10's time (T=65:
+# 29.9 s of phase 9e in an 867.3 s run, NVIDIA H100 80GB HBM3, 700 W): the
+# CPU path solves it in 39 iterations (violation 7.4e-4), still four chunks
+T_LONG = 33
 # phase 9f traces a tuned solve cut to PROFILE_TRIPS trips, after an
 # untraced call of the same solver: the whole solve (86 trips, traced with
 # Python frames) took 307 s with the profiler and the analysis of its
@@ -2730,6 +2771,293 @@ def check_golden(P, fixture):
         raise AssertionError(f"golden {fixture}: outside tests/test_golden.py's gates")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the recursion at any user problem's (n, m), built at first use
+# ---------------------------------------------------------------------------
+
+# the registered models' dims: acrobot and cartpole, car, particle and
+# pendulum (K1's template), the quadrotor (K2's)
+REGISTERED_DIMS = ((4, 1), (3, 2), (2, 1), (12, 4))
+RICCATI_GRID = ((3, 1), (4, 2), (5, 1), (5, 2), (6, 2), (7, 3), (13, 4), (14, 7), (24, 8))
+# dims at which both templates are built and timed: the evidence of the
+# rule's choice between K1's and K2's (ops/packed_backward.py::riccati_plan)
+TEMPLATE_CHOICE = ((5, 1), (5, 2), (6, 1), (6, 2))
+B_GRID, T_GRID = 1000, 41       # 10b: not a multiple of 4 lanes, T = 41
+TIMED_DIMS = ((6, 2), (13, 4))  # 10c, f32, B=4096, T=101
+PQ_T = 101                      # 10d, the planar quadrotor
+DTYPES = (torch.float32, torch.float64)
+
+
+def grid_plans(pk):
+    """10a's plans: the rule's at every grid dims in f32 and f64, and the
+    template the rule passes over at TEMPLATE_CHOICE (f32)."""
+    plans = [pk.riccati_plan(n, m, d) for n, m in RICCATI_GRID for d in DTYPES]
+    for n, m in TEMPLATE_CHOICE:
+        for t in ("K1", "K2"):
+            plan = pk.riccati_plan(n, m, torch.float32, template=t)
+            if plan not in plans:
+                plans.append(plan)
+    return plans
+
+
+def start_riccati_grid(pk, pool):
+    """Phase 10a's build, started in the background before phase 5 (whose
+    checks report no time) so that its nvcc runs use the host's idle cores:
+    the grid's libraries but the planar quadrotor's (6, 2) f32, which
+    phase 10d builds with its generated K3/K4 as a user's first solve
+    would.  Returns (plans, the pending build's seconds)."""
+    from iterativelqr_tpu_torch import _build
+
+    plans = grid_plans(pk)
+    pq = pk.riccati_plan(6, 2, torch.float32)
+
+    def run():
+        t0 = time.perf_counter()
+        _build.build_generated(*(p.source() for p in plans if p != pq))
+        return time.perf_counter() - t0
+
+    return plans, pool.submit(run)
+
+
+def build_riccati_grid(pk, plans, pending):
+    """Phase 10a: the libraries of the grid, built together (in the
+    background, ``start_riccati_grid``); seconds, each plan's parameters
+    against its library's ring entry, and ptxas's registers, spills and
+    shared memory a kernel."""
+    from iterativelqr_tpu_torch import _build
+
+    seconds = pending.result()
+    paths = _build.build_generated(*(p.source() for p in plans))
+    log(f"[riccati] {len(paths) - 1} libraries (the grid in f32 and f64, and both templates at "
+        f"{list(TEMPLATE_CHOICE)} in f32, but 10d's) built together in {seconds:.2f} s, beside "
+        f"phase 5")
+    for plan, path in zip(plans, paths):
+        rings = tuple(pk.riccati_ring(plan.n, plan.m, None, masked, plan=plan)
+                      for masked in (False, True))
+        if tuple(r[0] for r in rings) != plan.depth or tuple(r[1] for r in rings) != plan.shared:
+            raise AssertionError(f"(n, m) = ({plan.n}, {plan.m}) {plan.dtype}: the library's ring "
+                                 f"{rings} is not the plan's {plan.depth}, {plan.shared}")
+        if max(plan.shared) > pk.SHARED_MAX:
+            raise AssertionError(f"{plan}: more shared memory than a block may take")
+        head = (f"[riccati] n={plan.n} m={plan.m} {plan.dtype} {plan.template}'s template: "
+                f"{plan.rows} row(s) of P a thread, {plan.lanes} lanes and {plan.threads} threads "
+                f"a block, ring {plan.depth[0]} tiles, {plan.shared[0]} B shared "
+                f"({plan.shared[1]} B masked)")
+        log(head)
+        for line in _build.ptxas_report(path.with_suffix(".log")):
+            log(f"[riccati]   {line}")
+
+
+def _grid_runs(pk, pb, plan, st, um, reg):
+    """{counter name: (kernel, plain version)} of K1 or K2, K5, K6a and K6b
+    on one case; K1/K2 and K5 share a plain version (the same inputs)."""
+    kin = [a.contiguous() for a in pk.prepare_stacks(*st, um > 0.5)]
+    ref = {}
+
+    def plain_k1():
+        if "k1" not in ref:
+            ref["k1"] = pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg)
+        return ref["k1"]
+
+    wide = "_wide" if plan.wide else ""
+    runs = {plan.main: (lambda: pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg), plain_k1)}
+    for label, base in (("K5", "riccati_packed"), ("K6a", "riccati_masked"),
+                        ("K6b", "riccati_masked_packed")):
+        kern, plain, _, _ = packed_masked_runs(pk, pb, label, st, um, reg)
+        runs[base + wide] = (kern, plain_k1 if label == "K5" else plain)
+    return runs
+
+
+def check_riccati_grid(pk, pb):
+    """Phase 10b: K1 or K2, K5, K6a and K6b at every grid dims against their
+    plain versions, B=B_GRID, T=T_GRID, phase 3c's case (the last action
+    masked where m > 1, a per-lane regularizer from [1e-3, 1], Quu
+    indefinite at one step on every 61st lane) and phases 3/3c's
+    tolerances: the f64 kernels and the f32 kernels (on the same numbers
+    rounded to f32) against the plain versions in f64, run once a dims;
+    each wrapper launches its kernel once, on the counter of the template
+    the rule picks."""
+    tols = {torch.float64: 1e-10, torch.float32: 1e-4}
+    B, Tm1 = B_GRID, T_GRID - 1
+    for n, m in RICCATI_GRID:
+        refs = None
+        for dtype, tol in tols.items():
+            plan = pk.riccati_plan(n, m, dtype)
+            st, um, reg, bad = masked_case(SEED, B, Tm1, n, m, "indefinite_lanes", dtype)
+            runs = _grid_runs(pk, pb, plan, st, um, reg)
+            if refs is None:   # f64 first: its plain versions are the references
+                refs = {k.replace("_wide", ""): plain() for k, (_, plain) in runs.items()}
+            errs = {}
+            for kname, (kern, _) in runs.items():
+                counter = counters()[kname]
+                before = counter.launches
+                out = kern()
+                torch.cuda.synchronize()
+                if counter.launches != before + 1:
+                    raise AssertionError(f"({n}, {m}) {dtype}: {kname} was not launched once")
+                err = 0.0
+                for name, a, b in zip(("K", "k", "Qx", "Qu", "p", "ok"), out,
+                                      refs[kname.replace("_wide", "")]):
+                    a = a.double()
+                    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+                        raise AssertionError(f"({n}, {m}) {dtype} {kname} {name}: NaN positions differ")
+                    keep = ~torch.isnan(b)
+                    fa, fb = a[keep], b[keep]
+                    scale = float(fb.abs().max()) if fb.numel() else 0.0
+                    e = float((fa - fb).abs().max()) if fb.numel() else 0.0
+                    if not e <= tol * max(scale, 1.0):
+                        raise AssertionError(f"({n}, {m}) {dtype} {kname} {name}: max |kernel - plain| "
+                                             f"{e:.3e} > {tol:g} * max(|plain|, 1)")
+                    err = max(err, e)
+                ok = out[-1].cpu().numpy()
+                if not np.array_equal(ok == 0, bad):
+                    raise AssertionError(f"({n}, {m}) {dtype} {kname}: ok is not 0 exactly on the "
+                                         "indefinite lanes")
+                errs[kname] = err
+            log(f"[riccati] n={n} m={m} {str(dtype).split('.')[-1]} B={B} T={T_GRID} on "
+                f"{plan.template}'s template: max |kernel - plain f64| "
+                + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+                + f" (tol {tol:g} relative), ok = 0 exactly on the {int(bad.sum())} indefinite lanes")
+
+
+def _time_case(pk, n, m, T, B):
+    """Phase 10c's inputs at (n, m), f32: the prepared stacks, reg, and the
+    bytes and operations of one sweep."""
+    Tm1 = T - 1
+    make = random_stacks if m == 1 else wide_stacks
+    dev = [torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in make(SEED, B, Tm1, n, m)]
+    kin = [a.contiguous() for a in pk.prepare_stacks(*dev, torch.ones((Tm1, m), dtype=torch.bool))]
+    reg = torch.zeros(B, dtype=torch.float32, device="cuda")
+    outs = pk.new_outputs(Tm1, n, m, B, torch.float32, "cuda")
+    nbytes = sum(a.numel() * a.element_size() for a in (*kin, reg, *outs))
+    return kin, reg, nbytes, riccati_ops(n, m) * Tm1 * B
+
+
+def time_riccati_grid(pk):
+    """Phase 10c: K1/K2 at TIMED_DIMS, f32, B=4096, T=101, against the bound
+    (bytes at 3.35 TB/s or operations at 67 TFLOP/s, the larger) and the
+    plain version (one run after a check); then, at TEMPLATE_CHOICE, both
+    templates on the same inputs, timed in turns (K1's, K2's, K2's, K1's)
+    and held to each other.  Returns {(n, m): record} of TIMED_DIMS, its
+    launches those of one call of the entry with the counts set to 0."""
+    B, T = B_MAIN, T_MAIN
+    records = {}
+    for n, m in TIMED_DIMS:
+        kin, reg, nbytes, ops = _time_case(pk, n, m, T, B)
+        plan = pk.riccati_plan(n, m, torch.float32)
+        run = lambda: pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
+        plain = lambda: pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg)
+        for c in counters().values():
+            c.reset()
+        out = run()
+        torch.cuda.synchronize()
+        launches = counters()[plan.main].launches
+        ref = plain()
+        err = max(float((a - b)[~torch.isnan(b)].abs().max()) for a, b in zip(out, ref))
+        k_ms = cuda_ms(run)
+        p_ms = cuda_ms(plain, **PLAIN_REPS)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        log(f"[riccati] {plan.main} n={n} m={m} T={T} B={B} f32 on {plan.template}'s template "
+            f"({plan.lanes} lanes, ring {plan.depth[0]}): kernel {k_ms:.4f} ms (median of 10), "
+            f"plain {p_ms:.3f} ms (one run), max |kernel - plain| {err:.3e}; bound {b_ms:.4f} ms "
+            f"({b_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations); "
+            f"{b_ms / k_ms:.1%} of the bound")
+        records[n, m] = dict(launches=launches, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=b_ms, bound_by=b_by, kernel=plan.main)
+    scratch = pk.LaunchCounter()
+    for n, m in TEMPLATE_CHOICE:
+        kin, reg, nbytes, ops = _time_case(pk, n, m, T, B)
+        args = (*kin, reg)
+        plans = {t: pk.riccati_plan(n, m, torch.float32, template=t) for t in ("K1", "K2")}
+        runs = {t: (lambda p=p: pk.launch(p, p.main, scratch, args,
+                                          pk.new_outputs(T - 1, n, m, B, torch.float32, "cuda"),
+                                          T - 1, B)) for t, p in plans.items()}
+        o1, o2 = runs["K1"](), runs["K2"]()
+        torch.cuda.synchronize()
+        diff = max(float((a - b).abs().max()) for a, b in zip(o1, o2))
+        scale = max(float(a.abs().max()) for a in o2)
+        if not diff <= 1e-4 * max(scale, 1.0):
+            raise AssertionError(f"({n}, {m}): the two templates differ by {diff:.3e}")
+        times = {"K1": [], "K2": []}
+        for t in ("K1", "K2", "K2", "K1"):
+            times[t].append(cuda_ms(runs[t]))
+        k1, k2 = (statistics.mean(times[t]) for t in ("K1", "K2"))
+        b_ms, b_by = bound_ms(nbytes, ops)
+        log(f"[riccati] template choice n={n} m={m} T={T} B={B} f32, in turns: K1's template "
+            f"{k1:.4f} ms ({plans['K1'].rows} rows a thread), K2's {k2:.4f} ms "
+            f"({plans['K2'].lanes} lanes, ring {plans['K2'].depth[0]}); K2/K1 {k2 / k1:.3f}; "
+            f"the rule takes {pk.riccati_plan(n, m, torch.float32).template}'s; bound {b_ms:.4f} ms "
+            f"({b_by}); outputs agree to {diff:.2e}")
+    return records
+
+
+def run_planar_quadrotor(P, pk, fk):
+    """Phase 10d: tests/torch_user_problems.py's planar quadrotor (6, 2) as
+    a user writes it, B=4096, T=PQ_T, f32, the tuned preset's options on the
+    SL route with forward_kernel="pallas" (the Riccati family at (6, 2) and
+    generated K3/K4), and the same lanes with the loop rollouts ("scan"):
+    build seconds (the recursion's library and the generated model's
+    together), trips, walls, launches (K1/K2 and generated K3/K4, each >
+    0 on the kernel path), the recomputed solved fraction (>= 0.99 on
+    both, within 0.01 of each other) and the objectives lane by lane.
+    Returns the kernel path's launch counts."""
+    from iterativelqr_tpu_torch.core.solve_sl import build_kernels
+
+    up = user_problems()
+    B, T, dtype = B_MAIN, PQ_T, torch.float32
+    spec = up.planar_quadrotor(P, torch, T)
+    model = fk.device_model(spec, "cuda")
+    if model is None or model.generated is None:
+        raise AssertionError(f"planar quadrotor: no generated model ({fk.model_reason(spec, 'cuda')})")
+    t0 = time.perf_counter()
+    paths = build_kernels(spec, True, dtype)
+    log(f"[pq] the recursion's library at (6, 2) f32 ({pk.riccati_plan(6, 2, dtype).template}'s "
+        f"template) and the generated K3/K4 ({model.name}, {model.generated.ops_per_step()} "
+        f"operations a step) built together in {time.perf_counter() - t0:.2f} s")
+    from iterativelqr_tpu_torch import _build
+
+    for line in _build.ptxas_report(paths[-1].with_suffix(".log")):
+        log(f"[pq]   {line}")
+    inputs = [torch.as_tensor(a, dtype=dtype, device="cuda")
+              for a in up.planar_quadrotor_inputs(B, T, SEED)]
+    sols, fracs, counts = {}, {}, {}
+    for fkm in ("pallas", "scan"):
+        opts = P.Options(**TUNED, batched_solver="sl", forward_kernel=fkm)
+        P.make_batched_solve_fn(spec, dataclasses.replace(opts, max_total_iterations=2),
+                                device="cuda", dtype=dtype)(*inputs)
+        torch.cuda.synchronize()
+        solve = P.make_batched_solve_fn(spec, opts, device="cuda", dtype=dtype)
+        sol, stats, wall, counts[fkm] = counted_solve(P, solve, inputs)
+        _, frac_true = integrity(f"planar quadrotor/{fkm}", spec, sol, stats, inputs[2],
+                                 opts.constraint_tolerance, B, T, 6, 2)
+        fracs[fkm] = frac_true
+        sols[fkm] = sol
+        c = counts[fkm]
+        k12 = c["riccati_backward"] + c["riccati_backward_wide"]
+        k34 = c["sl_score_rollout_generated"], c["sl_winner_reroll_generated"]
+        log(f"[pq] {fkm}: B={B} T={T} f32, {int(sol.iterations.max())} trips, {wall:.3f} s, "
+            f"recomputed solved fraction {frac_true:.4f}, mean objective "
+            f"{float(sol.objective.mean()):.6f}; launches K1/K2 {k12} (K2's template "
+            f"{c['riccati_backward_wide']}), generated K3 {k34[0]}, K4 {k34[1]}")
+        if k12 <= 0:
+            raise AssertionError(f"planar quadrotor/{fkm}: the recursion's kernel was not launched")
+        if fkm == "pallas" and min(k34) <= 0:
+            raise AssertionError(f"planar quadrotor: generated K3/K4 were not launched {k34}")
+        if fkm == "scan" and max(k34) > 0:
+            raise AssertionError(f"planar quadrotor: the loop path launched K3/K4 {k34}")
+        if frac_true < 0.99:
+            raise AssertionError(f"planar quadrotor/{fkm}: recomputed solved fraction {frac_true} < 0.99")
+    if abs(fracs["pallas"] - fracs["scan"]) > 0.01:
+        raise AssertionError(f"planar quadrotor: kernel and loop solved fractions differ: {fracs}")
+    Jk, Js = sols["pallas"].objective, sols["scan"].objective
+    rel = (Jk - Js).abs() / Js.abs().clamp(min=1.0)
+    log(f"[pq] objective, kernels against loops on the same lanes: mean {float(Jk.mean()):.6f} "
+        f"against {float(Js.mean()):.6f}; lane by lane max relative difference "
+        f"{float(rel.max()):.3e}, median {float(rel.median()):.3e}; iterations equal on "
+        f"{int((sols['pallas'].iterations == sols['scan'].iterations).sum())} of {B} lanes")
+    return counts["pallas"]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false")
@@ -2750,12 +3078,22 @@ def main():
     log(f"[id] {smi}; torch {torch.__version__}; CUDA {torch.version.cuda}; nvcc: {nvcc}; "
         f"device count {torch.cuda.device_count()}")
 
+    # the kernel library (K3/K4) and the recursion's libraries at the
+    # registered models' dims (otherwise each built at its first use), their
+    # nvcc runs all started together
     t0 = time.perf_counter()
-    _build.load_library()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        riccati = pool.submit(pk.build, *REGISTERED_DIMS, dtypes=DTYPES)
+        _build.load_library()
+        paths = riccati.result()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"({_build.library_path().name})")
+        f"({_build.library_path().name}), with the recursion's libraries at "
+        f"{list(REGISTERED_DIMS)} in f32 and f64")
     for line in _build.ptxas_report():
         log(f"[build] {line}")
+    for path in paths:
+        for line in _build.ptxas_report(path.with_suffix(".log")):
+            log(f"[build] {line}")
     at("build")
 
     records = {"riccati_backward": check_riccati(pk, "K1"),
@@ -2816,6 +3154,8 @@ def main():
             f"{len(differ)} lanes" + (f" (first {differ[:8]}: {its_a[differ[:8]].tolist()} vs "
                                       f"{its_b[differ[:8]].tolist()})" if differ else ""))
 
+    background = concurrent.futures.ThreadPoolExecutor(1)
+    grid_plans_, grid_build = start_riccati_grid(pk, background)
     check_card_vs_cpu(P)
     check_vmap_card_vs_cpu(P)
     at("phase 5 card vs cpu")
@@ -2927,16 +3267,31 @@ def main():
         "compaction routes agree (iterations, xs within 2e-3, reported violations recomputed)")
     at("phase 9h")
 
-    sources = {"riccati_backward": ("riccati_backward.cu", "iterativelqr_tpu/ops/packed_backward.py:509"),
-               "riccati_backward_wide": ("riccati_backward_wide.cu", "iterativelqr_tpu/ops/packed_backward.py:574"),
+    # phase 10: the recursion at any (n, m), and a user problem at (6, 2)
+    pq_counts = run_planar_quadrotor(P, pk, fk)
+    at("phase 10d")
+    build_riccati_grid(pk, grid_plans_, grid_build)
+    background.shutdown()
+    at("phase 10a")
+    check_riccati_grid(pk, pb)
+    at("phase 10b")
+    for (n, m), rec in time_riccati_grid(pk).items():
+        kname = rec.pop("kernel")
+        if (n, m) == (6, 2):   # the launches of the planar quadrotor's solve
+            rec["launches"] = pq_counts[kname]
+        extra.append((kname, f"n={n} m={m}", rec))
+    at("phase 10c")
+
+    sources = {"riccati_backward": ("riccati_backward.cuh", "iterativelqr_tpu/ops/packed_backward.py:509"),
+               "riccati_backward_wide": ("riccati_backward_wide.cuh", "iterativelqr_tpu/ops/packed_backward.py:574"),
                "sl_score_rollout": ("sl_forward.cu", "iterativelqr_tpu/ops/sl_forward_kernel.py:327"),
                "sl_winner_reroll": ("sl_forward.cu", "iterativelqr_tpu/ops/sl_forward_kernel.py:426"),
-               "riccati_packed": ("riccati_backward.cu", "iterativelqr_tpu/ops/packed_backward.py:102"),
-               "riccati_masked": ("riccati_backward.cu", "iterativelqr_tpu/ops/pallas_backward.py:109"),
-               "riccati_masked_packed": ("riccati_backward.cu", "iterativelqr_tpu/ops/pallas_backward.py:343"),
-               "riccati_packed_wide": ("riccati_backward_wide.cu", "iterativelqr_tpu/ops/packed_backward.py:102"),
-               "riccati_masked_wide": ("riccati_backward_wide.cu", "iterativelqr_tpu/ops/pallas_backward.py:109"),
-               "riccati_masked_packed_wide": ("riccati_backward_wide.cu",
+               "riccati_packed": ("riccati_backward.cuh", "iterativelqr_tpu/ops/packed_backward.py:102"),
+               "riccati_masked": ("riccati_backward.cuh", "iterativelqr_tpu/ops/pallas_backward.py:109"),
+               "riccati_masked_packed": ("riccati_backward.cuh", "iterativelqr_tpu/ops/pallas_backward.py:343"),
+               "riccati_packed_wide": ("riccati_backward_wide.cuh", "iterativelqr_tpu/ops/packed_backward.py:102"),
+               "riccati_masked_wide": ("riccati_backward_wide.cuh", "iterativelqr_tpu/ops/pallas_backward.py:109"),
+               "riccati_masked_packed_wide": ("riccati_backward_wide.cuh",
                                               "iterativelqr_tpu/ops/pallas_backward.py:343")}
     # K5 runs in no solve of the JAX package: its launches are those of its
     # batch-leading entry at the main shapes (phase 3c)

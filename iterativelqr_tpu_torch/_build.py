@@ -1,17 +1,22 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` for Hopper
-(``sm_90a``), one process per source started together, and linked into one
-shared library with a plain C interface, loaded with ``ctypes``.  The library lands in ``iterativelqr_tpu_torch/_build/`` (listed
-in ``.gitignore``) under a name keyed on a hash of the sources and flags, so
-an edited source rebuilds and an unchanged one is reused.  Nothing is built
-at import: ``load_library`` runs the first time a CUDA tensor reaches a
-kernel, so the package imports on a machine without ``nvcc``.
+The sources under ``csrc/`` (``*.cu``: the rollout kernels K3/K4 of the
+registered models) are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+process per source started together, and linked into one shared library
+with a plain C interface, loaded with ``ctypes``.  The library lands in
+``iterativelqr_tpu_torch/_build/`` (listed in ``.gitignore``) under a name
+keyed on a hash of the sources, headers and flags, so an edited source
+rebuilds and an unchanged one is reused.  Nothing is built at import:
+``load_library`` runs the first time a CUDA tensor reaches a kernel, so
+the package imports on a machine without ``nvcc``.
 
-A generated device model (``ops/device_functions.py``) is one more
-translation unit, built by ``build_generated`` into a library of its own
-keyed on a hash of its text, ``csrc/``'s sources and the flags, at first
-use (when the solver that runs it is built for the card).
+Translation units written at run time are built by ``build_generated``,
+each into a library of its own keyed on a hash of its text, ``csrc/``'s
+sources and headers and the flags, at first use (when the solver that
+runs it starts on the card): a generated device model
+(``ops/device_functions.py``, K3/K4 on a user's stage functions) and the
+backward recursion at one (n, m, dtype) (``ops/packed_backward.py::
+RiccatiPlan.source``: K1 or K2, K5, K6a, K6b from the template headers).
 """
 
 from __future__ import annotations
@@ -128,9 +133,9 @@ def generated_library_path(source: str) -> Path:
 
 def build_generated(*sources: str) -> list:
     """Compile each generated translation unit (its text; it includes
-    ``sl_rollout.cuh`` from ``csrc/``) into a library of its own unless it
-    exists: one nvcc per source, all started together, then the links.
-    Returns the libraries' paths; raises with nvcc's log when one fails."""
+    headers from ``csrc/``) into a library of its own unless it exists: one
+    nvcc per source, all started together, then the links.  Returns the
+    libraries' paths; raises with nvcc's log when one fails."""
     outs = [generated_library_path(src) for src in sources]
     todo = {out: src for out, src in zip(outs, sources) if not out.exists()}
     if not todo:

@@ -39,6 +39,7 @@ import torch
 
 from ..ops import al as al_ops
 from ..ops import derivatives as dv
+from ..ops import packed_backward as pk
 from ..ops.backward import backward_pass
 from ..ops.batching import broadcast_lanes, lane_call, select, while_lanes
 from ..ops.forward import armijo_slope, line_search, trajectory_sensitivities
@@ -668,8 +669,16 @@ def make_solve_fn(
                                       dtype=J.dtype, device=device),
         )
 
+    # the recursion's kernels on the card: built at a solve's start (the
+    # dtype is the inputs'), before its first trip
+    riccati = device.type == "cuda" and (
+        o.backward_pass == "packed"
+        or getattr(backward_impl, "riccati_kernels", False))
+
     def run(xs_init, us_init, ws, duals0=None, penalty0=None, *, batched):
         B, dtype = xs_init.shape[0], xs_init.dtype
+        if riccati and batched:
+            pk.library(spec.nx, spec.nu, dtype)
         if duals0 is None:
             duals0 = torch.zeros((B, T, nc), dtype=dtype, device=device)
             penalty0 = torch.full((B, T, nc), o.initial_constraint_penalty,

@@ -19,8 +19,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..ops import packed_backward as pk
 from ..ops.packed_pipeline import make_derive_backward_sl
-from ..ops.sl_forward_kernel import select_kernels
+from ..ops.sl_forward_kernel import device_model, select_kernels
 from ..ops.sl_ops import SLOps, from_sl, to_sl
 from .options import Options
 from .solve import Solution, _no_section
@@ -55,6 +56,16 @@ class SLParts(NamedTuple):
     finish: Callable  # (_SLCarry, ws_sl) -> Solution (batch-leading)
 
 
+def build_kernels(spec: ProblemSpec, use_kernels: bool, dtype) -> list:
+    """Build the kernels a solve of ``spec`` on the card runs, their nvcc
+    runs started together: the recursion's library at (nx, nu, dtype) and,
+    where the line search runs K3/K4 on a generated model, that model's.
+    Each is built once (cached on disk by its text); returns the paths."""
+    model = device_model(spec, "cuda") if use_kernels else None
+    sources = [model.generated.translation_unit()] if model and model.generated else []
+    return pk.build((spec.nx, spec.nu), dtypes=(dtype,), sources=sources)
+
+
 def make_sl_parts(
     spec: ProblemSpec, options: Options = Options(), *,
     device="cuda", dtype=torch.float32, dual_warm_start: bool = False,
@@ -82,10 +93,12 @@ def make_sl_parts(
     # the rollout-kernel choice is checked now; the pieces that hold device
     # tensors are made at first use, so a solver for the card can be built
     # (and refuse CPU inputs) where there is no card
-    select_kernels(spec, o, device)
+    use_kernels = select_kernels(spec, o, device)
 
     @functools.lru_cache(maxsize=None)
     def built():
+        if device.type == "cuda":
+            build_kernels(spec, use_kernels, dtype)
         return (SLOps(spec, o, device=device, dtype=dtype),
                 make_derive_backward_sl(spec, o, device=device))
 

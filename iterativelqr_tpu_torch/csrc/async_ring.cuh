@@ -1,8 +1,8 @@
 // A ring of shared-memory tiles that a producer warp fills with the step
 // inputs of a batch-last recursion while the block's other warps compute:
-// shared by the recursion templates of K1 (riccati_backward.cu) and K2
-// (riccati_backward_wide.cu, whose last control warp doubles as the
-// producer) and the rollout body of K3/K4 (sl_forward.cu).
+// shared by the recursion templates of K1 (riccati_backward.cuh) and K2
+// (riccati_backward_wide.cuh, whose last warp doubles as the producer)
+// and the rollout body of K3/K4 (sl_forward.cu).
 //
 // A tile holds rows of one step for the 32 neighbouring lanes of a block,
 // laid out [row][32 lanes].  Row r of step t of a batch-last array
@@ -98,21 +98,24 @@ __device__ __forceinline__ void bar_wait(std::uint64_t* bar, unsigned parity) {
 
 // ---- copies ----------------------------------------------------------------
 
-// Rows [0, E) of step t of A [.., R, B] for lanes [b0, b0+32) into
-// dst [E][32], by the NT threads of the producer warps (tid < NT).  vec: a
-// row is kChunks 16-byte chunks; thread tid copies chunk tid % kChunks of
-// rows tid / kChunks, + G, + 2G, ... (G = NT / kChunks), so its lanes, their
-// validity and its source column are fixed and only the row offset moves;
-// else each thread copies one value (its lane tid % 32) of rows tid / 32,
-// + NT / 32, ...  Lanes past B are zero-filled and read nothing.
-template <int E, int R, int NT, typename T>
+// Rows [0, E) of step t of A [.., R, B] for lanes [b0, b0+W) into
+// dst [E][W] (W = 32 but in K2's template at wide dims, which may take 16,
+// 8 or 4 lanes a block), by the NT threads of the producer warps
+// (tid < NT).  vec: a row is kChunks 16-byte chunks; thread tid copies
+// chunk tid % kChunks of rows tid / kChunks, + G, + 2G, ... (G = NT /
+// kChunks), so its lanes, their validity and its source column are fixed
+// and only the row offset moves; else each thread copies one value (its
+// lane tid % W) of rows tid / W, + NT / W, ...  Lanes past B are
+// zero-filled and read nothing.
+template <int E, int R, int NT, int W = kLanes, typename T>
 __device__ __forceinline__ void copy_rows(T* dst, const T* __restrict__ A, size_t t,
                                           size_t B, size_t b0, int tid, bool vec) {
   static_assert(NT % kLanes == 0, "whole producer warps");
+  static_assert(W * sizeof(T) % 16 == 0, "a row of a tile is whole 16-byte chunks");
   const T* step = A + t * R * B;
   if (vec) {
     constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // values a chunk
-    constexpr int kChunks = kLanes / kPer;                  // chunks a row
+    constexpr int kChunks = W / kPer;                       // chunks a row
     constexpr int G = NT / kChunks;
     const int q = tid % kChunks;
     const size_t b = b0 + static_cast<size_t>(q * kPer);
@@ -122,19 +125,19 @@ __device__ __forceinline__ void copy_rows(T* dst, const T* __restrict__ A, size_
 #pragma unroll
     for (int k = 0; k < (E + G - 1) / G; ++k) {
       const int e = tid / kChunks + k * G;
-      if (e < E) copy<16>(dst + e * kLanes + q * kPer, src + e * dB, valid);
+      if (e < E) copy<16>(dst + e * W + q * kPer, src + e * dB, valid);
     }
   } else {
     // up to F rows a thread: a loop, not unrolled, keeps its registers few
-    constexpr int G = NT / kLanes;
-    const int q = tid % kLanes;
+    constexpr int G = NT / W;
+    const int q = tid % W;
     const size_t b = b0 + static_cast<size_t>(q);
     const bool valid = b < B;
     const T* src = valid ? step + b : A;
     const size_t dB = valid ? B : 0;
 #pragma unroll 1
-    for (int e = tid / kLanes; e < E; e += G)
-      copy<sizeof(T)>(dst + e * kLanes + q, src + e * dB, valid);
+    for (int e = tid / W; e < E; e += G)
+      copy<sizeof(T)>(dst + e * W + q, src + e * dB, valid);
   }
 }
 

@@ -22,14 +22,18 @@
 // PackedBuffer: one buffer [Tm1, F, B], F = 46 at (4, 1)) and the mask
 // policies (NoMask for K1, K5; StepMask for K6a and, in its own order, K6b)
 // are riccati_policies.cuh's, shared with K2's template
-// (riccati_backward_wide.cu), as are the C entry points.
+// (riccati_backward_wide.cuh), as are the C entry points.
 //
 // Layout and threads: a block owns 32 neighbouring batch lanes.  Each lane
 // has a team of kTeam = 4 threads in its compute warps: thread `row` forms
-// row `row` of fx^T P, Qxx and the P update and solves gain column `row`
-// (and `row` + 4), the team shares them by shuffles, and every thread of the
-// team forms the small rest (Qx, Qu, fu^T P, Quu, Qux, the Cholesky, the
-// symmetrized P, p) itself; (3, 2) leaves the fourth row idle.  The
+// rows `row`, `row` + 4, ... (kRows = ceil(n / 4) of them) of fx^T P, Qxx
+// and the P update and solves gain columns `row`, `row` + 4, ..., the team
+// shares them by shuffles, and every thread of the team forms the small
+// rest (Qx, Qu, fu^T P, Quu, Qux, the Cholesky, the symmetrized P, p)
+// itself; (3, 2) leaves the fourth row idle, (5, m) three of the eight.
+// The registers a thread holds grow with n^2 (P, fx and the gathered new
+// P whole), so the dims this template takes are
+// ops/packed_backward.py::riccati_plan's to choose.  The
 // block's kProducerWarps = 2 producer warps stream the steps' inputs into a
 // ring of kDepth = 8 tiles in shared memory (async_ring.cuh).  Every array is
 // batch-last, so slot f of step t for the block's lanes is one contiguous
@@ -68,10 +72,13 @@
 // Runs that are not 16-byte aligned (B * sizeof(T) not a multiple of 16, as
 // B = 4097) go one value a copy, which the producers issue more slowly.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-// -Xcompiler -fPIC (iterativelqr_tpu_torch/_build.py).  Plain C entry points
-// below, one per kernel and instantiated (n, m, dtype); each returns
+// Build: a translation unit that includes this header and instantiates
+// RICCATI_FAMILY (riccati_policies.cuh) at one (n, m, dtype), written and
+// built at first use by iterativelqr_tpu_torch/ops/packed_backward.py
+// (nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+// -fPIC, _build.py::build_generated); each C entry returns
 // cudaGetLastError() (or the attribute call's error).
+#pragma once
 
 #include <cuda_runtime.h>
 
@@ -170,7 +177,6 @@ template <int N, int M, typename T, class Load, class Mask>
 __global__ void __launch_bounds__(kThreads) riccati_kernel(
     Load load, Mask mask, const T* __restrict__ gxxT, const T* __restrict__ gxT,
     const T* __restrict__ reg, Outputs<T> out, int Tm1, int B_int, bool vec) {
-  static_assert(N <= kTeam, "a team has a thread for each row of P");
   using L = Tile<N, M, T, Mask::kMasked>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const tiles = reinterpret_cast<T*>(smem);
@@ -199,18 +205,22 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
       const size_t t = static_cast<size_t>(Tm1 - 1 - i);
       T* tile = tiles + s * L::kValues;
       load.template copy<L, kProducers>(tile, t, B, b0, tid, vec);
-      mask.template copy<M>(tile + L::kF * ring::kLanes, t, tid);
+      mask.template copy<M>(tile + L::kF * L::kW, t, tid);
       ring::bar_arrive_on_copies(&full[s]);
     }
     ring::wait_all();
     return;
   }
 
-  // the compute warps: thread `row` of lane `lane`'s team.  A lane past the
-  // edge computes on the zero-filled tile (a unit regularizer keeps it
-  // finite) with its team, as the shuffles need, and stores nothing.
+  // the compute warps: thread `row` of lane `lane`'s team, which owns rows
+  // row + q * kTeam, q < kRows.  A lane past the edge computes on the
+  // zero-filled tile (a unit regularizer keeps it finite) with its team, as
+  // the shuffles need, and stores nothing.
+  constexpr int kRows = (N + kTeam - 1) / kTeam;
   const int lane = threadIdx.x / kTeam, row = threadIdx.x % kTeam;
-  const int rr = row < N ? row : N - 1;   // a thread past the last row reads row N-1
+  int rr[kRows];   // a row past the last one reads row N-1
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) rr[q] = row + q * kTeam < N ? row + q * kTeam : N - 1;
   const size_t b = b0 + lane;
   const bool live = b < B;
   T P[N][N], p[N];
@@ -229,9 +239,11 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
     const int slot = step % kDepth;
     ring::bar_wait(&full[slot], (step / kDepth) & 1);
     StepInputs<N, M, T> s;
-    T gxx_row[N], fx_col[N];
+    T gxx_row[kRows][N], fx_col[kRows][N];
     L::template read<Mask>(s, tiles + slot * L::kValues, lane);
-    L::read_row(gxx_row, fx_col, tiles + slot * L::kValues, lane, rr);
+#pragma unroll
+    for (int q = 0; q < kRows; ++q)
+      L::read_row(gxx_row[q], fx_col[q], tiles + slot * L::kValues, lane, rr[q]);
     ring::bar_arrive(&empty[slot]);
 
     // Qx = gx + fx^T p, Qu = gu + fu^T p (every thread: the p update needs
@@ -252,14 +264,17 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
       Qu[a] = s.gu[a] + acc;
     }
 
-    // row `row` of fx^T P; fu^T P whole
-    T fxTP_row[N], fuTP[M][N];
+    // this thread's rows of fx^T P; fu^T P whole
+    T fxTP_row[kRows][N], fuTP[M][N];
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      T acc = T(0);
+    for (int q = 0; q < kRows; ++q) {
 #pragma unroll
-      for (int k = 0; k < N; ++k) acc += fx_col[k] * P[k][j];
-      fxTP_row[j] = acc;
+      for (int j = 0; j < N; ++j) {
+        T acc = T(0);
+#pragma unroll
+        for (int k = 0; k < N; ++k) acc += fx_col[q][k] * P[k][j];
+        fxTP_row[q][j] = acc;
+      }
     }
 #pragma unroll
     for (int a = 0; a < M; ++a) {
@@ -272,15 +287,18 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
       }
     }
 
-    // row `row` of Qxx = gxx + fx^T P fx; Quu = guu + fu^T P fu and
-    // Qux = gux + fu^T P fx whole
-    T Qxx_row[N], Quu[M][M], Qux[M][N];
+    // this thread's rows of Qxx = gxx + fx^T P fx; Quu = guu + fu^T P fu
+    // and Qux = gux + fu^T P fx whole
+    T Qxx_row[kRows][N], Quu[M][M], Qux[M][N];
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      T acc = T(0);
+    for (int q = 0; q < kRows; ++q) {
 #pragma unroll
-      for (int k = 0; k < N; ++k) acc += fxTP_row[k] * s.fx[k][j];
-      Qxx_row[j] = gxx_row[j] + acc;
+      for (int j = 0; j < N; ++j) {
+        T acc = T(0);
+#pragma unroll
+        for (int k = 0; k < N; ++k) acc += fxTP_row[q][k] * s.fx[k][j];
+        Qxx_row[q][j] = gxx_row[q][j] + acc;
+      }
     }
 #pragma unroll
     for (int a = 0; a < M; ++a) {
@@ -345,26 +363,29 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
       }
     }
 
-    // row `row` of P = Qxx + K^T Quu K + K^T Qux + Qux^T K; the whole
-    // matrix to every thread of the team, then symmetrized
-    T Pn_row[N];
+    // this thread's rows of P = Qxx + K^T Quu K + K^T Qux + Qux^T K; the
+    // whole matrix to every thread of the team, then symmetrized
+    T Pn_row[kRows][N];
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      T t1 = T(0), t2 = T(0), t3 = T(0);
+    for (int q = 0; q < kRows; ++q) {
 #pragma unroll
-      for (int a = 0; a < M; ++a) {
-        const T K_ar = pick(K[a], rr), Qux_ar = pick(Qux[a], rr);
-        t1 += K_ar * QuuK[a][j];
-        t2 += K_ar * Qux[a][j];
-        t3 += Qux_ar * K[a][j];
+      for (int j = 0; j < N; ++j) {
+        T t1 = T(0), t2 = T(0), t3 = T(0);
+#pragma unroll
+        for (int a = 0; a < M; ++a) {
+          const T K_ar = pick(K[a], rr[q]), Qux_ar = pick(Qux[a], rr[q]);
+          t1 += K_ar * QuuK[a][j];
+          t2 += K_ar * Qux[a][j];
+          t3 += Qux_ar * K[a][j];
+        }
+        Pn_row[q][j] = ((Qxx_row[q][j] + t1) + t2) + t3;
       }
-      Pn_row[j] = ((Qxx_row[j] + t1) + t2) + t3;
     }
     T Pn[N][N];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) Pn[i][j] = team(Pn_row[j], i);
+      for (int j = 0; j < N; ++j) Pn[i][j] = team(Pn_row[i / kTeam][j], i % kTeam);
     }
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -385,14 +406,20 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
       p[i] = ((Qx[i] + t1) + t2) + t3;
     }
 
-    // thread `row` stores column `row` of K and row `row` of Qx and p;
-    // thread 0 also k and Qu
+    // thread `row` stores its columns of K and rows of Qx and p; thread 0
+    // also k and Qu
     if (live && row < N) {
       const size_t tt = static_cast<size_t>(t);
 #pragma unroll
-      for (int a = 0; a < M; ++a) out.K[((tt * M + a) * N + row) * B + b] = pick(K[a], row);
-      out.Qx[(tt * N + row) * B + b] = pick(Qx, row);
-      out.p[(tt * N + row) * B + b] = pick(p, row);
+      for (int q = 0; q < kRows; ++q) {
+        const int r = row + q * kTeam;
+        if (r < N) {
+#pragma unroll
+          for (int a = 0; a < M; ++a) out.K[((tt * M + a) * N + r) * B + b] = pick(K[a], r);
+          out.Qx[(tt * N + r) * B + b] = pick(Qx, r);
+          out.p[(tt * N + r) * B + b] = pick(p, r);
+        }
+      }
       if (row == 0) {
 #pragma unroll
         for (int a = 0; a < M; ++a) {
@@ -435,22 +462,3 @@ int ring_info(int* depth, int* bytes) {
 }
 
 }  // namespace
-
-// C entry points, one per kernel and (dtype, n, m) (riccati_policies.cuh).
-// Keep the lists equal to _INSTANTIATIONS in
-// iterativelqr_tpu_torch/ops/packed_backward.py.
-#define RICCATI_FAMILY(N, M)                                                      \
-  RICCATI_RING_ENTRY(riccati_ring_f32_n##N##_m##M, N, M, float)                   \
-  RICCATI_RING_ENTRY(riccati_ring_f64_n##N##_m##M, N, M, double)                  \
-  RICCATI_ENTRY(riccati_backward_f32_n##N##_m##M, N, M, float)                    \
-  RICCATI_ENTRY(riccati_backward_f64_n##N##_m##M, N, M, double)                   \
-  RICCATI_PACKED_ENTRY(riccati_packed_f32_n##N##_m##M, N, M, float)               \
-  RICCATI_PACKED_ENTRY(riccati_packed_f64_n##N##_m##M, N, M, double)              \
-  RICCATI_MASKED_ENTRY(riccati_masked_f32_n##N##_m##M, N, M, float)               \
-  RICCATI_MASKED_ENTRY(riccati_masked_f64_n##N##_m##M, N, M, double)              \
-  RICCATI_MASKED_PACKED_ENTRY(riccati_masked_packed_f32_n##N##_m##M, N, M, float) \
-  RICCATI_MASKED_PACKED_ENTRY(riccati_masked_packed_f64_n##N##_m##M, N, M, double)
-
-RICCATI_FAMILY(4, 1)
-RICCATI_FAMILY(3, 2)
-RICCATI_FAMILY(2, 1)

@@ -1,7 +1,7 @@
 // Backward Riccati recursion of the batched AL-iLQR solver at wide dims: K2,
 // and K5, K6a, K6b at the same dims, one recursion template instantiated
 // with a load policy and a mask policy (riccati_policies.cuh, shared with
-// K1's template in riccati_backward.cu).
+// K1's template in riccati_backward.cuh).
 //
 // Replaces the TPU kernel
 // iterativelqr_tpu/ops/packed_backward.py::_kernel_mr_stream (step math:
@@ -21,25 +21,32 @@
 //
 // Why not K1's design: K1's team of 4 threads a lane holds P, one step's
 // inputs and its temporaries in registers.  At (12, 4) that is about 1,000
-// live values a lane (ops/packed_backward.py::uses_wide_kernel states the
+// live values a lane (ops/packed_backward.py::riccati_plan states the
 // rule), so P, the step's inputs and the shared intermediates live in
-// shared memory, [value][32 lanes].
+// shared memory, [value][kLanes lanes].
 //
-// Layout and threads: a block owns 32 neighbouring lanes and has N+M warps,
-// one a row (threadIdx.x / 32; the lane is threadIdx.x % 32, so no warp
-// diverges).  Rows 0..N-1 (the state warps) own a row of fx^T P, Qxx and
-// the new P and a column of K and Quu K; rows N..N+M-1 (the control warps)
-// own a row of fu^T P, Quu and Qux.  The steps' inputs (416 values a lane at
+// Layout and threads: a block owns kLanes neighbouring lanes (32; 16, 8 or
+// 4 where 32 lanes' state and one step tile pass a block's shared memory:
+// RICCATI_WIDE_LANES, chosen by riccati_plan) and has a row of kLanes
+// threads for each of P's N rows and each of the M control rows (row =
+// threadIdx.x / kLanes, lane = threadIdx.x % kLanes).  With fewer than 32
+// lanes a warp holds 32 / kLanes rows; the state rows and the control rows
+// are each padded to whole warps (idle padding rows), so every barrier is
+// met by whole warps.  At 32 lanes a row is a warp and nothing is padded.
+// Rows 0..N-1 (the state rows) own a row of fx^T P, Qxx and the new P and a
+// column of K and Quu K; the control rows (from the first row of the warp
+// after the state rows) own a row of fu^T P, Quu and Qux.  The steps'
+// inputs (416 values a lane at
 // (12, 4)) stream into a ring of kDepth tiles with cp.async (async_ring.cuh:
 // a full mbarrier a tile, 16-byte chunks where every run is 16-byte
 // aligned, else one value a copy), so the loads leave the step's chain.  The
-// copies are issued by the last control warp, which has nothing else to do
-// once phase A is done: right after barrier B1 (by which every warp has
-// read the step's tile) it refills that tile with the step kDepth on, while
-// the state warps run phases B to E.  So the block needs no producer warp
-// of its own and no empty mbarriers, and 512 threads a block leave 128
-// registers a thread.  A step, with named barriers (bar.sync id, count) so
-// that only the warps that exchange values wait:
+// copies are issued by the last warp (control rows), which has nothing else
+// to do once phase A is done: right after barrier B1 (by which every warp
+// has read the step's tile) it refills that tile with the step kDepth on,
+// while the state warps run phases B to E.  So the block needs no producer
+// warp of its own and no empty mbarriers, and 512 threads a block at
+// (12, 4) leave 128 registers a thread.  A step, with named barriers
+// (bar.sync id, count) so that only the warps that exchange values wait:
 //   A  state row i: Qx_i, row i of fx^T P (registers) and of Qxx (shared
 //      memory); control row a: Qu_a, row a of fu^T P, Quu, Qux (shared);
 //   B1 (all warps): Quu, Qux, Qu visible, the tile read;
@@ -75,11 +82,18 @@
 // 53,248 B); in f64 only one (226,312 B): f64 is the tests' dtype, not the
 // solve's, so it keeps 32 lanes a block and a ring of depth 1 (the next
 // step's copies still land while the state warps run phases B to E).
+// Where not even one tile fits beside 32 lanes' state ((13, 4) in f64,
+// (24, 8) in either dtype), a block takes 16, 8 or 4 lanes: the state and
+// the tiles shrink with the lanes, and the block's rows stay.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-// -Xcompiler -fPIC (iterativelqr_tpu_torch/_build.py).  Plain C entry points
-// below, one per kernel and instantiated (n, m, dtype); each returns
-// cudaGetLastError() (or the attribute call's error).
+// Build: a translation unit that defines RICCATI_WIDE_LANES, includes this
+// header and instantiates RICCATI_FAMILY (riccati_policies.cuh) at one
+// (n, m, dtype), written and built at first use by
+// iterativelqr_tpu_torch/ops/packed_backward.py (nvcc -gencode
+// arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC,
+// _build.py::build_generated); each C entry returns cudaGetLastError() (or
+// the attribute call's error).
+#pragma once
 
 #include <cuda_runtime.h>
 
@@ -93,14 +107,29 @@ namespace {
 
 using riccati::Outputs;
 
-constexpr int kLanes = ring::kLanes;
-constexpr int kProducers = kLanes;          // the copies' issuers: one warp
+#ifndef RICCATI_WIDE_LANES
+#error "define RICCATI_WIDE_LANES, the lanes a block (32, 16, 8 or 4), before this header"
+#endif
+constexpr int kLanes = RICCATI_WIDE_LANES;  // lanes a block
+static_assert(kLanes == 32 || kLanes == 16 || kLanes == 8 || kLanes == 4,
+              "a warp holds whole rows");
+constexpr int kWarp = 32;
+constexpr int kRowsPerWarp = kWarp / kLanes;
+constexpr int kProducers = kWarp;           // the copies' issuers: one warp
 constexpr int kSharedMax = 232448;          // 227 KB: the most a block may use
 constexpr int kMaxDepth = 3;
 
-// the block: N state warps and M control warps
+// rows padded to whole warps
+__host__ __device__ constexpr int whole_warps(int rows) {
+  return (rows + kRowsPerWarp - 1) / kRowsPerWarp * kRowsPerWarp;
+}
+
+// the block: the N state rows and the M control rows, each padded to whole
+// warps, of kLanes threads each
 template <int N, int M>
-__host__ __device__ constexpr int block_threads() { return kLanes * (N + M); }
+__host__ __device__ constexpr int block_threads() {
+  return kLanes * (whole_warps(N) + whole_warps(M));
+}
 
 // Offsets, in values a lane, of the recursion's state in shared memory
 // (after the tiles); value e of a lane sits at [e * kLanes + lane].
@@ -121,7 +150,7 @@ struct State {
 // The ring: as many tiles as fit beside the state, at most kMaxDepth.
 template <int N, int M, typename T, bool kMasked>
 struct Ring {
-  using Tile = riccati::StepTile<N, M, T, kMasked>;
+  using Tile = riccati::StepTile<N, M, T, kMasked, kLanes>;
   static constexpr int kTileBytes = Tile::kValues * static_cast<int>(sizeof(T));
   static constexpr int kStateBytes = State<N, M>::TOTAL * kLanes * static_cast<int>(sizeof(T));
   static constexpr int kFit = (kSharedMax - kStateBytes) / (kTileBytes + 8);
@@ -145,7 +174,9 @@ __global__ void __launch_bounds__(block_threads<N, M>()) riccati_wide_kernel(
   using S = State<N, M>;
   constexpr int kCompute = block_threads<N, M>();
   constexpr int kDepth = R::kDepth;
-  constexpr int kProducerRow = N + M - 1;   // the last control warp also copies
+  constexpr int kStateRows = whole_warps(N);        // rows of the state warps
+  constexpr int kRowsAll = kCompute / kLanes;
+  constexpr int kFirstControl = kStateRows;          // the row that solves k
   extern __shared__ __align__(16) unsigned char smem[];
   T* const tiles = reinterpret_cast<T*>(smem);
   T* const state = tiles + kDepth * L::kValues;
@@ -161,30 +192,42 @@ __global__ void __launch_bounds__(block_threads<N, M>()) riccati_wide_kernel(
 
   // a thread: row `row` of lane `lane`.  A lane past the edge computes on
   // the zero-filled tile (a unit regularizer keeps it finite) and stores
-  // nothing.
+  // nothing; a padding row computes nothing and meets its warp's barriers.
   const int lane = threadIdx.x % kLanes, row = threadIdx.x / kLanes;
+  const bool state_row = row < N;
+  const int ctl = row - kStateRows;                 // control row a = ctl
+  // at 32 lanes no row is padding: kAll lets the compiler drop the row tests
+  constexpr bool kAll = kRowsPerWarp == 1;
+  const bool control_row = kAll || (ctl >= 0 && ctl < M);
+  const bool producer = threadIdx.x >= kCompute - kWarp;   // the last warp
+  const int ptid = threadIdx.x % kWarp;
   const size_t b = b0 + lane;
   const bool live = b < B;
   // the copies of the i-th step of the sweep (t = Tm1-1-i) into tile
-  // i % kDepth, by the producer row's 32 threads
+  // i % kDepth, by the last warp's 32 threads
   auto fill = [&](int i) {
     const int s = i % kDepth;
     T* tile = tiles + s * L::kValues;
     const size_t t = static_cast<size_t>(Tm1 - 1 - i);
-    load.template copy<L, kProducers>(tile, t, B, b0, lane, vec);
-    mask.template copy<M>(tile + L::kF * kLanes, t, lane);
+    load.template copy<L, kProducers>(tile, t, B, b0, ptid, vec);
+    mask.template copy<M>(tile + L::kF * L::kW, t, ptid);
     ring::bar_arrive_on_copies(&full[s]);
   };
-  if (row == kProducerRow) {
+  if (producer) {
     for (int i = 0; i < kDepth && i < Tm1; ++i) fill(i);
   }
+  // warps whose rows took different branches meet again before a barrier
+  auto converge = [] {
+    if constexpr (kRowsPerWarp > 1) __syncwarp();
+  };
   T* const sv = state + lane;   // this lane's column: value e at sv[e * kLanes]
 #define SH(e) sv[(e) * kLanes]
-  // P and p from gxxT, gxT: rows row, row + N+M, ...
-  for (int e = row; e < N * N; e += N + M) SH(S::P + e) = live ? gxxT[e * B + b] : T(0);
-  for (int e = row; e < N; e += N + M) SH(S::PV + e) = live ? gxT[e * B + b] : T(0);
+  // P and p from gxxT, gxT: rows row, row + kRowsAll, ...
+  for (int e = row; e < N * N; e += kRowsAll) SH(S::P + e) = live ? gxxT[e * B + b] : T(0);
+  for (int e = row; e < N; e += kRowsAll) SH(S::PV + e) = live ? gxT[e * B + b] : T(0);
   const T r = live ? reg[b] : T(1);
   bool ok = true;
+  converge();
   named_sync(4, kCompute);
 
   for (int step = 0; step < Tm1; ++step) {
@@ -200,7 +243,7 @@ __global__ void __launch_bounds__(block_threads<N, M>()) riccati_wide_kernel(
     T um[M];
     riccati::read_um<M, T, L, Mask>(um, tiles + slot * L::kValues);
     T Qx = T(0), Qu = T(0);
-    if (row < N) {
+    if (state_row) {
       const int i = row;
       T col[N];   // column i of fx
 #pragma unroll
@@ -224,8 +267,8 @@ __global__ void __launch_bounds__(block_threads<N, M>()) riccati_wide_kernel(
         for (int k = 0; k < N; ++k) a2 += fxTP[k] * TL(L::kFx + k * N + j);
         SH(S::PN + i * N + j) = TL(L::kGxx + i * N + j) + a2;   // Qxx, row i
       }
-    } else {
-      const int a = row - N;
+    } else if (control_row) {
+      const int a = ctl;
       T col[N];   // column a of fu
 #pragma unroll
       for (int k = 0; k < N; ++k) col[k] = TL(L::kFu + k * M + a);
@@ -259,99 +302,109 @@ __global__ void __launch_bounds__(block_threads<N, M>()) riccati_wide_kernel(
     }
 #undef TL
     if (live) {
-      if (row < N) {
+      if (state_row) {
         out.Qx[(t * N + row) * B + b] = Qx;
-      } else {
-        out.Qu[(t * M + (row - N)) * B + b] = Qu;
+      } else if (control_row) {
+        out.Qu[(t * M + ctl) * B + b] = Qu;
       }
     }
+    converge();
     named_sync(1, kCompute);   // B1: Quu, Qux, Qu visible; P, p and the tile read
-    // the tile is free: the producer row refills it with the step kDepth on
+    // the tile is free: the last warp refills it with the step kDepth on
     // while the state rows run phases B to E
-    if (row == kProducerRow && step + kDepth < Tm1) fill(step + kDepth);
+    if (producer && step + kDepth < Tm1) fill(step + kDepth);
 
     // B: the factored Quu and the value update's (mask policy), the
     // Cholesky; state row j solves column j of Qux (-> K[:, j]) and forms
     // column j of Quu_eff K; the first control row solves Qu (-> k)
     T Kc[M], Quxc[M], QuuKc[M];   // state row j: column j of K, Qux, Quu_eff K
-    if (row <= N) {
-      T Quu[M][M], Qreg[M][M], Qeff[M][M], Lf[M][M];
-#pragma unroll
-      for (int a = 0; a < M; ++a) {
-#pragma unroll
-        for (int c = 0; c < M; ++c) Quu[a][c] = SH(S::QUU + a * M + c);
-      }
-      mask.form(um, Quu, r, Qreg, Qeff);
-      riccati::cholesky(Qreg, Lf, ok);
-      T rhs[M], x[M];
-#pragma unroll
-      for (int i = 0; i < M; ++i) rhs[i] = row < N ? SH(S::QUX + i * N + row) : SH(S::QU + i);
-      riccati::cho_solve(Lf, rhs, x);
-      T g[M];
-#pragma unroll
-      for (int a = 0; a < M; ++a) g[a] = mask.gain(um, -x[a], a);
-      if (row < N) {
-        // QuuK = Quu_eff K, column j
+    if (row < kFirstControl + kRowsPerWarp) {   // the state warps and the first control warp
+      if (kAll || state_row || row == kFirstControl) {
+        T Quu[M][M], Qreg[M][M], Qeff[M][M], Lf[M][M];
 #pragma unroll
         for (int a = 0; a < M; ++a) {
-          T acc = T(0);
 #pragma unroll
-          for (int c = 0; c < M; ++c) acc += Qeff[a][c] * g[c];
-          Kc[a] = g[a];
-          Quxc[a] = rhs[a];
-          QuuKc[a] = acc;
-          SH(S::K + a * N + row) = g[a];
-          SH(S::QUUK + a * N + row) = acc;
-          if (live) out.K[((t * M + a) * N + row) * B + b] = g[a];
+          for (int c = 0; c < M; ++c) Quu[a][c] = SH(S::QUU + a * M + c);
         }
-      } else {
+        mask.form(um, Quu, r, Qreg, Qeff);
+        riccati::cholesky(Qreg, Lf, ok);
+        T rhs[M], x[M];
 #pragma unroll
-        for (int a = 0; a < M; ++a) {
-          SH(S::KFF + a) = g[a];
-          if (live) out.k[(t * M + a) * B + b] = g[a];
+        for (int i = 0; i < M; ++i) rhs[i] = state_row ? SH(S::QUX + i * N + row) : SH(S::QU + i);
+        riccati::cho_solve(Lf, rhs, x);
+        T g[M];
+#pragma unroll
+        for (int a = 0; a < M; ++a) g[a] = mask.gain(um, -x[a], a);
+        if (state_row) {
+          // QuuK = Quu_eff K, column j
+#pragma unroll
+          for (int a = 0; a < M; ++a) {
+            T acc = T(0);
+#pragma unroll
+            for (int c = 0; c < M; ++c) acc += Qeff[a][c] * g[c];
+            Kc[a] = g[a];
+            Quxc[a] = rhs[a];
+            QuuKc[a] = acc;
+            SH(S::K + a * N + row) = g[a];
+            SH(S::QUUK + a * N + row) = acc;
+            if (live) out.K[((t * M + a) * N + row) * B + b] = g[a];
+          }
+        } else {
+#pragma unroll
+          for (int a = 0; a < M; ++a) {
+            SH(S::KFF + a) = g[a];
+            if (live) out.k[(t * M + a) * B + b] = g[a];
+          }
         }
       }
-      named_sync(2, kLanes * (N + 1));   // B2: K, Quu K, k visible
+      converge();
+      named_sync(2, kLanes * (kFirstControl + kRowsPerWarp));   // B2: K, Quu K, k visible
     }
 
-    if (row < N) {
+    if (row < kStateRows) {   // the state warps
       // D: P = Qxx + K^T Quu K + K^T Qux + Qux^T K, row i, unsymmetrized
       // into PN (over Qxx's row); p = Qx + (Quu K)^T k + K^T Qu + Qux^T k
       // (column i of K, Qux and Quu K from the registers)
       const int i = row;
       T Pn[N];
+      if (kAll || state_row) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
+        for (int j = 0; j < N; ++j) {
+          T t1 = T(0), t2 = T(0), t3 = T(0);
+#pragma unroll
+          for (int a = 0; a < M; ++a) {
+            t1 += Kc[a] * SH(S::QUUK + a * N + j);
+            t2 += Kc[a] * SH(S::QUX + a * N + j);
+            t3 += Quxc[a] * SH(S::K + a * N + j);
+          }
+          Pn[j] = ((SH(S::PN + i * N + j) + t1) + t2) + t3;
+          SH(S::PN + i * N + j) = Pn[j];
+        }
         T t1 = T(0), t2 = T(0), t3 = T(0);
 #pragma unroll
         for (int a = 0; a < M; ++a) {
-          t1 += Kc[a] * SH(S::QUUK + a * N + j);
-          t2 += Kc[a] * SH(S::QUX + a * N + j);
-          t3 += Quxc[a] * SH(S::K + a * N + j);
+          t1 += QuuKc[a] * SH(S::KFF + a);
+          t2 += Kc[a] * SH(S::QU + a);
+          t3 += Quxc[a] * SH(S::KFF + a);
         }
-        Pn[j] = ((SH(S::PN + i * N + j) + t1) + t2) + t3;
-        SH(S::PN + i * N + j) = Pn[j];
+        const T pn = ((Qx + t1) + t2) + t3;
+        SH(S::PV + i) = pn;
+        if (live) out.p[(t * N + i) * B + b] = pn;
       }
-      T t1 = T(0), t2 = T(0), t3 = T(0);
-#pragma unroll
-      for (int a = 0; a < M; ++a) {
-        t1 += QuuKc[a] * SH(S::KFF + a);
-        t2 += Kc[a] * SH(S::QU + a);
-        t3 += Quxc[a] * SH(S::KFF + a);
-      }
-      const T pn = ((Qx + t1) + t2) + t3;
-      SH(S::PV + i) = pn;
-      if (live) out.p[(t * N + i) * B + b] = pn;
-      named_sync(3, kLanes * N);   // B3: the new P's rows visible
+      converge();
+      named_sync(3, kLanes * kStateRows);   // B3: the new P's rows visible
 
       // E: P = (P + P^T) / 2, row i from the registers and column i of PN
+      if (kAll || state_row) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) SH(S::P + i * N + j) = T(0.5) * (Pn[j] + SH(S::PN + j * N + i));
+        for (int j = 0; j < N; ++j) SH(S::P + i * N + j) = T(0.5) * (Pn[j] + SH(S::PN + j * N + i));
+      }
     }
+    converge();
     named_sync(4, kCompute);   // B4: P and p visible for the next step
   }
 #undef SH
-  if (row == N && live) out.ok[b] = ok ? T(1) : T(0);
+  if (row == kFirstControl && live) out.ok[b] = ok ? T(1) : T(0);
 }
 
 template <int N, int M, typename T, class Load, class Mask>
@@ -384,21 +437,3 @@ int ring_info(int* depth, int* bytes) {
 }
 
 }  // namespace
-
-// C entry points, one per kernel and (dtype, n, m) (riccati_policies.cuh):
-// K2 is riccati_backward_wide_*, K5/K6a/K6b at these dims take the names of
-// K1's family.  Keep the list equal to _WIDE_INSTANTIATIONS in
-// iterativelqr_tpu_torch/ops/packed_backward.py.
-#define RICCATI_WIDE_FAMILY(N, M)                                                 \
-  RICCATI_RING_ENTRY(riccati_wide_ring_f32_n##N##_m##M, N, M, float)              \
-  RICCATI_RING_ENTRY(riccati_wide_ring_f64_n##N##_m##M, N, M, double)             \
-  RICCATI_ENTRY(riccati_backward_wide_f32_n##N##_m##M, N, M, float)               \
-  RICCATI_ENTRY(riccati_backward_wide_f64_n##N##_m##M, N, M, double)              \
-  RICCATI_PACKED_ENTRY(riccati_packed_f32_n##N##_m##M, N, M, float)               \
-  RICCATI_PACKED_ENTRY(riccati_packed_f64_n##N##_m##M, N, M, double)              \
-  RICCATI_MASKED_ENTRY(riccati_masked_f32_n##N##_m##M, N, M, float)               \
-  RICCATI_MASKED_ENTRY(riccati_masked_f64_n##N##_m##M, N, M, double)              \
-  RICCATI_MASKED_PACKED_ENTRY(riccati_masked_packed_f32_n##N##_m##M, N, M, float) \
-  RICCATI_MASKED_PACKED_ENTRY(riccati_masked_packed_f64_n##N##_m##M, N, M, double)
-
-RICCATI_WIDE_FAMILY(12, 4)

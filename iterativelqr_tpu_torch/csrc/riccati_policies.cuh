@@ -1,10 +1,12 @@
 // The parts of the backward Riccati recursion that K1's template
-// (riccati_backward.cu) and K2's (riccati_backward_wide.cu) share: the
+// (riccati_backward.cuh) and K2's (riccati_backward_wide.cuh) share: the
 // layout of one step's tile in the ring (async_ring.cuh), the load policies
 // (where the runs of step t are), the mask policies (the factored and the
 // value update's Quu, the gains' scaling), the outputs, and the C entry
-// points of one (n, m, dtype) family.  Each source instantiates the entry
-// macros with its own `launch` and `ring_info` templates.
+// points of one (n, m, dtype) family.  A translation unit written by
+// iterativelqr_tpu_torch/ops/packed_backward.py at first use includes one
+// template's header and instantiates RICCATI_FAMILY with that header's
+// `launch` and `ring_info` templates.
 //
 // Load policies: SevenArrays reads element (t, i, j) of lane b from seven
 // batch-last arrays [Tm1, *dims, B]; PackedBuffer reads slot f of step t from
@@ -29,23 +31,25 @@
 
 namespace riccati {
 
-// A tile: the step's slots [kF][32 lanes] in the packed order fx, fu, gx,
+// A tile: the step's slots [kF][W lanes] in the packed order fx, fu, gx,
 // gu, gxx, guu, gux, then (StepMask only) the step's mask, padded to 16 B.
-template <int N, int M, typename T, bool kMasked>
+// W is a block's lanes: 32, or fewer in K2's template at wide dims.
+template <int N, int M, typename T, bool kMasked, int W = ring::kLanes>
 struct StepTile {
+  static constexpr int kW = W;
   static constexpr int kFx = 0, kFu = kFx + N * N, kGx = kFu + N * M, kGu = kGx + N,
                        kGxx = kGu + M, kGuu = kGxx + N * N, kGux = kGuu + M * M,
                        kF = kGux + M * N;
   static constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));
   static constexpr int kUm = kMasked ? (M + kPer16 - 1) / kPer16 * kPer16 : 0;
-  static constexpr int kValues = kF * ring::kLanes + kUm;   // a multiple of 16 B
+  static constexpr int kValues = kF * W + kUm;   // a multiple of 16 B
 };
 
 // ---- load policies: where the runs of step t are ---------------------------
 //
 // copy<L, P>: the producer thread tid's share (of P producer threads) of the
-// async copies of step t's slots for lanes [b0, b0+32) into a tile of layout
-// L; aligned: may they go as 16-byte chunks (host side).
+// async copies of step t's slots for lanes [b0, b0+L::kW) into a tile of
+// layout L; aligned: may they go as 16-byte chunks (host side).
 
 template <int N, int M, typename T>
 struct SevenArrays {
@@ -60,14 +64,14 @@ struct SevenArrays {
   template <class L, int P>
   __device__ __forceinline__ void copy(T* tile, size_t t, size_t B, size_t b0, int tid,
                                        bool vec) const {
-    constexpr int W = ring::kLanes;
-    ring::copy_rows<N * N, N * N, P>(tile + L::kFx * W, fx, t, B, b0, tid, vec);
-    ring::copy_rows<N * M, N * M, P>(tile + L::kFu * W, fu, t, B, b0, tid, vec);
-    ring::copy_rows<N, N, P>(tile + L::kGx * W, gx, t, B, b0, tid, vec);
-    ring::copy_rows<M, M, P>(tile + L::kGu * W, gu, t, B, b0, tid, vec);
-    ring::copy_rows<N * N, N * N, P>(tile + L::kGxx * W, gxx, t, B, b0, tid, vec);
-    ring::copy_rows<M * M, M * M, P>(tile + L::kGuu * W, guu, t, B, b0, tid, vec);
-    ring::copy_rows<M * N, M * N, P>(tile + L::kGux * W, gux, t, B, b0, tid, vec);
+    constexpr int W = L::kW;
+    ring::copy_rows<N * N, N * N, P, W>(tile + L::kFx * W, fx, t, B, b0, tid, vec);
+    ring::copy_rows<N * M, N * M, P, W>(tile + L::kFu * W, fu, t, B, b0, tid, vec);
+    ring::copy_rows<N, N, P, W>(tile + L::kGx * W, gx, t, B, b0, tid, vec);
+    ring::copy_rows<M, M, P, W>(tile + L::kGu * W, gu, t, B, b0, tid, vec);
+    ring::copy_rows<N * N, N * N, P, W>(tile + L::kGxx * W, gxx, t, B, b0, tid, vec);
+    ring::copy_rows<M * M, M * M, P, W>(tile + L::kGuu * W, guu, t, B, b0, tid, vec);
+    ring::copy_rows<M * N, M * N, P, W>(tile + L::kGux * W, gux, t, B, b0, tid, vec);
   }
 
   bool aligned(size_t B) const {
@@ -84,7 +88,7 @@ struct PackedBuffer {
   __device__ __forceinline__ void copy(T* tile, size_t t, size_t B, size_t b0, int tid,
                                        bool vec) const {
     static_assert(L::kF == kF, "the tile holds the packed slots in their order");
-    ring::copy_rows<kF, kF, P>(tile, packed, t, B, b0, tid, vec);
+    ring::copy_rows<kF, kF, P, L::kW>(tile, packed, t, B, b0, tid, vec);
   }
 
   bool aligned(size_t B) const { return ring::runs_aligned<T>(B, {packed}); }
@@ -165,7 +169,7 @@ __device__ __forceinline__ void read_um(T (&um)[M], const T* tile) {
 #pragma unroll
   for (int a = 0; a < M; ++a) {
     if constexpr (Mask::kMasked) {
-      um[a] = tile[L::kF * ring::kLanes + a];
+      um[a] = tile[L::kF * L::kW + a];
     } else {
       um[a] = T(1);
     }
@@ -231,7 +235,7 @@ SevenArrays<N, M, T> seven(const void* fx, const void* fu, const void* gx, const
 
 }  // namespace riccati
 
-// C entry points of one (n, m, dtype), each calling the including source's
+// C entry points of one (n, m, dtype), each calling the including header's
 // launch<N, M, T>(load, mask, gxxT, gxT, reg, K, k, Qx, Qu, p, ok, Tm1, B,
 // stream) and ring_info<N, M, T, masked>(depth, bytes).
 
@@ -295,3 +299,13 @@ SevenArrays<N, M, T> seven(const void* fx, const void* fu, const void* gx, const
     return masked ? ring_info<N, M, T, true>(depth, bytes)         \
                   : ring_info<N, M, T, false>(depth, bytes);       \
   }
+
+// The family of one (n, m, dtype): the ring, the seven-array recursion
+// (MAIN: riccati_backward for K1, riccati_backward_wide for K2), K5, K6a and
+// K6b, named <kernel>_<TAG>_n<N>_m<M>.
+#define RICCATI_FAMILY(MAIN, RING, N, M, T, TAG)                                    \
+  RICCATI_RING_ENTRY(RING##_##TAG##_n##N##_m##M, N, M, T)                           \
+  RICCATI_ENTRY(MAIN##_##TAG##_n##N##_m##M, N, M, T)                                \
+  RICCATI_PACKED_ENTRY(riccati_packed_##TAG##_n##N##_m##M, N, M, T)                 \
+  RICCATI_MASKED_ENTRY(riccati_masked_##TAG##_n##N##_m##M, N, M, T)                 \
+  RICCATI_MASKED_PACKED_ENTRY(riccati_masked_packed_##TAG##_n##N##_m##M, N, M, T)

@@ -2,17 +2,22 @@
 
 Counterpart of ``iterativelqr_tpu/ops/packed_backward.py``: the entry
 ``backward_pass_multiref`` runs the recursion on the card through one of two
-hand-written CUDA recursion templates, picked by the problem's dims
-(``uses_wide_kernel``): K1, ``csrc/riccati_backward.cu`` (the TPU kernel
-``_kernel_mr``), or K2, ``csrc/riccati_backward_wide.cu`` (the TPU kernel
+hand-written CUDA recursion templates, picked by the problem's dims and
+dtype (``riccati_plan``): K1, ``csrc/riccati_backward.cuh`` (the TPU kernel
+``_kernel_mr``), or K2, ``csrc/riccati_backward_wide.cuh`` (the TPU kernel
 ``_kernel_mr_stream``).  ``backward_pass_packed`` runs K5 (the TPU kernel
 ``_kernel``, v3), the same recursion reading one packed per-step buffer
-built by ``pack_stacks``/``pack_stacks_bt``: an instantiation of K1's
-template at K1's dims and of K2's at the wide dims;
-``backward_pass_batched_pallas_v3`` is its batch-leading drop-in.
-``backward_pass_multiref_reference`` is the same math as a PyTorch loop over
-t (the ``_riccati_step`` of the JAX module), and serves every one of these
-kernels and the masked K6a/K6b (``ops/pallas_backward.py``).
+built by ``pack_stacks``/``pack_stacks_bt``, on the same template as K1 or
+K2 at those dims; ``backward_pass_batched_pallas_v3`` is its batch-leading
+drop-in.  ``backward_pass_multiref_reference`` is the same math as a
+PyTorch loop over t (the ``_riccati_step`` of the JAX module), and serves
+every one of these kernels and the masked K6a/K6b (``ops/pallas_backward.py``).
+
+The JAX package traces its Pallas kernels at whatever (n, m) a problem
+brings; here each (n, m, dtype) gets a translation unit of its own, written
+by ``RiccatiPlan.source`` (the template's header, its parameters, and the
+family K1 or K2, K5, K6a, K6b and the ring entry) and built at first use
+into a library keyed on its text (``_build.build_generated``).
 
 Layout: batch-last and contiguous, ``[Tm1, *dims, B]`` — an exact reshape of
 the JAX package's ``[Tm1, *dims, S, 128]`` SL arrays (lane b = s*128 + l).
@@ -27,20 +32,17 @@ of ``pad_stacks_sl``, and ``pack_stacks``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
 
 from .. import _build
 
-# (n, m) pairs with a compiled kernel, in each of float32 and float64; keep
-# equal to the RICCATI_FAMILY list in csrc/riccati_backward.cu (K1, K5, K6a,
-# K6b on K1's template: acrobot and cartpole, car, particle and pendulum) and the RICCATI_WIDE_FAMILY list in
-# csrc/riccati_backward_wide.cu (K2, K5, K6a, K6b on K2's template:
-# quadrotor)
-_INSTANTIATIONS = ((4, 1), (3, 2), (2, 1))
-_WIDE_INSTANTIATIONS = ((12, 4),)
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+_C_TYPES = {"f32": "float", "f64": "double"}
+_SIZES = {"f32": 4, "f64": 8}
 
 
 class LaunchCounter:
@@ -59,29 +61,204 @@ RICCATI_WIDE_LAUNCHES = LaunchCounter()
 RICCATI_PACKED_LAUNCHES = LaunchCounter()
 RICCATI_PACKED_WIDE_LAUNCHES = LaunchCounter()
 
-# K1 runs one thread per lane and keeps everything a step needs in that
-# thread's registers, of which a thread has at most 255
-_REGISTERS_PER_THREAD = 255
+# what the two templates can hold (csrc/riccati_backward.cuh, K1's;
+# csrc/riccati_backward_wide.cuh, K2's)
+SHARED_MAX = 232448        # bytes of shared memory a block may take on the H100
+MAX_ROWS = 32              # n + m: K2's template has a row of threads for each
+REGISTERS = 255            # 32-bit registers a thread may hold
+K1_TEAM = 4                # threads a lane in K1's template
+K1_MAX_ROWS = 2            # rows of P a team thread may own
+K1_DEPTH = 8               # step tiles in K1's ring
+K1_THREADS = 32 * K1_TEAM + 64   # a block: 32 lanes' teams and two producer warps
+K2_LANES = (32, 16, 8, 4)  # lanes a block in K2's template, the first that fits
+K2_MAX_DEPTH = 3
 
 
-def k1_live_values(n: int, m: int) -> int:
-    """Values K1 keeps live in one lane's thread: P and p, one step's
-    inputs and the prefetched next step's, and the n x n temporaries fx^T P
-    and Qxx."""
-    step = 2 * n * n + 2 * n * m + n + m + m * m
-    return n * n + n + 2 * step + 2 * n * n
+def _slots(n, m):
+    """Values a lane of one step's inputs (a tile's slots)."""
+    return 2 * n * n + 2 * n * m + n + m + m * m
 
 
-def uses_wide_kernel(n: int, m: int) -> bool:
-    """The kernel choice, a function of the dims alone: K2 where K1's
-    per-lane values overflow a thread's registers (counted as 32-bit
-    values, the solve's f32; f64 follows the same choice so that its tests
-    hold the kernel f32 runs).  The JAX package's rule is a VMEM budget of
-    the TPU (``_stream_outputs``); the register budget is its counterpart
-    on the card.  Acrobot and cartpole (4, 1) need 144 values, car (3, 2)
-    108 and particle and pendulum (2, 1) 46: K1; the quadrotor's (12, 4)
-    needs 1,276: K2."""
-    return k1_live_values(n, m) > _REGISTERS_PER_THREAD
+def _tile_values(n, m, lanes, masked, size):
+    """Values of one step tile (``riccati::StepTile``): the slots of its
+    lanes, then the step's mask padded to 16 bytes."""
+    per16 = 16 // size
+    um = -(-m // per16) * per16 if masked else 0
+    return _slots(n, m) * lanes + um
+
+
+def _k2_state_values(n, m):
+    """Values a lane of K2's state in shared memory (``State``): P, its
+    unsymmetrized successor, p, Quu, Qux, Qu, K, k, Quu K."""
+    return 2 * n * n + n + m * m + 3 * m * n + 2 * m
+
+
+def k1_values(n, m) -> int:
+    """Values a thread of K1's template holds in registers through a step
+    (32-bit, as the solve's f32; f64 takes the same template so that its
+    tests hold the kernel f32 runs): P and p, the step's inputs but gxx
+    (a thread reads only its rows of that), for each row it owns (ceil(n /
+    4)) a row each of gxx, fx^T P, Qxx and the new P and a column of fx, the
+    gathered new P, and the control side (fu^T P, Quu, Qux, the Cholesky
+    factor, K, Quu K, k)."""
+    rows = -(-n // K1_TEAM)
+    return (n * n + n + (_slots(n, m) - n * n) + 5 * rows * n + n * n
+            + 2 * m * m + 4 * m * n + m)
+
+
+def _k1_ring(n, m, masked, size):
+    """(tiles, bytes a block) of K1's ring: K1_DEPTH tiles and a full and
+    an empty mbarrier a tile."""
+    return K1_DEPTH, K1_DEPTH * _tile_values(n, m, 32, masked, size) * size + 16 * K1_DEPTH
+
+
+def _k2_ring(n, m, lanes, masked, size):
+    """(tiles, bytes a block) of K2's ring at ``lanes`` lanes a block: as
+    many tiles as fit beside the state (at most K2_MAX_DEPTH), a full
+    mbarrier each; (0, state and one tile) where none fits."""
+    tile = _tile_values(n, m, lanes, masked, size) * size
+    state = _k2_state_values(n, m) * lanes * size
+    depth = min(K2_MAX_DEPTH, (SHARED_MAX - state) // (tile + 8))
+    if depth < 1:
+        return 0, state + tile + 8
+    return depth, depth * tile + state + 8 * depth
+
+
+def _whole_warps(rows, lanes):
+    g = 32 // lanes
+    return -(-rows // g) * g
+
+
+@dataclasses.dataclass(frozen=True)
+class RiccatiPlan:
+    """The recursion template and its parameters at one (n, m, dtype):
+    ``template`` "K1" (``csrc/riccati_backward.cuh``) or "K2"
+    (``csrc/riccati_backward_wide.cuh``); ``rows``, the rows of P a team
+    thread of K1's template owns (1 in K2's: a row of threads a row);
+    ``lanes`` a block; ``depth`` (tiles of the ring) and ``shared`` (bytes
+    a block), each (unmasked: K1, K2, K5; masked: K6a, K6b); ``threads`` a
+    block."""
+
+    n: int
+    m: int
+    dtype: str
+    template: str
+    rows: int
+    lanes: int
+    depth: tuple
+    shared: tuple
+    threads: int
+
+    @property
+    def wide(self) -> bool:
+        return self.template == "K2"
+
+    @property
+    def main(self) -> str:
+        """The seven-array recursion's name: K1's or K2's."""
+        return "riccati_backward_wide" if self.wide else "riccati_backward"
+
+    def symbol(self, name: str) -> str:
+        """The C entry of kernel ``name`` (``riccati_backward``,
+        ``riccati_backward_wide``, ``riccati_packed``, ``riccati_masked``,
+        ``riccati_masked_packed``, ``riccati_ring``, ``riccati_wide_ring``)
+        in this plan's library."""
+        return f"{name}_{self.dtype}_n{self.n}_m{self.m}"
+
+    def source(self) -> str:
+        """The translation unit of this (n, m, dtype): the template's
+        header and its parameters, and the family (riccati_policies.cuh's
+        RICCATI_FAMILY)."""
+        lines = [f"// Riccati recursion family at n={self.n}, m={self.m}, {self.dtype}: "
+                 f"{self.template}'s template, {self.lanes} lanes a block, "
+                 f"{self.rows} row(s) of P a thread",
+                 "// (written by iterativelqr_tpu_torch/ops/packed_backward.py::RiccatiPlan)"]
+        if self.wide:
+            lines += [f"#define RICCATI_WIDE_LANES {self.lanes}",
+                      '#include "riccati_backward_wide.cuh"']
+            ring = "riccati_wide_ring"
+        else:
+            lines += ['#include "riccati_backward.cuh"']
+            ring = "riccati_ring"
+        lines.append(f"RICCATI_FAMILY({self.main}, {ring}, {self.n}, {self.m}, "
+                     f"{_C_TYPES[self.dtype]}, {self.dtype})")
+        return "\n".join(lines) + "\n"
+
+
+def _refuse(n, m, dtype, why):
+    raise NotImplementedError(
+        f"riccati_plan: no CUDA recursion template holds n={n}, m={m}, "
+        f"dtype={dtype}: {why}")
+
+
+@functools.lru_cache(maxsize=None)
+def riccati_plan(n: int, m: int, dtype, template: str = None) -> RiccatiPlan:
+    """The template, and its parameters, that runs the recursion at
+    (n, m, dtype) on the card; ``template`` ("K1" or "K2") asks for one
+    (for comparing the two), else the rule picks:
+
+    * K1's template where a thread's values (``k1_values``) fit its 255
+      registers, its rows of P stay within K1_MAX_ROWS (n <= 8) and its
+      ring of K1_DEPTH tiles fits a block's shared memory in f64 (so both
+      dtypes take the same template): (2, 1), (3, 2), (4, 1) as before, and
+      (3, 1), (4, 2), (5, 1), (5, 2), (6, 1);
+    * else K2's template at the most lanes a block (32, 16, 8, 4) whose
+      state and at least one step tile fit SHARED_MAX bytes, as many tiles
+      as fit (at most 3): (12, 4) at 32 lanes (3 tiles in f32, 1 in f64),
+      (6, 2), (7, 3), (13, 4) and (14, 7) in f32 at 32 lanes, (13, 4) and
+      (14, 7) in f64 and (24, 8) in f32 at 16, (24, 8) in f64 at 8.
+
+    Where the two templates both hold the dims, the rule follows their
+    times on the card (``PERF.md`` §6, ``chip_smoke.py`` phase 10c): at
+    (5, 1) and (6, 1) K1's is 1.36-1.52 x faster; at (5, 2) and (6, 2)
+    they are within 15% of each other either way.
+
+    Refused (``NotImplementedError`` naming this rule): a dtype other than
+    f32 and f64, n < 1 or m < 1, n + m > 32 (a block of K2's template has a
+    row of threads for each of P's and Quu's rows), and a template asked
+    for that cannot hold the dims.  No (n, m) with n + m <= 32 is refused
+    in either dtype: 4 lanes hold (31, 1) in f64 (194,704 bytes, 2 tiles).
+
+    The JAX package's limit is a VMEM budget: ``backward_pass_multiref``
+    streams its outputs (``_kernel_mr_stream``) once the direct outputs'
+    blocks pass the TPU's scoped VMEM, and traces any (n, m) whose inputs'
+    chunk fits.  The card's limits are per block (registers, 227 KB of
+    shared memory, 1024 threads) and do not depend on T or B: a lane's
+    state lives in one block for the whole sweep, and the outputs go
+    straight to device memory.
+    """
+    if dtype not in _DTYPES:
+        _refuse(n, m, dtype, "the kernels take float32 or float64")
+    tag = _DTYPES[dtype]
+    size = _SIZES[tag]
+    if n < 1 or m < 1 or n + m > MAX_ROWS:
+        _refuse(n, m, dtype, f"the rule takes n >= 1, m >= 1 and n + m <= {MAX_ROWS} "
+                             f"(K2's block has a row of threads a row of P and Quu)")
+    # K1's template can hold the dims (its rows, its ring in f64), and the
+    # rule takes it where a thread's values fit its registers
+    k1_holds = n <= K1_TEAM * K1_MAX_ROWS and _k1_ring(n, m, True, 8)[1] <= SHARED_MAX
+    if template is None:
+        template = "K1" if k1_holds and k1_values(n, m) <= REGISTERS else "K2"
+    if template == "K1":
+        if not k1_holds:
+            _refuse(n, m, dtype,
+                    f"K1's template holds n <= {K1_TEAM * K1_MAX_ROWS} and a ring of "
+                    f"{_k1_ring(n, m, True, 8)[1]} <= {SHARED_MAX} bytes in f64")
+        rings = [_k1_ring(n, m, masked, size) for masked in (False, True)]
+        return RiccatiPlan(n, m, tag, "K1", -(-n // K1_TEAM), 32,
+                           tuple(r[0] for r in rings), tuple(r[1] for r in rings),
+                           K1_THREADS)
+    if template != "K2":
+        raise ValueError(f"template {template!r}: 'K1' or 'K2'")
+    for lanes in K2_LANES:
+        rings = [_k2_ring(n, m, lanes, masked, size) for masked in (False, True)]
+        if min(r[0] for r in rings) >= 1:
+            threads = lanes * (_whole_warps(n, lanes) + _whole_warps(m, lanes))
+            return RiccatiPlan(n, m, tag, "K2", 1, lanes, tuple(r[0] for r in rings),
+                               tuple(r[1] for r in rings), threads)
+    _refuse(n, m, dtype,
+            f"K2's state and one step tile at {K2_LANES[-1]} lanes a block take "
+            f"{_k2_ring(n, m, K2_LANES[-1], True, size)[1]} > {SHARED_MAX} bytes")
 
 
 def prepare_stacks(fx, fu, gx, gu, gxx, guu, gux, u_mask):
@@ -229,63 +406,63 @@ def backward_pass_multiref_reference(stacks, gxxT, gxT, reg, um=None,
 
 
 def kernel_symbol(n: int, m: int, dtype: torch.dtype) -> str:
-    """C entry point of the compiled (n, m, dtype) instantiation of the
-    kernel ``uses_wide_kernel`` picks; raises when there is none."""
-    if uses_wide_kernel(n, m):
-        name, compiled, src = ("riccati_backward_wide", _WIDE_INSTANTIATIONS,
-                               "riccati_backward_wide.cu and _WIDE_INSTANTIATIONS")
-    else:
-        name, compiled, src = ("riccati_backward", _INSTANTIATIONS,
-                               "riccati_backward.cu and _INSTANTIATIONS")
-    return _symbol(name, compiled, src, n, m, dtype)
-
-
-def _symbol(name, compiled, src, n, m, dtype):
-    if (n, m) not in compiled or dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"{name} has no CUDA instantiation for n={n}, m={m}, "
-            f"dtype={dtype}; compiled: (n, m) in {compiled} x "
-            f"{sorted(str(d) for d in _DTYPES)} (add one to csrc/{src})"
-        )
-    return f"{name}_{_DTYPES[dtype]}_n{n}_m{m}"
+    """C entry point of the recursion (K1 or K2, ``riccati_plan``) at
+    (n, m, dtype); raises past the rule's range."""
+    plan = riccati_plan(n, m, dtype)
+    return plan.symbol(plan.main)
 
 
 def family_symbol(name: str, n: int, m: int, dtype: torch.dtype) -> str:
     """C entry point of K5 (``riccati_packed``), K6a (``riccati_masked``) or
-    K6b (``riccati_masked_packed``) at (n, m, dtype): an instantiation of
-    K1's recursion template, or of K2's where ``uses_wide_kernel``; raises
-    when there is none."""
-    if uses_wide_kernel(n, m):
-        return _symbol(name, _WIDE_INSTANTIATIONS,
-                       "riccati_backward_wide.cu (RICCATI_WIDE_FAMILY) and "
-                       "_WIDE_INSTANTIATIONS", n, m, dtype)
-    return _symbol(name, _INSTANTIATIONS,
-                   "riccati_backward.cu (RICCATI_FAMILY) and _INSTANTIATIONS",
-                   n, m, dtype)
+    K6b (``riccati_masked_packed``) at (n, m, dtype), on K1's or K2's
+    template (``riccati_plan``); raises past the rule's range."""
+    return riccati_plan(n, m, dtype).symbol(name)
 
 
-def family_counter(narrow: LaunchCounter, wide: LaunchCounter, n: int,
-                   m: int) -> LaunchCounter:
-    """The launch count of a family member at (n, m): its instantiation of
-    K1's template or of K2's (``uses_wide_kernel``)."""
-    return wide if uses_wide_kernel(n, m) else narrow
+def family_counter(narrow: LaunchCounter, wide: LaunchCounter,
+                   plan: RiccatiPlan) -> LaunchCounter:
+    """The launch count of a family member: its instantiation of K1's
+    template or of K2's."""
+    return wide if plan.wide else narrow
 
 
-def _kernel_fn(symbol: str, n_pointers: int):
-    fn = getattr(_build.load_library(), symbol)
+@functools.lru_cache(maxsize=None)
+def _library(plan: RiccatiPlan) -> ctypes.CDLL:
+    return _build.load_generated(plan.source())
+
+
+def library(n: int, m: int, dtype: torch.dtype) -> ctypes.CDLL:
+    """The kernel library of (n, m, dtype), built at its first use (a few
+    seconds of nvcc) and loaded once per process."""
+    return _library(riccati_plan(n, m, dtype))
+
+
+def build(*dims, dtypes=(torch.float32,), sources=()) -> list:
+    """Build the libraries of every (n, m) in ``dims`` in each of
+    ``dtypes`` now, their nvcc runs started together with those of the
+    other translation units ``sources`` (a generated model's K3/K4), so
+    that no solve's loop waits for nvcc.  Returns the libraries' paths,
+    the Riccati ones first."""
+    plans = [riccati_plan(n, m, d) for n, m in dims for d in dtypes]
+    return _build.build_generated(*(p.source() for p in plans), *sources)
+
+
+def _kernel_fn(plan: RiccatiPlan, name: str, n_pointers: int):
+    symbol = plan.symbol(name)
+    fn = getattr(_library(plan), symbol)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_pointers + [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-    return fn
+    return fn, symbol
 
 
-def ring_entry(symbol: str, *args, lib=None) -> tuple:
-    """(tiles, bytes of dynamic shared memory a block) from a C entry of the
-    kernel library (or ``lib``) that reports a kernel's ring of step tiles
+def ring_entry(symbol: str, *args, lib) -> tuple:
+    """(tiles, bytes of dynamic shared memory a block) from a C entry of
+    the library ``lib`` that reports a kernel's ring of step tiles
     (``csrc/async_ring.cuh``); ``args`` are its int arguments."""
-    fn = getattr(_build.load_library() if lib is None else lib, symbol)
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)] * 2
         fn.restype = ctypes.c_int
@@ -295,14 +472,15 @@ def ring_entry(symbol: str, *args, lib=None) -> tuple:
     return depth.value, nbytes.value
 
 
-def riccati_ring(n: int, m: int, dtype: torch.dtype, masked: bool) -> tuple:
-    """The ring of the recursion template at (n, m, dtype) (K1's, or K2's
-    where ``uses_wide_kernel``), masked (K6a, K6b) or not (K1, K2, K5):
+def riccati_ring(n: int, m: int, dtype: torch.dtype, masked: bool,
+                 plan: RiccatiPlan = None) -> tuple:
+    """The ring of the recursion template at (n, m, dtype) (or of ``plan``),
+    masked (K6a, K6b) or not (K1, K2, K5), as its library reports it:
     (tiles, bytes of shared memory a block).  Builds the kernels on first
     use."""
-    name = family_symbol("riccati_wide_ring" if uses_wide_kernel(n, m)
-                         else "riccati_ring", n, m, dtype)
-    return ring_entry(name, int(masked))
+    plan = riccati_plan(n, m, dtype) if plan is None else plan
+    name = "riccati_wide_ring" if plan.wide else "riccati_ring"
+    return ring_entry(plan.symbol(name), int(masked), lib=_library(plan))
 
 
 def new_outputs(Tm1, n, m, B, dtype, device):
@@ -312,12 +490,12 @@ def new_outputs(Tm1, n, m, B, dtype, device):
     return tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
 
 
-def launch(symbol, counter, args, outs, Tm1, B):
-    """Launch the C entry ``symbol`` on the current stream with the data
-    pointers of ``args`` then ``outs``; raise on a CUDA error, else count
-    the launch on ``counter``.  Returns ``outs``."""
+def launch(plan: RiccatiPlan, name, counter, args, outs, Tm1, B):
+    """Launch kernel ``name`` of ``plan``'s library on the current stream
+    with the data pointers of ``args`` then ``outs``; raise on a CUDA error,
+    else count the launch on ``counter``.  Returns ``outs``."""
     device = outs[0].device
-    fn = _kernel_fn(symbol, len(args) + len(outs))
+    fn, symbol = _kernel_fn(plan, name, len(args) + len(outs))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*(a.data_ptr() for a in (*args, *outs)), Tm1, B, stream)
@@ -351,8 +529,8 @@ def backward_pass_multiref(stacks, gxxT, gxT, reg):
     and positive, else 0.0.
 
     CPU tensors take the plain reference.  CUDA tensors launch K1 or K2
-    (``uses_wide_kernel``) on the current stream, without synchronising; an
-    (n, m, dtype) with no compiled instantiation raises.
+    (``riccati_plan``; built at the dims' first use) on the current stream,
+    without synchronising; dims past the rule's range raise.
     """
     fx = stacks[0]
     device = fx.device
@@ -364,7 +542,7 @@ def backward_pass_multiref(stacks, gxxT, gxT, reg):
     m = stacks[1].shape[2]
     B = fx.shape[-1]
     dtype = fx.dtype
-    symbol = kernel_symbol(n, m, dtype)
+    plan = riccati_plan(n, m, dtype)
     shapes = (
         (Tm1, n, n, B), (Tm1, n, m, B), (Tm1, n, B), (Tm1, m, B),
         (Tm1, n, n, B), (Tm1, m, m, B), (Tm1, m, n, B),
@@ -375,8 +553,8 @@ def backward_pass_multiref(stacks, gxxT, gxT, reg):
     _check("gxxT", gxxT, (n, n, B), dtype, device)
     _check("gxT", gxT, (n, B), dtype, device)
     _check("reg", reg, (B,), dtype, device)
-    counter = RICCATI_WIDE_LAUNCHES if uses_wide_kernel(n, m) else RICCATI_LAUNCHES
-    return launch(symbol, counter, (*stacks, gxxT, gxT, reg),
+    counter = family_counter(RICCATI_LAUNCHES, RICCATI_WIDE_LAUNCHES, plan)
+    return launch(plan, plan.main, counter, (*stacks, gxxT, gxT, reg),
                   new_outputs(Tm1, n, m, B, dtype, device), Tm1, B)
 
 
@@ -467,13 +645,13 @@ def backward_pass_packed(packed, gxxT, gxT, reg, meta):
     if device.type != "cuda":
         raise ValueError(f"backward_pass_packed: unsupported device {device}")
     Tm1, B, dtype = packed.shape[0], packed.shape[-1], packed.dtype
-    symbol = family_symbol("riccati_packed", n, m, dtype)
+    plan = riccati_plan(n, m, dtype)
     _check("packed", packed, (Tm1, _offsets(n, m)[-1], B), dtype, device)
     _check("gxxT", gxxT, (n, n, B), dtype, device)
     _check("gxT", gxT, (n, B), dtype, device)
     _check("reg", reg, (B,), dtype, device)
-    counter = family_counter(RICCATI_PACKED_LAUNCHES, RICCATI_PACKED_WIDE_LAUNCHES, n, m)
-    return launch(symbol, counter, (packed, gxxT, gxT, reg),
+    counter = family_counter(RICCATI_PACKED_LAUNCHES, RICCATI_PACKED_WIDE_LAUNCHES, plan)
+    return launch(plan, "riccati_packed", counter, (packed, gxxT, gxT, reg),
                   new_outputs(Tm1, n, m, B, dtype, device), Tm1, B)
 
 

@@ -62,7 +62,9 @@ def make_derive_backward_sl(spec: ProblemSpec, options, device):
 
     ``valid`` (bool [B] or None) marks real lanes: lanes outside it never
     hold the regularization retry open.  ``device`` (the solve's device,
-    from the caller) places the static masks.
+    from the caller) places the static masks.  On the card the solvers
+    build the recursion's kernels for (nx, nu, dtype) when a solve starts
+    (``core/solve_sl.py::build_kernels``, ``core/solve.py``).
     """
     T, nx, nu, nc = spec.T, spec.nx, spec.nu, spec.nc
     Tm1 = T - 1

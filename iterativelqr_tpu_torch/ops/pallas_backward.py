@@ -2,10 +2,11 @@
 K6b), and the dispatch that runs it under the batched solve.
 
 Counterpart of ``iterativelqr_tpu/ops/pallas_backward.py``, whose two TPU
-kernels become two instantiations of a recursion template: K1's
-(``csrc/riccati_backward.cu``) at K1's dims, K2's
-(``csrc/riccati_backward_wide.cu``) where ``packed_backward.uses_wide_kernel``
-(the quadrotor's (12, 4)); the JAX kernels take any (n, m):
+kernels become two instantiations of a recursion template, K1's
+(``csrc/riccati_backward.cuh``) or K2's (``csrc/riccati_backward_wide.cuh``)
+as ``packed_backward.riccati_plan`` picks for the dims, built at their first
+use; the JAX kernels take any (n, m), and so do these, within the rule's
+range (n + m <= 32):
 
 * K6a (the TPU kernel ``_kernel``, v1): ``backward_pass_masked`` on seven
   batch-last stacks, the terminal P, p read from row Tm1 of ``gxx``/``gx``,
@@ -70,15 +71,15 @@ def backward_pass_masked(fx, fu, gx, gu, gxx, guu, gux, um, reg):
     Tm1, n, _, B = fx.shape
     m = fu.shape[2]
     dtype = fx.dtype
-    symbol = pk.family_symbol("riccati_masked", n, m, dtype)
+    plan = pk.riccati_plan(n, m, dtype)
     shapes = ((Tm1, n, n, B), (Tm1, n, m, B), (Tm1 + 1, n, B), (Tm1, m, B),
               (Tm1 + 1, n, n, B), (Tm1, m, m, B), (Tm1, m, n, B), (Tm1, m), (B,))
     args = (fx, fu, gx, gu, gxx, guu, gux, um, reg)
     for name, a, shape in zip(("fx", "fu", "gx", "gu", "gxx", "guu", "gux", "um", "reg"),
                               args, shapes):
         pk._check(name, a, shape, dtype, device)
-    counter = pk.family_counter(RICCATI_MASKED_LAUNCHES, RICCATI_MASKED_WIDE_LAUNCHES, n, m)
-    return pk.launch(symbol, counter, args, pk.new_outputs(Tm1, n, m, B, dtype, device),
+    counter = pk.family_counter(RICCATI_MASKED_LAUNCHES, RICCATI_MASKED_WIDE_LAUNCHES, plan)
+    return pk.launch(plan, "riccati_masked", counter, args, pk.new_outputs(Tm1, n, m, B, dtype, device),
                      Tm1, B)
 
 
@@ -101,14 +102,14 @@ def backward_pass_masked_packed(packed, gxxT, gxT, um, reg, meta):
         raise ValueError(f"backward_pass_masked_packed: unsupported device {device}")
     n, m = meta["n"], meta["m"]
     Tm1, B, dtype = packed.shape[0], packed.shape[-1], packed.dtype
-    symbol = pk.family_symbol("riccati_masked_packed", n, m, dtype)
+    plan = pk.riccati_plan(n, m, dtype)
     args = (packed, gxxT, gxT, um, reg)
     shapes = ((Tm1, pk._offsets(n, m)[-1], B), (n, n, B), (n, B), (Tm1, m), (B,))
     for name, a, shape in zip(("packed", "gxxT", "gxT", "um", "reg"), args, shapes):
         pk._check(name, a, shape, dtype, device)
     counter = pk.family_counter(RICCATI_MASKED_PACKED_LAUNCHES,
-                                RICCATI_MASKED_PACKED_WIDE_LAUNCHES, n, m)
-    return pk.launch(symbol, counter, args, pk.new_outputs(Tm1, n, m, B, dtype, device),
+                                RICCATI_MASKED_PACKED_WIDE_LAUNCHES, plan)
+    return pk.launch(plan, "riccati_masked_packed", counter, args, pk.new_outputs(Tm1, n, m, B, dtype, device),
                      Tm1, B)
 
 
@@ -155,7 +156,8 @@ def make_backward_dispatch(unroll: int = 1, block_b=None, variant: str = "v1"):
     form of the solver) take the reverse scan.  ``unroll`` and ``block_b``
     are the JAX function's scan unroll and TPU lane block, accepted for its
     signature and unused (the JAX ``interpret`` flag is dropped: the CPU
-    runs the plain versions)."""
+    runs the plain versions).  On the card the kernels of the spec's
+    (n, m) are built when a solve with this dispatch starts."""
     kernels = {"v1": backward_pass_batched_pallas,
                "v2": backward_pass_batched_pallas_v2}
     if variant not in kernels:
@@ -174,4 +176,7 @@ def make_backward_dispatch(unroll: int = 1, block_b=None, variant: str = "v1"):
         reg_v = reg if in_batched[8] else reg.expand(axis_size)
         return kern(fx, fu, gx, gu, gxx, guu, gux, um, reg_v)
 
+    # the solver builds the recursion's kernels for its dims before its
+    # first trip (core/solve.py::make_solve_fn)
+    dispatch.riccati_kernels = True
     return dispatch

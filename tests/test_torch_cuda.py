@@ -137,32 +137,26 @@ def test_riccati_wide_kernel_matches_plain(dtype, tol):
 
 @pytest.mark.cuda
 def test_riccati_kernel_rejects_what_it_was_not_built_for():
+    """Dims past the rule's range (n + m > 32) raise on a CUDA tensor, naming
+    the rule, in K1/K2's wrapper and in K5's, K6a's and K6b's entries (no
+    plain version runs in their place); so does a non-contiguous stack."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    B, Tm1 = 64, 5
+    B, Tm1, n, m = 64, 5, 30, 3
     st = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
-          for a in _stacks(np.random.default_rng(1), B, Tm1, 3, 1)]
+          for a in _wide_stacks(np.random.default_rng(1), B, Tm1, n, m)]
     kin = [a.contiguous() for a in pk.prepare_stacks(
-        *st, torch.ones((Tm1, 1), dtype=torch.bool))]
+        *st, torch.ones((Tm1, m), dtype=torch.bool))]
     reg = torch.zeros(B, device="cuda")
-    # K1's dims without an instantiation
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="riccati_plan.*n \\+ m <= 32"):
         pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
-    # K2's dims without an instantiation
-    st53 = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
-            for a in _wide_stacks(np.random.default_rng(1), B, Tm1, 5, 3)]
-    kin53 = [a.contiguous() for a in pk.prepare_stacks(
-        *st53, torch.ones((Tm1, 3), dtype=torch.bool))]
-    with pytest.raises(NotImplementedError, match="riccati_backward_wide"):
-        pk.backward_pass_multiref(kin53[:7], kin53[7], kin53[8], reg)
-    # nor K5, K6a, K6b there
     from iterativelqr_tpu_torch.ops import pallas_backward as pb
 
-    lead = [a.movedim(-1, 0).contiguous() for a in st53]
+    lead = [a.movedim(-1, 0).contiguous() for a in st]
     for entry in (pk.backward_pass_batched_pallas_v3, pb.backward_pass_batched_pallas,
                   pb.backward_pass_batched_pallas_v2):
-        with pytest.raises(NotImplementedError, match="n=5, m=3"):
-            entry(*lead, torch.ones((Tm1, 3), dtype=torch.bool), reg)
+        with pytest.raises(NotImplementedError, match="n=30, m=3"):
+            entry(*lead, torch.ones((Tm1, m), dtype=torch.bool), reg)
     st4 = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
            for a in _stacks(np.random.default_rng(1), B, Tm1, 4, 1)]
     kin4 = pk.prepare_stacks(*st4, torch.ones((Tm1, 1), dtype=torch.bool))
@@ -170,6 +164,48 @@ def test_riccati_kernel_rejects_what_it_was_not_built_for():
         pk.backward_pass_multiref(
             (kin4[0].transpose(0, 1).contiguous().transpose(0, 1),) + tuple(kin4[1:7]),
             kin4[7].contiguous(), kin4[8].contiguous(), reg)
+
+
+RICCATI_GRID = ((3, 1), (4, 2), (5, 1), (5, 2), (6, 2), (7, 3), (13, 4), (14, 7), (24, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("n,m", RICCATI_GRID)
+def test_riccati_family_at_any_dims_matches_plain(n, m, dtype, tol):
+    """At dims no registered model has (chip_smoke.py phase 10's grid, on
+    K1's template, or on K2's at 32, 16 or 8 lanes a block): the library
+    built at first use reports the plan's ring; K1 or K2 at the edges of
+    that ring (``_ring_edges``, T=41), with indefinite Quu on every 61st
+    lane and a per-lane regularizer, launched once each on its template's
+    counter; then K5, K6a and K6b (``_check_packed_masked``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    plan = pk.riccati_plan(n, m, dtype)
+    for masked in (False, True):
+        assert pk.riccati_ring(n, m, dtype, masked) == (plan.depth[masked], plan.shared[masked])
+    counter = pk.RICCATI_WIDE_LAUNCHES if plan.wide else pk.RICCATI_LAUNCHES
+    make = _stacks if m == 1 else _wide_stacks
+    for B, Tm1 in _ring_edges(plan.depth[0], Tm1=40):
+        rng = np.random.default_rng(9)
+        st = make(rng, B, Tm1, n, m)
+        bad = np.zeros(B, bool)
+        if Tm1 > 0:
+            bad[::61] = True
+            st[5][Tm1 // 2, 0, 0, bad] = -1.0e3
+        dev = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in st]
+        kin = [a.contiguous() for a in pk.prepare_stacks(
+            *dev, torch.ones((Tm1, m), dtype=torch.bool))]
+        reg = torch.as_tensor(rng.uniform(1e-3, 1.0, B), dtype=dtype, device="cuda")
+        before = counter.launches
+        out = pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        ref = pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg)
+        _assert_close_scaled(out, ref, tol)
+        assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad)), (B, Tm1)
+    for kernel in ("K5", "K6a", "K6b"):
+        _check_packed_masked(kernel, n, m, dtype, tol, 40)
 
 
 def _rollout_case(name, T, B, dtype, seed, spec=None):
@@ -483,7 +519,7 @@ def _check_packed_masked(kernel, n, m, dtype, tol, Tm1):
 
     depth, _ = pk.riccati_ring(n, m, dtype, masked=kernel != "K5")
     make = _stacks if m == 1 else _wide_stacks
-    wide = pk.uses_wide_kernel(n, m)
+    wide = pk.riccati_plan(n, m, dtype).wide
     for B, Tm1_ in _ring_edges(depth, Tm1=Tm1):
         rng = np.random.default_rng(8)
         st = make(rng, B, Tm1_, n, m)

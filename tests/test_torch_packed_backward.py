@@ -115,20 +115,22 @@ def test_prepare_stacks_guu_fixup():
     (4, 1, torch.float16, False),
     (12, 4, torch.float32, True),    # K2
     (12, 4, torch.float64, True),    # K2
-    (5, 3, torch.float32, False),    # K2's dims, not compiled
+    (5, 3, torch.float32, True),     # no registered model's dims: built at first use
     (2, 1, torch.float32, True),     # particle, pendulum
     (2, 1, torch.float64, True),
-    (3, 1, torch.float32, False),    # K1's dims, not compiled
+    (3, 1, torch.float32, True),     # no registered model's dims: built at first use
     (12, 4, torch.float16, False),
+    (30, 3, torch.float32, False),   # past the rule's range, n + m <= 32
 ])
 def test_unsupported_instantiation_raises(n, m, dtype, ok):
-    """An (n, m, dtype) without a compiled kernel raises before any launch
+    """An (n, m, dtype) outside the rule's range raises before any launch
     (the wrapper never falls back to the plain version on a CUDA tensor);
-    a compiled one names the kernel its dims select."""
-    kernel = "riccati_backward_wide" if pk.uses_wide_kernel(n, m) else "riccati_backward"
+    any other names the kernel its dims select, built at its first use."""
     if ok:
+        plan = pk.riccati_plan(n, m, dtype)
+        kernel = "riccati_backward_wide" if plan.wide else "riccati_backward"
         tag = {torch.float32: "f32", torch.float64: "f64"}[dtype]
         assert pk.kernel_symbol(n, m, dtype) == f"{kernel}_{tag}_n{n}_m{m}"
     else:
-        with pytest.raises(NotImplementedError, match=f"{kernel} has no"):
+        with pytest.raises(NotImplementedError, match="riccati_plan: no CUDA recursion template"):
             pk.kernel_symbol(n, m, dtype)

@@ -78,12 +78,23 @@ def test_plain_matches_jax_streamed_kernel(case):
     (3, 2, False),    # car
     (2, 1, False),    # pendulum
     (12, 4, True),    # quadrotor
-    (5, 3, True),
+    (5, 3, True),     # K1's values pass a thread's registers
+    (5, 1, False),    # two rows of P a team thread
+    (5, 2, False),
+    (6, 2, True),     # the planar quadrotor: K1's values pass 255
+    (7, 1, True),     # K1's ring of 8 tiles passes a block's shared memory in f64
+    (24, 8, True),
 ])
 def test_kernel_choice_is_the_register_budget(n, m, wide):
-    """K1 holds P, p, two steps' inputs and two n x n temporaries a lane in
-    one thread; K2 takes the dims where that passes 255 registers."""
-    step = 2 * n * n + 2 * n * m + n + m + m * m
-    assert pk.k1_live_values(n, m) == n * n + n + 2 * step + 2 * n * n
-    assert pk.uses_wide_kernel(n, m) == wide == (pk.k1_live_values(n, m) > 255)
+    """K1's template where a thread's values (``k1_values``: P, p, the
+    step's inputs but gxx, its rows' temporaries, the gathered new P and
+    the control side) fit 255 registers, its rows stay within two a thread
+    and its ring fits a block in f64; K2's elsewhere; the same template in
+    both dtypes."""
+    k1 = (pk.k1_values(n, m) <= pk.REGISTERS and n <= pk.K1_TEAM * pk.K1_MAX_ROWS
+          and pk._k1_ring(n, m, True, 8)[1] <= pk.SHARED_MAX)
+    for dtype in (torch.float32, torch.float64):
+        plan = pk.riccati_plan(n, m, dtype)
+        assert plan.wide == wide == (not k1)
+        assert plan.template == ("K2" if wide else "K1")
 

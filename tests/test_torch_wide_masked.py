@@ -58,15 +58,16 @@ def _both(entry_port, entry_jax, st, um, reg, **jkw):
 
 def test_wide_dims_take_k2s_template():
     """(12, 4) is a wide pair: K5, K6a and K6b resolve to the instantiations
-    of K2's template, counted apart from K1's."""
-    assert pk.uses_wide_kernel(N, M)
+    of K2's template, counted apart from K1's; dims past the rule's range
+    raise."""
     for name in ("riccati_packed", "riccati_masked", "riccati_masked_packed"):
         for dtype, dn in ((torch.float32, "f32"), (torch.float64, "f64")):
+            assert pk.riccati_plan(N, M, dtype).wide
             assert pk.family_symbol(name, N, M, dtype) == f"{name}_{dn}_n12_m4"
     assert pk.family_counter(pb.RICCATI_MASKED_LAUNCHES, pb.RICCATI_MASKED_WIDE_LAUNCHES,
-                             N, M) is pb.RICCATI_MASKED_WIDE_LAUNCHES
-    with pytest.raises(NotImplementedError, match="riccati_backward_wide.cu"):
-        pk.family_symbol("riccati_masked", 5, 3, torch.float32)
+                             pk.riccati_plan(N, M, torch.float32)) is pb.RICCATI_MASKED_WIDE_LAUNCHES
+    with pytest.raises(NotImplementedError, match="riccati_plan.*n \\+ m <= 32"):
+        pk.family_symbol("riccati_masked", 30, 3, torch.float32)
 
 
 def test_v3_entry_matches_jax_at_wide_dims():

@@ -6,8 +6,8 @@ acrobot's functions wrapped in lambdas, which the rollout kernels' registry
 does not recognise; models/quadrotor.py's and models/car.py's problems
 written with matrices, constant indices and norms, and a small problem of
 the ops the generator lowers since products and the wider math; the
-padded problems of tests/test_padding.py, built in either package.  Imports
-torch and the port only."""
+padded problems of tests/test_padding.py and a planar quadrotor at (6, 2),
+built in either package.  Imports torch and the port only."""
 
 import torch
 
@@ -257,6 +257,66 @@ def padded_lift_project(pkg, xp, device="cpu"):
     constraints = [pkg.Constraint(), pkg.Constraint(), pkg.Constraint(),
                    pkg.Constraint(lambda x, u: x - goal, 2, 0)]
     return pkg.build_spec([lift, mix3, proj], objective, constraints)
+
+
+# the planar quadrotor's parameters (RobotZoo.jl's PlanarQuadrotor) and
+# the problem's: hover thrust a rotor, the thrust box, the goal hover
+PQ_MASS, PQ_ARM, PQ_G, PQ_DT = 1.0, 0.3, 9.81, 0.05
+PQ_J = 0.2 * PQ_MASS * PQ_ARM ** 2
+PQ_HOVER = 0.5 * PQ_MASS * PQ_G
+PQ_UMAX = 0.75 * PQ_MASS * PQ_G
+PQ_GOAL = (2.0, 1.0, 0.0, 0.0, 0.0, 0.0)
+PQ_Q = (1.0, 1.0, 1.0, 0.1, 0.1, 0.1)
+PQ_R = 0.1
+PQ_QF = 10.0
+
+
+def planar_quadrotor(pkg, xp, T=101):
+    """RobotZoo.jl's ``PlanarQuadrotor`` as a user writes it, in either
+    package (``pkg`` the port or the JAX package, ``xp`` torch or
+    jax.numpy): n = 6 (x, y, theta and their rates), m = 2 rotor thrusts,
+    mass 1.0, arm 0.3, J = 0.2 mass arm^2, g = 9.81; explicit RK4 at dt =
+    0.05; quadratic tracking of the hover at (x, y) = (2, 1) about the
+    hover thrust; the terminal goal as an equality; the thrust box 0 <= u_i
+    <= 0.75 mass g as four inequality rows a step.  Constants are Python
+    floats, so the functions keep the inputs' dtype."""
+    def accel(x, u):
+        thrust = (u[0] + u[1]) / PQ_MASS
+        return xp.stack([x[3], x[4], x[5], thrust * xp.sin(x[2]),
+                         thrust * xp.cos(x[2]) - PQ_G,
+                         (0.5 * PQ_ARM / PQ_J) * (u[1] - u[0])])
+
+    def rk4(x, u):
+        k1 = accel(x, u)
+        k2 = accel(x + (0.5 * PQ_DT) * k1, u)
+        k3 = accel(x + (0.5 * PQ_DT) * k2, u)
+        k4 = accel(x + PQ_DT * k3, u)
+        return x + (PQ_DT / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+    def tracking(x):
+        return sum(0.5 * q * (x[i] - g) ** 2 for i, (q, g) in enumerate(zip(PQ_Q, PQ_GOAL)))
+
+    dyn = pkg.Dynamics(rk4, 6, 2)
+    stage = pkg.Cost(lambda x, u: tracking(x) + 0.5 * PQ_R * ((u[0] - PQ_HOVER) ** 2
+                                                              + (u[1] - PQ_HOVER) ** 2), 6, 2)
+    term = pkg.Cost(lambda x, u: PQ_QF * tracking(x), 6, 0)
+    box = pkg.Constraint(lambda x, u: xp.stack([-u[0], -u[1], u[0] - PQ_UMAX, u[1] - PQ_UMAX]),
+                         6, 2, indices_inequality=(0, 1, 2, 3))
+    goal = pkg.Constraint(lambda x, u: xp.stack([x[i] - g for i, g in enumerate(PQ_GOAL)]), 6, 0)
+    return pkg.build_spec([dyn] * (T - 1), [stage] * (T - 1) + [term],
+                          [box] * (T - 1) + [goal])
+
+
+def planar_quadrotor_inputs(B, T, seed=0, start=(0.0, 0.0)):
+    """Initial guesses: hover at ``start`` (x, y; the origin by default)
+    plus 0.1 N(0, 1) on every state (a numpy seed) spliced into zero
+    states, hover thrust on every step, no parameters (numpy, f64)."""
+    import numpy as np
+
+    xs = np.zeros((B, T, 6))
+    xs[:, 0] = 0.1 * np.random.default_rng(seed).standard_normal((B, 6))
+    xs[:, 0, :2] += start
+    return xs, np.full((B, T - 1, 2), PQ_HOVER), np.zeros((B, T, 0))
 
 
 def math_problem(T, device="cpu"):
