@@ -158,8 +158,8 @@ Phases, each of which raises (non-zero exit) when it fails:
    solve, the stats reduced across shards equal to its batch_stats (counts
    and maxima bitwise, means to f32 rounding); no speed is read;
 9c. per-device compaction (make_compacted_solve_fn(devices=[cuda:0,
-   cuda:0])) on phase 4's parity kernel inputs, every lane bitwise equal to
-   phase 4's single-shot parity solve;
+   cuda:0])) on phase 4's tuned kernel inputs, every lane bitwise equal to
+   phase 4's single-shot tuned solve;
 9d. the sharded solve across processes (tests/torch_distributed_worker.py):
    two gloo ranks on cuda:0 and one NCCL rank at world size 1 (NCCL refuses
    two ranks on one card), particle T=11, B=4096, f32, K1/K3/K4 in every
@@ -173,7 +173,7 @@ Phases, each of which raises (non-zero exit) when it fails:
    pendulum T=1025 linearization in f64, then the long-horizon example's
    solve (pendulum T=T_LONG=33, four chunks on the card);
 9f. utils/profiling.trace around a tuned solve on phase 4's kernel inputs,
-   cut to PROFILE_TRIPS=8 trips, after an untraced call and a timed one,
+   cut to PROFILE_TRIPS=4 trips, after an untraced call and a timed one,
    read from the exported trace: without Python frames, the ten device
    operations with the most device time, the share of the solve's window
    in which the card ran any device operation, and that share trip by
@@ -205,6 +205,27 @@ Phases, each of which raises (non-zero exit) when it fails:
    the f64 plain versions); (c) K1/K2 at (6, 2) and (13, 4), f32, B=4096,
    T=101, against the bound and the plain version, and both templates in
    turns at the dims of the rule's choice.
+11. the recursion past n + m = 32 (the tall template,
+   csrc/riccati_backward_tall.cuh) and a team of three quadrotors at
+   (36, 12): (d, run first) tests/torch_user_problems.py::quadrotor_team,
+   its recursion's library and generated K3/K4 built together in the
+   background beside phase 5's golden half (seconds, registers and
+   spills), the team's K3/K4 against their plain versions in f64 and f32
+   at B=4096, T=41 (timed in f32) and their ring against the rule's; then
+   B=4096, T=41, f32, the tuned preset's options on the SL route with the
+   kernels, and on the first B_TEAM_LOOP=16 lanes with the loop rollouts:
+   trips, walls, launches (K2 on the tall template and generated K3/K4 > 0
+   on the kernel path), the recomputed solved fraction (>= 0.99 with the
+   kernels; on the loop cell's lanes within 0.01 of the kernel solve's
+   there), the least separation and the objectives lane by lane; (a)
+   the libraries of the tall grid (20, 13), (24, 12), (36, 12), (48, 16),
+   (62, 2), (2, 62) in f32 and f64, built in the background: seconds, each
+   plan against its library's ring entry, registers and spills; (b) K2,
+   K5, K6a and K6b there against their plain versions as in 10b (stacks
+   drawn on the card; an f32 output past 1e-4 held to F32_OWN times the
+   f32 plain version's own distance from f64); (c) K2 at (36, 12) and
+   (48, 16), f32, B=4096, T=41, against the bound and the plain version,
+   and K5, K6a, K6b at (36, 12).
 
 Budget: the whole run stays under 800 s (1200 s limit).  For that,
 parity's loop cell runs on 4 lanes, tuned's loop cell on 16, phase 4c's
@@ -217,7 +238,9 @@ quadrotor's, phase 6b's tuned compaction at one grain, phase 7c's acrobot
 DDP at T=T_DDP (was 51), phase 9e's long-horizon solve at T=T_LONG and
 phase 9f's trace over PROFILE_TRIPS trips, the splits time 5 iterations
 (were 20) and a plain version's time is one run after its check
-(PLAIN_REPS): the reasons and trip counts stand beside B_LOOP.
+(PLAIN_REPS), phase 9c compacts the tuned preset (was parity) and phase
+9f traces 4 trips (was 8): the reasons and trip counts stand beside B_LOOP,
+run_compacted_devices and PROFILE_TRIPS.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -236,6 +259,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -729,10 +753,10 @@ def rollout_case(fk, name, T, B, dtype, seed, spec=None):
         ubar[:, 0] += 0.7
         x0[2, ::3] += np.pi / 4
         ubar[:, 0, 1::5] = 6.0
-    if name == "quadrotor":
+    if name in ("quadrotor", "team"):
         # thrusts near hover; some lanes hold every rotor past its upper or
-        # lower bound (active rows, no torque)
-        ubar = mod.HOVER + 0.1 * ubar
+        # lower bound (active rows, no torque); the team's starts apart
+        ubar = models.quadrotor.HOVER + 0.1 * ubar
         ubar[:, :, 1::5] = 6.5
         ubar[:, :, 3::7] = -0.2
     if name == "cartpole":
@@ -746,7 +770,10 @@ def rollout_case(fk, name, T, B, dtype, seed, spec=None):
         ubar[-2:, 0, 2::7] = -10.5
     K = 0.1 * rng.standard_normal((Tm1, nu, nx, B))
     k = 0.1 * rng.standard_normal((Tm1, nu, B))
-    if name == "quadrotor":
+    if name == "team":
+        for i, p in enumerate(user_problems().team_starts()):
+            x0[12 * i:12 * i + 3] += np.asarray(p)[:, None]
+    if name in ("quadrotor", "team"):
         # gentler gains: larger random ones tip the attitude past 90 degrees
         # within the horizon (tan and 1/cos of pitch overflow) or make the
         # alpha = 1 rollouts chaotic
@@ -922,7 +949,8 @@ LAUNCH_NAMES = ("riccati_backward", "riccati_backward_wide", "sl_score_rollout",
                 "sl_winner_reroll", "riccati_packed", "riccati_masked",
                 "riccati_masked_packed", "riccati_packed_wide", "riccati_masked_wide",
                 "riccati_masked_packed_wide", "sl_score_rollout_generated",
-                "sl_winner_reroll_generated")
+                "sl_winner_reroll_generated", "riccati_backward_tall", "riccati_packed_tall",
+                "riccati_masked_tall", "riccati_masked_packed_tall")
 
 
 def counters():
@@ -939,7 +967,11 @@ def counters():
                                    pb.RICCATI_MASKED_WIDE_LAUNCHES,
                                    pb.RICCATI_MASKED_PACKED_WIDE_LAUNCHES,
                                    fk.GENERATED_SCORE_LAUNCHES,
-                                   fk.GENERATED_REROLL_LAUNCHES)))
+                                   fk.GENERATED_REROLL_LAUNCHES,
+                                   pk.RICCATI_TALL_LAUNCHES,
+                                   pk.RICCATI_PACKED_TALL_LAUNCHES,
+                                   pb.RICCATI_MASKED_TALL_LAUNCHES,
+                                   pb.RICCATI_MASKED_PACKED_TALL_LAUNCHES)))
 
 
 def counted_solve(P, solve, args):
@@ -1354,8 +1386,11 @@ def time_assoc_grid():
         for B in (None,) + ASSOC_GRID_B:
             st = [a[0] for a in full] if B is None else [a[:B] for a in full]
             reg = torch.zeros(() if B is None else (B,), dtype=torch.float32, device=dev)
-            t_a = cuda_ms(lambda: assoc.backward_pass_associative(*st, um, reg), reps=3, warmup=1)
-            t_s = cuda_ms(lambda: backward.backward_pass_scan(*st, um, reg), reps=3, warmup=1)
+            # at T=501 one run after a warm-up (the reverse scan takes 0.6-0.9
+            # s a run there: 3 runs took about 17 s of an 861.2 s run)
+            reps = 3 if T < 501 else 1
+            t_a = cuda_ms(lambda: assoc.backward_pass_associative(*st, um, reg), reps=reps, warmup=1)
+            t_s = cuda_ms(lambda: backward.backward_pass_scan(*st, um, reg), reps=reps, warmup=1)
             rows.append((B, t_a, t_s))
             log(f"[assoc] T={T} {'unbatched' if B is None else f'B={B}'}: associative "
                 f"{t_a:.3f} ms, reverse scan {t_s:.3f} ms ({t_s / t_a:.2f} x)")
@@ -1842,8 +1877,11 @@ T_LONG = 33
 # the solver's first call its first 4 trips read busy 0.0444, its first 6
 # 0.0624 and all 86 0.0646; after an untraced call, 8 trips read 0.0531 to
 # 0.0616 trip by trip, and the Python tracer stretched a trip from about
-# 80 to 265 ms, hence the second trace without it
-PROFILE_TRIPS = 8
+# 80 to 265 ms, hence the second trace without it.  Then cut to 4 trips
+# for phase 11's time (8 trips: 37.7 s of phase 9f in an 843.2 s run,
+# NVIDIA H100 80GB HBM3, 700 W): the trips after the warm-up read the same
+# busy share one by one (0.0754-0.0918 at 8 trips), so 4 show it
+PROFILE_TRIPS = 4
 SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_scratch")
 
 
@@ -1944,19 +1982,22 @@ def run_sharded(P, ref):
 
 def run_compacted_devices(P, ref):
     """Phase 9c: per-device compaction (make_compacted_solve_fn with
-    devices=[cuda:0, cuda:0]) on phase 4's parity kernel inputs, every lane
-    bitwise equal to phase 4's single-shot parity solve."""
+    devices=[cuda:0, cuda:0]) on phase 4's tuned kernel inputs, every lane
+    bitwise equal to phase 4's single-shot tuned solve.  (Parity's until
+    phase 11: 45.7 s of an 843.2 s run, NVIDIA H100 80GB HBM3, 700 W, for
+    its 224 trips against tuned's 86; phase 6b still compacts parity on
+    one device.)"""
     from iterativelqr_tpu_torch.core.solve_compact import make_compacted_solve_fn
     from iterativelqr_tpu_torch.models import acrobot
 
     ref_sol, ref_wall, inputs = ref
     spec = P.build_spec(*acrobot.problem(T_MAIN)[:3])
     devices = [torch.device("cuda", 0)] * 2
-    solve = make_compacted_solve_fn(spec, P.Options(**PARITY, forward_kernel="pallas"),
+    solve = make_compacted_solve_fn(spec, P.Options(**TUNED, forward_kernel="pallas"),
                                     devices=devices, device="cuda", dtype=torch.float32)
     sol, wall, counts = main_path(P, "compacted devices", solve, *inputs)
     lanes_equal("compacted devices", sol, ref_sol)
-    log(f"[compacted devices] parity acrobot T={T_MAIN} B={B_MAIN} on {[str(d) for d in devices]}: "
+    log(f"[compacted devices] tuned acrobot T={T_MAIN} B={B_MAIN} on {[str(d) for d in devices]}: "
         f"sub-batches (shapes visited, repacks) "
         f"{[(r.shapes, r.repacks) for r in solve.last_run]}; every lane's iterations, xs and us "
         f"bitwise equal to the single-shot solve; wall {wall:.3f} s (single-shot {ref_wall:.3f} s)")
@@ -2331,10 +2372,13 @@ def generated_spec(P, label, T):
     return (up.farm_problem if label == "farm" else up.demo_problem)(T, "cuda")
 
 
-def build_generated(P, fk):
-    """Phase 8a: the generated models of the three user problems and of
-    phase 8e's two, their nvcc runs started together; prints the build's
-    seconds and ptxas's registers and spills in f32 and f64."""
+def start_generated_build(P, fk, pool):
+    """Phase 8a's build, queued in the background beside phase 5's golden
+    half (it took 8.7 s of phase 8a in an 861.2 s run, NVIDIA H100 80GB
+    HBM3, 700 W): the generated models of the three user problems and of
+    phase 8e's two, generated here (tracing stays on this thread), their
+    nvcc runs started together.  Returns (models, the pending build's
+    seconds and paths)."""
     from iterativelqr_tpu_torch import _build
 
     models = {}
@@ -2351,9 +2395,25 @@ def build_generated(P, fk):
             f"(stage rows {g.nc_stage}, terminal {g.nc_term}); {g.ops_per_step()} operations a "
             f"step and candidate; kStream {g.stream}; "
             f"ops a program {[None if p is None else len(p.ops) for p in g.programs]}")
-    t0 = time.perf_counter()
-    paths = _build.build_generated(*(m.generated.translation_unit() for m in models.values()))
-    log(f"[build] {len(paths)} generated models built together in {time.perf_counter() - t0:.2f} s")
+    sources = [m.generated.translation_unit() for m in models.values()]
+
+    def run():
+        t0 = time.perf_counter()
+        paths = _build.build_generated(*sources)
+        return time.perf_counter() - t0, paths
+
+    return models, pool.submit(run)
+
+
+def build_generated(pending):
+    """Phase 8a: the generated models' libraries (``start_generated_build``):
+    the build's seconds and ptxas's registers and spills in f32 and f64."""
+    from iterativelqr_tpu_torch import _build
+
+    models, build = pending
+    seconds, paths = build.result()
+    log(f"[build] {len(paths)} generated models built together in {seconds:.2f} s, in the "
+        f"background")
     for label, path in zip(models, paths):
         for line in _build.ptxas_report(path.with_suffix(".log")):
             log(f"[build] {label}: {line}")
@@ -2801,8 +2861,9 @@ def grid_plans(pk):
 
 
 def start_riccati_grid(pk, pool):
-    """Phase 10a's build, started in the background before phase 5 (whose
-    checks report no time) so that its nvcc runs use the host's idle cores:
+    """Phase 10a's build, started in the background beside phase 5's golden
+    half (whose checks report no time) so that its nvcc runs use the host's
+    idle cores:
     the grid's libraries but the planar quadrotor's (6, 2) f32, which
     phase 10d builds with its generated K3/K4 as a user's first solve
     would.  Returns (plans, the pending build's seconds)."""
@@ -2830,7 +2891,15 @@ def build_riccati_grid(pk, plans, pending):
     paths = _build.build_generated(*(p.source() for p in plans))
     log(f"[riccati] {len(paths) - 1} libraries (the grid in f32 and f64, and both templates at "
         f"{list(TEMPLATE_CHOICE)} in f32, but 10d's) built together in {seconds:.2f} s, beside "
-        f"phase 5")
+        f"phase 5's golden half")
+    report_plans(pk, plans, paths, "riccati")
+
+
+def report_plans(pk, plans, paths, tag):
+    """Each plan's parameters against its library's ring entry, and
+    ptxas's registers, spills and shared memory a kernel."""
+    from iterativelqr_tpu_torch import _build
+
     for plan, path in zip(plans, paths):
         rings = tuple(pk.riccati_ring(plan.n, plan.m, None, masked, plan=plan)
                       for masked in (False, True))
@@ -2839,13 +2908,13 @@ def build_riccati_grid(pk, plans, pending):
                                  f"{rings} is not the plan's {plan.depth}, {plan.shared}")
         if max(plan.shared) > pk.SHARED_MAX:
             raise AssertionError(f"{plan}: more shared memory than a block may take")
-        head = (f"[riccati] n={plan.n} m={plan.m} {plan.dtype} {plan.template}'s template: "
+        head = (f"[{tag}] n={plan.n} m={plan.m} {plan.dtype} {plan.template}'s template: "
                 f"{plan.rows} row(s) of P a thread, {plan.lanes} lanes and {plan.threads} threads "
                 f"a block, ring {plan.depth[0]} tiles, {plan.shared[0]} B shared "
                 f"({plan.shared[1]} B masked)")
         log(head)
         for line in _build.ptxas_report(path.with_suffix(".log")):
-            log(f"[riccati]   {line}")
+            log(f"[{tag}]   {line}")
 
 
 def _grid_runs(pk, pb, plan, st, um, reg):
@@ -2859,45 +2928,57 @@ def _grid_runs(pk, pb, plan, st, um, reg):
             ref["k1"] = pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg)
         return ref["k1"]
 
-    wide = "_wide" if plan.wide else ""
     runs = {plan.main: (lambda: pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg), plain_k1)}
     for label, base in (("K5", "riccati_packed"), ("K6a", "riccati_masked"),
                         ("K6b", "riccati_masked_packed")):
         kern, plain, _, _ = packed_masked_runs(pk, pb, label, st, um, reg)
-        runs[base + wide] = (kern, plain_k1 if label == "K5" else plain)
+        runs[base + plan.suffix] = (kern, plain_k1 if label == "K5" else plain)
     return runs
 
 
-def check_riccati_grid(pk, pb):
-    """Phase 10b: K1 or K2, K5, K6a and K6b at every grid dims against their
-    plain versions, B=B_GRID, T=T_GRID, phase 3c's case (the last action
-    masked where m > 1, a per-lane regularizer from [1e-3, 1], Quu
-    indefinite at one step on every 61st lane) and phases 3/3c's
-    tolerances: the f64 kernels and the f32 kernels (on the same numbers
-    rounded to f32) against the plain versions in f64, run once a dims;
-    each wrapper launches its kernel once, on the counter of the template
-    the rule picks."""
+def check_riccati_grid(pk, pb, grid=RICCATI_GRID, tag="riccati"):
+    """Phase 10b (11b: ``grid`` TALL_GRID): K1 or K2, K5, K6a and K6b at
+    every grid dims against their plain versions, B=B_GRID, T=T_GRID,
+    phase 3c's case (the last action masked where m > 1, a per-lane
+    regularizer from [1e-3, 1], Quu indefinite at one step on every 61st
+    lane) and phases 3/3c's tolerances: the f64 kernels and the f32
+    kernels (on the same numbers rounded to f32) against the plain versions
+    in f64, run once a dims; each wrapper launches its kernel once, on the
+    counter of the template the rule picks.  On the tall template only
+    (11b), where an f32 output misses the tolerance, the f32 kernel is held
+    to F32_OWN times the distance of the plain version, run in f32 on the
+    same inputs, from f64 on that output (its own rounding: at (62, 2),
+    where P reaches 500 and Quu 1,600, the plain f32 version is
+    0.99-1.24e-4 relative from f64), and both are printed; 10b's templates
+    are held to the tolerance alone, as before."""
     tols = {torch.float64: 1e-10, torch.float32: 1e-4}
     B, Tm1 = B_GRID, T_GRID - 1
-    for n, m in RICCATI_GRID:
+    for n, m in grid:
         refs = None
         for dtype, tol in tols.items():
             plan = pk.riccati_plan(n, m, dtype)
-            st, um, reg, bad = masked_case(SEED, B, Tm1, n, m, "indefinite_lanes", dtype)
+            if n + m <= 32:
+                st, um, reg, bad = masked_case(SEED, B, Tm1, n, m, "indefinite_lanes", dtype)
+            else:
+                # past n + m = 32 the stacks are drawn on the card, and fu^T P
+                # fu reaches thousands ((62, 2): 1,400 in Quu), past the -1e3
+                # that makes Quu indefinite below
+                st, um, reg, bad = device_case(SEED, B, Tm1, n, m, dtype, -1.0e6)
             runs = _grid_runs(pk, pb, plan, st, um, reg)
             if refs is None:   # f64 first: its plain versions are the references
-                refs = {k.replace("_wide", ""): plain() for k, (_, plain) in runs.items()}
-            errs = {}
-            for kname, (kern, _) in runs.items():
+                refs = {k.removesuffix(plan.suffix): plain() for k, (_, plain) in runs.items()}
+            errs, own_notes = {}, []
+            for kname, (kern, plain) in runs.items():
                 counter = counters()[kname]
                 before = counter.launches
                 out = kern()
                 torch.cuda.synchronize()
                 if counter.launches != before + 1:
                     raise AssertionError(f"({n}, {m}) {dtype}: {kname} was not launched once")
-                err = 0.0
-                for name, a, b in zip(("K", "k", "Qx", "Qu", "p", "ok"), out,
-                                      refs[kname.replace("_wide", "")]):
+                err, own = 0.0, None
+                names = ("K", "k", "Qx", "Qu", "p", "ok")
+                for i, (name, a, b) in enumerate(zip(names, out,
+                                                     refs[kname.removesuffix(plan.suffix)])):
                     a = a.double()
                     if not torch.equal(torch.isnan(a), torch.isnan(b)):
                         raise AssertionError(f"({n}, {m}) {dtype} {kname} {name}: NaN positions differ")
@@ -2906,18 +2987,27 @@ def check_riccati_grid(pk, pb):
                     scale = float(fb.abs().max()) if fb.numel() else 0.0
                     e = float((fa - fb).abs().max()) if fb.numel() else 0.0
                     if not e <= tol * max(scale, 1.0):
-                        raise AssertionError(f"({n}, {m}) {dtype} {kname} {name}: max |kernel - plain| "
-                                             f"{e:.3e} > {tol:g} * max(|plain|, 1)")
+                        lenient = dtype == torch.float32 and plan.tall
+                        if lenient:
+                            own = plain() if own is None else own
+                            e32 = float((own[i].double()[keep] - fb).abs().max())
+                        if not (lenient and e <= F32_OWN * e32):
+                            raise AssertionError(f"({n}, {m}) {dtype} {kname} {name}: max |kernel - "
+                                                 f"plain| {e:.3e} > {tol:g} * max(|plain|, 1)")
+                        own_notes.append(f"{kname} {name} {e:.3e} against the f32 plain version's "
+                                         f"{e32:.3e} (max |plain| {scale:.3e})")
                     err = max(err, e)
                 ok = out[-1].cpu().numpy()
                 if not np.array_equal(ok == 0, bad):
                     raise AssertionError(f"({n}, {m}) {dtype} {kname}: ok is not 0 exactly on the "
                                          "indefinite lanes")
                 errs[kname] = err
-            log(f"[riccati] n={n} m={m} {str(dtype).split('.')[-1]} B={B} T={T_GRID} on "
+            log(f"[{tag}] n={n} m={m} {str(dtype).split('.')[-1]} B={B} T={T_GRID} on "
                 f"{plan.template}'s template: max |kernel - plain f64| "
                 + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
-                + f" (tol {tol:g} relative), ok = 0 exactly on the {int(bad.sum())} indefinite lanes")
+                + f" (tol {tol:g} relative), ok = 0 exactly on the {int(bad.sum())} indefinite lanes"
+                + (f"; past the tolerance, within {F32_OWN} x the f32 plain version's own distance: "
+                   + "; ".join(own_notes) if own_notes else ""))
 
 
 def _time_case(pk, n, m, T, B):
@@ -2936,7 +3026,8 @@ def _time_case(pk, n, m, T, B):
 def time_riccati_grid(pk):
     """Phase 10c: K1/K2 at TIMED_DIMS, f32, B=4096, T=101, against the bound
     (bytes at 3.35 TB/s or operations at 67 TFLOP/s, the larger) and the
-    plain version (one run after a check); then, at TEMPLATE_CHOICE, both
+    plain version (one run after a check: each output within 1e-4 of
+    max(|plain|, 1)); then, at TEMPLATE_CHOICE, both
     templates on the same inputs, timed in turns (K1's, K2's, K2's, K1's)
     and held to each other.  Returns {(n, m): record} of TIMED_DIMS, its
     launches those of one call of the entry with the counts set to 0."""
@@ -2952,8 +3043,8 @@ def time_riccati_grid(pk):
         out = run()
         torch.cuda.synchronize()
         launches = counters()[plan.main].launches
-        ref = plain()
-        err = max(float((a - b)[~torch.isnan(b)].abs().max()) for a, b in zip(out, ref))
+        err, _ = max_err(f"{plan.main} ({n}, {m}) B={B} f32", [a.double() for a in out],
+                         [b.double() for b in plain()], PLAIN_TOLS[torch.float32])
         k_ms = cuda_ms(run)
         p_ms = cuda_ms(plain, **PLAIN_REPS)
         b_ms, b_by = bound_ms(nbytes, ops)
@@ -3058,6 +3149,311 @@ def run_planar_quadrotor(P, pk, fk):
     return counts["pallas"]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the recursion past n + m = 32 (the tall template), and a team of
+# three quadrotors at (36, 12) solved end to end
+# ---------------------------------------------------------------------------
+
+TALL_GRID = ((20, 13), (24, 12), (36, 12), (48, 16), (62, 2), (2, 62))
+# phase 11b (the tall template only): where an f32 kernel's output misses
+# the f32 tolerance against f64, it is held to this many times the f32 plain
+# version's own distance from f64 (the kernel's sums run in another order)
+F32_OWN = 4.0
+TALL_TIMED = ((36, 12), (48, 16))   # 11c: K2 on the tall template, f32, B=4096, T=41
+TEAM = (36, 12)                     # 11d: tests/torch_user_problems.py::quadrotor_team
+# the ring of step tiles the team's K3/K4 take (tiles, bytes a block): 546
+# slots of 32 lanes a tile; two f64 tiles (279,584 B) pass a block's 232,448
+# (csrc/sl_rollout.cuh's rule, tests/test_torch_quadrotor_team.py)
+TEAM_RINGS = {torch.float32: (2, 139808), torch.float64: (1, 139792)}
+TEAM_T = 41
+# the team's loop-rollout cell: its time is its slowest lane's trips times
+# a launch-bound trip (1.26 s at T=41), so it runs on fewer lanes, paired
+# with the same lanes of the kernels' B_MAIN solve.  Cut from 64 lanes (32
+# trips on both paths, 40.2 and 11.4 s of an 861.2 s run, NVIDIA H100 80GB
+# HBM3, 700 W); the kernel cell of its own on these 16 lanes went next (20
+# trips, 6.6 s and its warm-up of an 880.7 s run)
+B_TEAM_LOOP = 16
+
+
+def start_team_build(P, pk, fk, pool):
+    """Phase 11d's build, started first in the background beside phase 5's
+    golden half: the team's device model generated here (tracing stays on
+    this thread), then the recursion's library at (36, 12) f32 and the
+    generated K3/K4 built together, as a user's first solve builds them
+    (``core/solve_sl.py::build_kernels``).  Returns (spec, device model,
+    the pending build's seconds)."""
+    from iterativelqr_tpu_torch import _build
+
+    spec = user_problems().quadrotor_team(P, torch, TEAM_T)
+    model = fk.device_model(spec, "cuda")
+    if model is None or model.generated is None:
+        raise AssertionError(f"team: no generated model ({fk.model_reason(spec, 'cuda')})")
+    sources = (pk.riccati_plan(*TEAM, torch.float32).source(), model.generated.translation_unit())
+
+    def run():
+        t0 = time.perf_counter()
+        _build.build_generated(*sources)
+        return time.perf_counter() - t0
+
+    return spec, model, pool.submit(run)
+
+
+def start_tall_grid(pk, pool):
+    """Phase 11a's build, queued in the background behind the team's and
+    10a's: the tall grid's libraries in f32 and f64 but the team's
+    (36, 12) f32 (``start_team_build``).  Returns (plans, the pending
+    build's seconds)."""
+    from iterativelqr_tpu_torch import _build
+
+    plans = [pk.riccati_plan(n, m, d) for n, m in TALL_GRID for d in DTYPES]
+    team = pk.riccati_plan(*TEAM, torch.float32)
+
+    def run():
+        t0 = time.perf_counter()
+        _build.build_generated(*(p.source() for p in plans if p != team))
+        return time.perf_counter() - t0
+
+    return plans, pool.submit(run)
+
+
+def build_tall_grid(pk, plans, pending):
+    """Phase 11a: the tall grid's libraries (``start_tall_grid``): seconds,
+    each plan against its library's ring entry, registers and spills."""
+    from iterativelqr_tpu_torch import _build
+
+    seconds = pending.result()
+    paths = _build.build_generated(*(p.source() for p in plans))
+    if any(not p.tall for p in plans):
+        raise AssertionError("the rule takes another template than the tall one past n + m = 32")
+    log(f"[tall] {len(paths) - 1} libraries (the tall grid {list(TALL_GRID)} in f32 and f64, "
+        f"but 11d's) built together in {seconds:.2f} s, in the background")
+    report_plans(pk, plans, paths, "tall")
+
+
+@functools.lru_cache(maxsize=1)
+def device_stacks(seed, B, Tm1, n, m):
+    """wide_stacks' distribution drawn on the card (torch's generator, f64;
+    kept for the next call, which must not write them): numpy's einsum
+    took 3-22 s a tall dims at B=1000, and its stacks at (48, 16) and
+    B=4096 take 10 GB."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64, device="cuda")
+    T = Tm1 + 1
+
+    def spd(rows, d, scale):
+        A = rand(rows, d, d, B)
+        eye = torch.eye(d, dtype=torch.float64, device="cuda")[None, :, :, None]
+        return scale * torch.einsum("tikb,tjkb->tijb", A, A) / d + 2.0 * eye
+
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")[None, :, :, None]
+    return (0.1 * rand(Tm1, n, n, B) + eye, 0.5 * rand(Tm1, n, m, B), rand(T, n, B),
+            rand(Tm1, m, B), spd(T, n, 0.5), spd(Tm1, m, 1.0), 0.2 * rand(Tm1, m, n, B))
+
+
+def device_case(seed, B, Tm1, n, m, dtype, poison):
+    """masked_case's "indefinite_lanes" on ``device_stacks``: the last
+    action masked where m > 1, Quu made indefinite (``poison``) at one step
+    on every 61st lane, a per-lane regularizer from [1e-3, 1]."""
+    st = [a.clone() for a in device_stacks(seed, B, Tm1, n, m)]
+    bad = np.zeros(B, bool)
+    bad[::61] = True
+    st[5][Tm1 // 2, 0, 0, torch.as_tensor(bad, device="cuda")] = poison
+    um = torch.ones((Tm1, m), dtype=dtype, device="cuda")
+    if m > 1:
+        um[:, -1] = 0.0
+    reg = torch.as_tensor(np.random.default_rng(seed + 1).uniform(1e-3, 1.0, B), dtype=dtype,
+                          device="cuda")
+    return [a.to(dtype).contiguous() for a in st], um, reg, bad
+
+
+def time_tall(pk, pb):
+    """Phase 11c: K2 on the tall template at TALL_TIMED, f32, B=4096,
+    T=TEAM_T, on stacks drawn on the card (``device_stacks``), against the
+    bound (bytes at 3.35 TB/s or operations at 67 TFLOP/s, the larger) and
+    the plain version (one run after a check), with the bytes of the
+    sectors its copies touch beside the bytes it must read; and K5, K6a and
+    K6b at the team's (36, 12) on the same stacks with the last action
+    masked, each through its wrapper with the counts set to 0 just before
+    and read just after.  Each kernel's every output is held to its plain
+    version in f32 on the same inputs at 11b's f32 tolerance, 1e-4 of
+    max(|plain|, 1).  Returns {kernel name: record} of (36, 12), K2's
+    launches those of its wrapper (the team's solve sets them later)."""
+    B, T = B_MAIN, TEAM_T
+    records = {}
+    for n, m in TALL_TIMED:
+        st = [a.float() for a in device_stacks(SEED, B, T - 1, n, m)]
+        kin = [a.contiguous() for a in pk.prepare_stacks(*st, torch.ones((T - 1, m), dtype=torch.bool))]
+        reg = torch.zeros(B, dtype=torch.float32, device="cuda")
+        outs = pk.new_outputs(T - 1, n, m, B, torch.float32, "cuda")
+        inputs = sum(a.numel() * a.element_size() for a in kin)
+        nbytes = inputs + sum(a.numel() * a.element_size() for a in (reg, *outs))
+        ops = riccati_ops(n, m) * (T - 1) * B
+        plan = pk.riccati_plan(n, m, torch.float32)
+        run = lambda: pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
+        plain = lambda: pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg)
+        for c in counters().values():
+            c.reset()
+        out = run()
+        torch.cuda.synchronize()
+        launches = counters()[plan.main].launches
+        err, _ = max_err(f"{plan.main} ({n}, {m}) B={B} f32", [a.double() for a in out],
+                         [b.double() for b in plain()], PLAIN_TOLS[torch.float32])
+        k_ms = cuda_ms(run)
+        p_ms = cuda_ms(plain, **PLAIN_REPS)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        # the tiles' copies read every input once, in runs of a block's
+        # lanes: 16 B (4 lanes f32) or 8 B (2 lanes) of each 32-B sector,
+        # whose rest only a neighbouring block's copies (through L2) use
+        run_bytes = plan.lanes * 4
+        sectors = inputs * 32 // min(run_bytes, 32)
+        log(f"[tall] {plan.main} n={n} m={m} T={T} B={B} f32 on the tall template ({plan.lanes} "
+            f"lanes, {plan.threads} threads, ring {plan.depth[0]}): kernel {k_ms:.4f} ms (median "
+            f"of 10), plain {p_ms:.3f} ms (one run), max |kernel - plain| {err:.3e}; bound "
+            f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations); "
+            f"{b_ms / k_ms:.1%} of the bound; its copies read {run_bytes}-B runs: the sectors "
+            f"they touch hold {sectors / 1e6:.1f} MB against the inputs' {inputs / 1e6:.1f} MB "
+            f"({sectors / inputs:.0f} x without reuse across blocks in L2)")
+        if (n, m) == TEAM:
+            records[plan.main] = dict(launches=launches, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                      bound_ms=b_ms, bound_by=b_by)
+    n, m = TEAM
+    st = [a.float().contiguous() for a in device_stacks(SEED, B, T - 1, n, m)]
+    um = torch.ones((T - 1, m), dtype=torch.float32, device="cuda")
+    um[:, -1] = 0.0
+    reg = torch.as_tensor(np.random.default_rng(SEED + 1).uniform(1e-3, 1.0, B),
+                          dtype=torch.float32, device="cuda")
+    for label, base in (("K5", "riccati_packed"), ("K6a", "riccati_masked"),
+                        ("K6b", "riccati_masked_packed")):
+        kern, plain, _, kin = packed_masked_runs(pk, pb, label, st, um, reg)
+        kname = base + pk.riccati_plan(n, m, torch.float32).suffix
+        for c in counters().values():
+            c.reset()
+        out = kern()
+        torch.cuda.synchronize()
+        path = {k: c.launches for k, c in counters().items() if c.launches}
+        if path != {kname: 1}:
+            raise AssertionError(f"{label} at {TEAM}: its wrapper launched {path}, not {kname} once")
+        err, _ = max_err(f"{kname} {TEAM} B={B} f32", [a.double() for a in out],
+                         [b.double() for b in plain()], PLAIN_TOLS[torch.float32])
+        k_ms = cuda_ms(kern)
+        p_ms = cuda_ms(plain, **PLAIN_REPS)
+        nbytes = sum(a.numel() * a.element_size() for a in (*kin, *out))
+        b_ms, b_by = bound_ms(nbytes, riccati_ops(n, m) * (T - 1) * B)
+        log(f"[tall] {kname} n={n} m={m} T={T} B={B} f32: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.3f} ms (one run), max |kernel - plain| {err:.3e}; bound {b_ms:.4f} ms "
+            f"({b_by}); {b_ms / k_ms:.1%} of the bound")
+        records[kname] = dict(launches=1, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                              bound_ms=b_ms, bound_by=b_by)
+    return records
+
+
+def team_cases(P):
+    """Phase 11d's K3/K4 case (``check_generated_rollouts``): the team's
+    generated model on rollout_case's quadrotor inputs (thrusts about hover,
+    some lanes past a bound, gentle gains), f64 and f32, timed in f32."""
+    up = user_problems()
+    return [("team", "team", TEAM_T, lambda: up.quadrotor_team(P, torch, TEAM_T), None, None,
+             (torch.float32,))]
+
+
+def run_team(P, pk, fk, team):
+    """Phase 11d: tests/torch_user_problems.py's team of three quadrotors
+    at (36, 12) as a user writes it, f32, the tuned preset's options on the
+    SL route: its recursion's library (the tall template) and generated
+    K3/K4 built together in the background (``start_team_build``: seconds,
+    the generated model's registers and spills; the solver's own
+    build_kernels then finds them); the team's K3/K4 against their plain
+    versions in f64 and f32
+    (``check_generated_rollouts``); B=4096 with the kernels, and on the
+    first B_TEAM_LOOP lanes with the loop rollouts: trips, walls, launches
+    (K2 on the tall template and generated K3/K4 > 0 on the kernel path),
+    the recomputed solved fraction (>= 0.99 on the kernel path; the loop
+    cell's within 0.01 of the kernel solve's on its lanes), the separation
+    rows' least margin, the objectives lane by lane on the loop cell's
+    lanes, and a trip's seconds on each path.
+    Returns (the B=4096 kernel path's launch counts, the K3/K4 records)."""
+    from iterativelqr_tpu_torch import _build
+    from iterativelqr_tpu_torch.core.solve_sl import build_kernels
+
+    up = user_problems()
+    dtype = torch.float32
+    spec, model, pending = team
+    plan = pk.riccati_plan(*TEAM, dtype)
+    seconds = pending.result()
+    t0 = time.perf_counter()
+    paths = build_kernels(spec, True, dtype)
+    log(f"[team] the recursion's library at {TEAM} f32 ({plan.template} template, {plan.lanes} "
+        f"lanes, ring {plan.depth[0]}) and the generated K3/K4 ({model.name}, "
+        f"{model.generated.ops_per_step()} operations a step, kStream {model.generated.stream}) "
+        f"built together in {seconds:.2f} s, in the background beside phase 5's golden half "
+        f"(the solver's build_kernels then {time.perf_counter() - t0:.2f} s)")
+    for path in paths:
+        for line in _build.ptxas_report(path.with_suffix(".log")):
+            log(f"[team]   {line}")
+    records = check_generated_rollouts(P, fk, team_cases(P))
+    for d in DTYPES:
+        ring = fk.rollout_ring(model, d)
+        if ring != TEAM_RINGS[d]:
+            raise AssertionError(f"team: the library's K3/K4 ring {ring} is not {TEAM_RINGS[d]}")
+        log(f"[team] K3/K4 ring in {str(d).split('.')[-1]}: {ring[0]} tiles, {ring[1]} B a block "
+            f"(the rule's)")
+    inputs = [torch.as_tensor(a, dtype=dtype, device="cuda")
+              for a in up.quadrotor_team_inputs(B_MAIN, TEAM_T, SEED)]
+    sols, fracs, counts, walls = {}, {}, {}, {}
+    for fkm, B in (("pallas", B_MAIN), ("scan", B_TEAM_LOOP)):
+        opts = P.Options(**TUNED, batched_solver="sl", forward_kernel=fkm)
+        args = [a[:B].contiguous() for a in inputs]
+        P.make_batched_solve_fn(spec, dataclasses.replace(opts, max_total_iterations=2),
+                                device="cuda", dtype=dtype)(*args)
+        torch.cuda.synchronize()
+        solve = P.make_batched_solve_fn(spec, opts, device="cuda", dtype=dtype)
+        sol, stats, wall, c = counted_solve(P, solve, args)
+        _, frac = integrity(f"team/{fkm}", spec, sol, stats, args[2], opts.constraint_tolerance,
+                            B, TEAM_T, *TEAM)
+        sols[fkm], fracs[fkm], counts[fkm], walls[fkm] = sol, frac, c, wall
+        k2 = c[plan.main]
+        k34 = c["sl_score_rollout_generated"], c["sl_winner_reroll_generated"]
+        xs = sol.xs
+        sep = min(float(((xs[:, :, 12 * i:12 * i + 3] - xs[:, :, 12 * j:12 * j + 3]) ** 2)
+                        .sum(-1).min()) for i, j in up.TEAM_PAIRS)
+        near = torch.stack([((xs[:, :, 12 * i:12 * i + 3] - xs[:, :, 12 * j:12 * j + 3]) ** 2)
+                            .sum(-1).min(dim=1).values for i, j in up.TEAM_PAIRS]).min(0).values
+        binding = float((near < 1.05 * up.TEAM_SEP ** 2).float().mean())
+        log(f"[team] {fkm}: B={B} T={TEAM_T} f32, {int(sol.iterations.max())} trips, {wall:.3f} s, "
+            f"recomputed solved fraction {frac:.4f}, mean objective "
+            f"{float(sol.objective.mean()):.6f}; least squared separation {sep:.5f} "
+            f"({up.TEAM_SEP ** 2:g} the bound), within 5% of it on {binding:.3f} of the lanes; "
+            f"launches K2 (tall template) {k2}, generated K3 {k34[0]}, K4 {k34[1]}")
+        if k2 <= 0:
+            raise AssertionError(f"team/{fkm}: the recursion's kernel was not launched")
+        if fkm == "pallas" and min(k34) <= 0:
+            raise AssertionError(f"team: generated K3/K4 were not launched {k34}")
+        if fkm == "scan" and max(k34) > 0:
+            raise AssertionError(f"team: the loop path launched K3/K4 {k34}")
+        if fkm == "pallas" and frac < 0.99:
+            raise AssertionError(f"team/{fkm} B={B}: recomputed solved fraction {frac} < 0.99")
+    # the loop cell against the kernel solve's first B_TEAM_LOOP lanes (a
+    # lane's solve does not depend on the others: phase 6b)
+    L, kern, loop = B_TEAM_LOOP, sols["pallas"], sols["scan"]
+    head = types.SimpleNamespace(xs=kern.xs[:L], us=kern.us[:L])
+    pair = [recomputed_solved_fraction(spec, head, inputs[2][:L], opts.constraint_tolerance),
+            fracs["scan"]]
+    if abs(pair[0] - pair[1]) > 0.01:
+        raise AssertionError(f"team: kernel and loop solved fractions differ on the same lanes: {pair}")
+    Jk, Js = kern.objective[:L], loop.objective
+    rel = (Jk - Js).abs() / Js.abs().clamp(min=1.0)
+    its = kern.iterations[:L] == loop.iterations
+    trips = int(kern.iterations.max()), int(loop.iterations.max())
+    log(f"[team] kernels (B={B_MAIN}) against loops (B={L}) on the same {L} lanes: solved "
+        f"fraction recomputed {pair[0]:.4f} against {pair[1]:.4f}; objective mean "
+        f"{float(Jk.mean()):.6f} against {float(Js.mean()):.6f}; lane by lane max relative "
+        f"difference {float(rel.max()):.3e}, median {float(rel.median()):.3e}; iterations equal "
+        f"on {int(its.sum())} of {L} lanes (the most {int(kern.iterations[:L].max())} against "
+        f"{trips[1]}); a trip {walls['pallas'] / trips[0]:.3f} s with the kernels on {B_MAIN} "
+        f"lanes, {walls['scan'] / trips[1]:.3f} s with the loops on {L}")
+    return counts["pallas"], records
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false")
@@ -3154,11 +3550,19 @@ def main():
             f"{len(differ)} lanes" + (f" (first {differ[:8]}: {its_a[differ[:8]].tolist()} vs "
                                       f"{its_b[differ[:8]].tolist()})" if differ else ""))
 
-    background = concurrent.futures.ThreadPoolExecutor(1)
-    grid_plans_, grid_build = start_riccati_grid(pk, background)
     check_card_vs_cpu(P)
     check_vmap_card_vs_cpu(P)
     at("phase 5 card vs cpu")
+    # phases 8a's, 11d's, 10a's and 11a's builds in the background, from
+    # phase 5's golden half on (beside its CPU-bound half they slowed it by
+    # a third).  Their thread runs at nice 10 (on Linux a thread's own), and
+    # the nvcc processes it starts inherit it: up to 22 of them at once on 8
+    # cores took most of the host from the phases beside them
+    background = concurrent.futures.ThreadPoolExecutor(1, initializer=os.nice, initargs=(10,))
+    gen_build = start_generated_build(P, fk, background)
+    team = start_team_build(P, pk, fk, background)
+    grid_plans_, grid_build = start_riccati_grid(pk, background)
+    tall_plans_, tall_build = start_tall_grid(pk, background)
     for fixture in GOLDEN:
         check_golden(P, fixture)
     for backward_pass, fixture in (("scan", "car"), ("auto", "quadrotor")):
@@ -3210,7 +3614,7 @@ def main():
     at("phase 7d")
 
     # phase 8: K3/K4 for user problems, through generated device functions
-    build_generated(P, fk)
+    build_generated(gen_build)
     at("phase 8a")
     gen_records = check_generated_rollouts(P, fk, phase_8b_cases(P))
     at("phase 8b")
@@ -3250,7 +3654,7 @@ def main():
     sharded_sol, counts = run_sharded(P, single_shot["tuned"])
     launches.update(counts)
     at("phase 9b")
-    launches.update(run_compacted_devices(P, single_shot["parity"]))
+    launches.update(run_compacted_devices(P, single_shot["tuned"]))
     at("phase 9c")
     finish_distributed(P, started)
     at("phase 9d")
@@ -3271,7 +3675,6 @@ def main():
     pq_counts = run_planar_quadrotor(P, pk, fk)
     at("phase 10d")
     build_riccati_grid(pk, grid_plans_, grid_build)
-    background.shutdown()
     at("phase 10a")
     check_riccati_grid(pk, pb)
     at("phase 10b")
@@ -3281,6 +3684,27 @@ def main():
             rec["launches"] = pq_counts[kname]
         extra.append((kname, f"n={n} m={m}", rec))
     at("phase 10c")
+
+    # phase 11: the recursion past n + m = 32, and the team at (36, 12)
+    team_counts, team_records = run_team(P, pk, fk, team)
+    at("phase 11d")
+    build_tall_grid(pk, tall_plans_, tall_build)
+    background.shutdown()
+    at("phase 11a")
+    check_riccati_grid(pk, pb, TALL_GRID, "tall")
+    at("phase 11b")
+    records.update(time_tall(pk, pb))
+    records["riccati_backward_tall"].pop("launches")   # its wrapper's; the team's solve's:
+    launches["riccati_backward_tall"] = team_counts["riccati_backward_tall"]
+    for kname in ("riccati_packed_tall", "riccati_masked_tall", "riccati_masked_packed_tall"):
+        # no solve of the JAX package runs K5, and no SL solve K6a/K6b:
+        # their launches are those of one call of their wrapper (11c)
+        launches[kname] = records[kname].pop("launches")
+    for key, rec in team_records.items():
+        kname = key.split("/")[0]
+        rec["launches"] = team_counts[f"{kname}_generated"]
+        extra.append((kname, "generated model=team", rec))
+    at("phase 11c")
 
     sources = {"riccati_backward": ("riccati_backward.cuh", "iterativelqr_tpu/ops/packed_backward.py:509"),
                "riccati_backward_wide": ("riccati_backward_wide.cuh", "iterativelqr_tpu/ops/packed_backward.py:574"),
@@ -3292,6 +3716,11 @@ def main():
                "riccati_packed_wide": ("riccati_backward_wide.cuh", "iterativelqr_tpu/ops/packed_backward.py:102"),
                "riccati_masked_wide": ("riccati_backward_wide.cuh", "iterativelqr_tpu/ops/pallas_backward.py:109"),
                "riccati_masked_packed_wide": ("riccati_backward_wide.cuh",
+                                              "iterativelqr_tpu/ops/pallas_backward.py:343"),
+               "riccati_backward_tall": ("riccati_backward_tall.cuh", "iterativelqr_tpu/ops/packed_backward.py:574"),
+               "riccati_packed_tall": ("riccati_backward_tall.cuh", "iterativelqr_tpu/ops/packed_backward.py:102"),
+               "riccati_masked_tall": ("riccati_backward_tall.cuh", "iterativelqr_tpu/ops/pallas_backward.py:109"),
+               "riccati_masked_packed_tall": ("riccati_backward_tall.cuh",
                                               "iterativelqr_tpu/ops/pallas_backward.py:343")}
     # K5 runs in no solve of the JAX package: its launches are those of its
     # batch-leading entry at the main shapes (phase 3c)

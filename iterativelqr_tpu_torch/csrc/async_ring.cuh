@@ -100,22 +100,25 @@ __device__ __forceinline__ void bar_wait(std::uint64_t* bar, unsigned parity) {
 
 // Rows [0, E) of step t of A [.., R, B] for lanes [b0, b0+W) into
 // dst [E][W] (W = 32 but in K2's template at wide dims, which may take 16,
-// 8 or 4 lanes a block), by the NT threads of the producer warps
-// (tid < NT).  vec: a row is kChunks 16-byte chunks; thread tid copies
-// chunk tid % kChunks of rows tid / kChunks, + G, + 2G, ... (G = NT /
-// kChunks), so its lanes, their validity and its source column are fixed
-// and only the row offset moves; else each thread copies one value (its
-// lane tid % W) of rows tid / W, + NT / W, ...  Lanes past B are
-// zero-filled and read nothing.
+// 8 or 4 lanes a block, and the tall template's 8, 4, 2 or 1), by the NT
+// threads of the producer warps (tid < NT).  vec: a row is kChunks 16-byte
+// chunks; thread tid copies chunk tid % kChunks of rows tid / kChunks,
+// + G, + 2G, ... (G = NT / kChunks), so its lanes, their validity and its
+// source column are fixed and only the row offset moves; else (and where a
+// row is shorter than 16 bytes) each thread copies one value (its lane
+// tid % W) of rows tid / W, + NT / W, ...  Lanes past B are zero-filled
+// and read nothing.
 template <int E, int R, int NT, int W = kLanes, typename T>
 __device__ __forceinline__ void copy_rows(T* dst, const T* __restrict__ A, size_t t,
                                           size_t B, size_t b0, int tid, bool vec) {
   static_assert(NT % kLanes == 0, "whole producer warps");
-  static_assert(W * sizeof(T) % 16 == 0, "a row of a tile is whole 16-byte chunks");
+  static_assert(W * sizeof(T) % 16 == 0 || W * sizeof(T) < 16,
+                "a row of a tile is whole 16-byte chunks, or shorter than one");
+  constexpr bool kChunked = W * sizeof(T) % 16 == 0;
   const T* step = A + t * R * B;
-  if (vec) {
+  if (kChunked && vec) {
     constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // values a chunk
-    constexpr int kChunks = W / kPer;                       // chunks a row
+    constexpr int kChunks = kChunked ? W / kPer : 1;        // chunks a row
     constexpr int G = NT / kChunks;
     const int q = tid % kChunks;
     const size_t b = b0 + static_cast<size_t>(q * kPer);

@@ -1,5 +1,6 @@
 // The parts of the backward Riccati recursion that K1's template
-// (riccati_backward.cuh) and K2's (riccati_backward_wide.cuh) share: the
+// (riccati_backward.cuh), K2's (riccati_backward_wide.cuh) and the tall
+// template (riccati_backward_tall.cuh) share: the
 // layout of one step's tile in the ring (async_ring.cuh), the load policies
 // (where the runs of step t are), the mask policies (the factored and the
 // value update's Quu, the gains' scaling), the outputs, and the C entry
@@ -33,7 +34,8 @@ namespace riccati {
 
 // A tile: the step's slots [kF][W lanes] in the packed order fx, fu, gx,
 // gu, gxx, guu, gux, then (StepMask only) the step's mask, padded to 16 B.
-// W is a block's lanes: 32, or fewer in K2's template at wide dims.
+// W is a block's lanes: 32, or fewer in K2's template at wide dims and in
+// the tall template (which pads each tile to a multiple of 16 B).
 template <int N, int M, typename T, bool kMasked, int W = ring::kLanes>
 struct StepTile {
   static constexpr int kW = W;
@@ -42,7 +44,7 @@ struct StepTile {
                        kF = kGux + M * N;
   static constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));
   static constexpr int kUm = kMasked ? (M + kPer16 - 1) / kPer16 * kPer16 : 0;
-  static constexpr int kValues = kF * W + kUm;   // a multiple of 16 B
+  static constexpr int kValues = kF * W + kUm;   // a multiple of 16 B when W * sizeof(T) is
 };
 
 // ---- load policies: where the runs of step t are ---------------------------
@@ -96,14 +98,16 @@ struct PackedBuffer {
 
 // ---- mask policies ---------------------------------------------------------
 //
-// copy: the step's mask into the tile; form: Quu_reg (factored) and Quu_eff
-// (the value update's) from Quu, reg and the step's mask um; gain: a gain
-// entry of action row a.
+// copy: the step's mask into the tile (by P producer threads); form:
+// Quu_reg (factored) and Quu_eff (the value update's) from Quu, reg and the
+// step's mask um; gain: a gain entry of action row a.  reg_at, eff_at and
+// gain_at are the same one entry (a, c) at a time, with um in shared memory
+// (the tall template, riccati_backward_tall.cuh).
 
 struct NoMask {
   static constexpr bool kMasked = false;
 
-  template <int M, typename T>
+  template <int M, int P = ring::kLanes, typename T>
   __device__ __forceinline__ void copy(T*, size_t, int) const {}
 
   template <int M, typename T>
@@ -123,6 +127,21 @@ struct NoMask {
   __device__ __forceinline__ T gain(const T (&)[M], T v, int) const {
     return v;
   }
+
+  template <typename T>
+  __device__ __forceinline__ T reg_at(const T*, T quu, T r, int a, int c) const {
+    return quu + (a == c ? r : T(0));
+  }
+
+  template <typename T>
+  __device__ __forceinline__ T eff_at(const T*, T quu, T, int, int) const {
+    return quu;
+  }
+
+  template <typename T>
+  __device__ __forceinline__ T gain_at(const T*, T v, int) const {
+    return v;
+  }
 };
 
 template <typename T, bool kV2Order>
@@ -130,10 +149,15 @@ struct StepMask {
   static constexpr bool kMasked = true;
   const T* __restrict__ um;  // [Tm1, M], shared by all lanes
 
-  // producer threads tid < M copy one value each
-  template <int M>
+  // producer threads tid < M copy one value each (values tid, tid + P,
+  // ... where M > P)
+  template <int M, int P = ring::kLanes>
   __device__ __forceinline__ void copy(T* tile_um, size_t t, int tid) const {
-    if (tid < M) ring::copy<sizeof(T)>(tile_um + tid, um + t * M + tid, true);
+    if constexpr (M <= P) {
+      if (tid < M) ring::copy<sizeof(T)>(tile_um + tid, um + t * M + tid, true);
+    } else {
+      for (int a = tid; a < M; a += P) ring::copy<sizeof(T)>(tile_um + a, um + t * M + a, true);
+    }
   }
 
   template <int M>
@@ -161,6 +185,25 @@ struct StepMask {
   __device__ __forceinline__ T gain(const T (&um)[M], T v, int a) const {
     return v * um[a];
   }
+
+  __device__ __forceinline__ T reg_at(const T* um, T quu, T r, int a, int c) const {
+    const T mask2 = um[a] * um[c];
+    if (a != c) return quu * mask2;
+    return (quu * mask2 + (T(1) - um[a])) + r * um[a];
+  }
+
+  __device__ __forceinline__ T eff_at(const T* um, T quu, T r, int a, int c) const {
+    const T mask2 = um[a] * um[c];
+    if (a != c) return quu * mask2;
+    const T eff = quu * mask2 + (T(1) - um[a]);
+    if constexpr (kV2Order) {
+      const T ru = r * um[a];
+      return (eff + ru) - ru;
+    }
+    return eff;
+  }
+
+  __device__ __forceinline__ T gain_at(const T* um, T v, int a) const { return v * um[a]; }
 };
 
 // the step's mask from the tile (StepMask), every value 1 otherwise

@@ -117,15 +117,18 @@ __device__ __forceinline__ void load_params(const Params& p, T* prm) {
   for (int i = 0; i < M::NP; ++i) prm[i] = T(p.v[i]);
 }
 
-// sum over rows, in row order, of lam c + 1/2 a rho c^2
+// sum over rows, in row order, of lam c + 1/2 a rho c^2; row i < 64 is an
+// inequality where bit i of ineq is set (a model with more rows has none
+// past row 63: ops/device_functions.py refuses it)
 template <int NROWS, typename T>
 __device__ __forceinline__ T al_term(const T* c, const T* lam, const T* rho,
-                                     unsigned ineq) {
+                                     unsigned long long ineq) {
   T total = T(0);
 #pragma unroll
   for (int i = 0; i < NROWS; ++i) {
     T quad = T(0.5) * rho[i] * c[i] * c[i];
-    if (((ineq >> i) & 1u) && c[i] < T(0) && lam[i] == T(0)) quad = T(0);
+    const bool row_ineq = i < 64 && ((ineq >> i) & 1ull);
+    if (row_ineq && c[i] < T(0) && lam[i] == T(0)) quad = T(0);
     total += lam[i] * c[i] + quad;
   }
   return total;
@@ -136,8 +139,13 @@ __device__ __forceinline__ T al_term(const T* c, const T* lam, const T* rho,
 // (NU) and,
 // where the model has stage constraints, the stage rows of duals_t and
 // penalty_t.  The ring holds kDepth tiles, as many as fit kRingBudget (2 to
-// 8).
+// 8), and 1 where two tiles pass a block's shared memory (the team of three
+// quadrotors, (36, 12), in f64: a tile of 546 slots is 139,776 B); a model
+// whose one tile passes it loads its step inputs in the step (kRing false),
+// whatever its kStream.  tests/test_torch_quadrotor_team.py::_ring_rule
+// mirrors the rule.
 constexpr int kRingBudget = 64 * 1024;
+constexpr int kSharedMax = 232448;   // 227 KB: the most a block may use
 
 template <typename M, typename T>
 struct ScoreTile {
@@ -147,9 +155,13 @@ struct ScoreTile {
   static constexpr int kValues = kSlots * kLanes;
   static constexpr int kTileBytes = kValues * static_cast<int>(sizeof(T));
   static constexpr int kFit = kRingBudget / kTileBytes;
-  static constexpr int kDepth = kFit < 2 ? 2 : (kFit > 8 ? 8 : kFit);
+  // at least two tiles (each with its two mbarriers) where they fit a block
+  static constexpr int kFloor = 2 * (kTileBytes + 16) <= kSharedMax ? 2 : 1;
+  static constexpr int kDepth = kFit < kFloor ? kFloor : (kFit > 8 ? 8 : kFit);
   // the tiles, then each tile's full and empty mbarriers
   static constexpr int kBytes = kDepth * kTileBytes + 2 * kDepth * 8;
+  // the model streams its step inputs, and one tile fits a block
+  static constexpr bool kRing = M::kStream && kTileBytes + 16 <= kSharedMax;
 };
 
 // The solver's live arrays the rollouts read.
@@ -284,15 +296,16 @@ struct Reroll {
 
 // The rollout body of K3 and K4: threadIdx.x walks 32 neighbouring lanes;
 // compute warp y (threadIdx.y) rolls out at the policy's alpha; where the
-// model streams its step inputs (M::kStream), a last warp copies them into
-// the ring.  The launch bound counts that warp only then: a larger bound
-// leaves fewer registers a thread.
+// model streams its step inputs (ScoreTile::kRing), a last warp copies them
+// into the ring.  The launch bound counts that warp only then: a larger
+// bound leaves fewer registers a thread.
 template <typename M, typename T, class Pol>
-__global__ void __launch_bounds__(kLanes * Pol::kMaxWarps + (M::kStream ? kProducers : 0))
+__global__ void __launch_bounds__(kLanes * Pol::kMaxWarps +
+                                  (ScoreTile<M, T>::kRing ? kProducers : 0))
     sl_rollout_kernel(
     Inputs<T> in, Pol pol, int horizon, int B_int, Params params, bool vec) {
   using L = ScoreTile<M, T>;
-  constexpr bool kRing = M::kStream;
+  constexpr bool kRing = L::kRing;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const tiles = reinterpret_cast<T*>(smem);
   std::uint64_t* const full = reinterpret_cast<std::uint64_t*>(tiles + L::kDepth * L::kValues);
@@ -423,7 +436,7 @@ int launch_rollout(const void* xbar, const void* ubar, const void* ws, const voi
   static_assert(M::NP <= kMaxParams, "too many model parameters");
   if (B > 0 && nb > 0 && horizon > 0) {
     auto* const kernel = sl_rollout_kernel<M, T, Pol>;
-    constexpr bool kRing = M::kStream;
+    constexpr bool kRing = ScoreTile<M, T>::kRing;
     constexpr int bytes = kRing ? ScoreTile<M, T>::kBytes : 0;
     static unsigned long long shared_set = 0;
     const cudaError_t err = ring::allow_shared(kernel, bytes, shared_set);
@@ -475,8 +488,8 @@ int launch_rollout(const void* xbar, const void* ubar, const void* ws, const voi
         1, horizon, B, params, stream);                                        \
   }                                                                            \
   extern "C" int sl_ring_##NAME(int* depth, int* bytes) {                     \
-    *depth = MODEL::kStream ? ScoreTile<MODEL, T>::kDepth : 0;                 \
-    *bytes = MODEL::kStream ? ScoreTile<MODEL, T>::kBytes : 0;                 \
+    *depth = ScoreTile<MODEL, T>::kRing ? ScoreTile<MODEL, T>::kDepth : 0;     \
+    *bytes = ScoreTile<MODEL, T>::kRing ? ScoreTile<MODEL, T>::kBytes : 0;     \
     return 0;                                                                  \
   }
 

@@ -1034,7 +1034,7 @@ def _ops_per_step(programs, nx, nu, nc_stage) -> int:
 
 
 def _mask(rows) -> str:
-    return f"{sum(1 << i for i in rows)}u"
+    return f"{sum(1 << i for i in rows)}ull"
 
 
 def print_header(programs, nx, nu, nw, nc, nc_stage, nc_term, ineq, ineq_T,
@@ -1065,7 +1065,8 @@ def print_header(programs, nx, nu, nw, nc, nc_stage, nc_term, ineq, ineq_T,
         f"  static constexpr int NX = {nx}, NU = {nu}, NW = {nw}, NP = 0;",
         f"  static constexpr int NC_STAGE = {nc_stage}, NC_TERM = {nc_term};",
         f"  static constexpr int NC = {nc};",
-        f"  static constexpr unsigned INEQ_STAGE = {_mask(ineq)}, INEQ_TERM = {_mask(ineq_T)};",
+        f"  static constexpr unsigned long long INEQ_STAGE = {_mask(ineq)}, "
+        f"INEQ_TERM = {_mask(ineq_T)};",
         f"  static constexpr bool kStream = {'true' if stream else 'false'};",
         "",
         "  // torch.minimum / torch.maximum: NaN in either operand gives NaN",
@@ -1133,6 +1134,8 @@ def generate(spec, device="cpu") -> GeneratedModel:
     nc_term = len(programs[4].outs) if programs[4] is not None else 0
     ineq = _rows(spec.ineq_mask[0]) if spec.nc else ()
     ineq_T = _rows(spec.ineq_mask[-1]) if spec.nc else ()
+    if max(ineq + ineq_T, default=0) >= 64:
+        raise Refused("an inequality row past row 63 (the kernels' inequality masks hold 64 rows)")
     dims = dict(programs=tuple(programs), nx=spec.nx, nu=spec.nu, nw=spec.npar,
                 nc=spec.nc, nc_stage=nc_stage, nc_term=nc_term, ineq=ineq, ineq_T=ineq_T)
     stream = _ops_per_step(programs, spec.nx, spec.nu, nc_stage) >= STREAM_OPS

@@ -1,15 +1,16 @@
 """Batched backward Riccati recursion (K1, K2, K5) and its plain reference.
 
 Counterpart of ``iterativelqr_tpu/ops/packed_backward.py``: the entry
-``backward_pass_multiref`` runs the recursion on the card through one of two
-hand-written CUDA recursion templates, picked by the problem's dims and
-dtype (``riccati_plan``): K1, ``csrc/riccati_backward.cuh`` (the TPU kernel
-``_kernel_mr``), or K2, ``csrc/riccati_backward_wide.cuh`` (the TPU kernel
-``_kernel_mr_stream``).  ``backward_pass_packed`` runs K5 (the TPU kernel
-``_kernel``, v3), the same recursion reading one packed per-step buffer
-built by ``pack_stacks``/``pack_stacks_bt``, on the same template as K1 or
-K2 at those dims; ``backward_pass_batched_pallas_v3`` is its batch-leading
-drop-in.  ``backward_pass_multiref_reference`` is the same math as a
+``backward_pass_multiref`` runs the recursion on the card through one of
+three hand-written CUDA recursion templates, picked by the problem's dims
+and dtype (``riccati_plan``): K1, ``csrc/riccati_backward.cuh`` (the TPU
+kernel ``_kernel_mr``), or K2 (the TPU kernel ``_kernel_mr_stream``),
+``csrc/riccati_backward_wide.cuh`` up to n + m = 32 and
+``csrc/riccati_backward_tall.cuh`` past it.  ``backward_pass_packed`` runs
+K5 (the TPU kernel ``_kernel``, v3), the same recursion reading one packed
+per-step buffer built by ``pack_stacks``/``pack_stacks_bt``, on the same
+template as K1 or K2 at those dims; ``backward_pass_batched_pallas_v3`` is
+its batch-leading drop-in.  ``backward_pass_multiref_reference`` is the same math as a
 PyTorch loop over t (the ``_riccati_step`` of the JAX module), and serves
 every one of these kernels and the masked K6a/K6b (``ops/pallas_backward.py``).
 
@@ -60,11 +61,16 @@ RICCATI_LAUNCHES = LaunchCounter()
 RICCATI_WIDE_LAUNCHES = LaunchCounter()
 RICCATI_PACKED_LAUNCHES = LaunchCounter()
 RICCATI_PACKED_WIDE_LAUNCHES = LaunchCounter()
+# the same on the tall template (n + m > 32)
+RICCATI_TALL_LAUNCHES = LaunchCounter()
+RICCATI_PACKED_TALL_LAUNCHES = LaunchCounter()
 
-# what the two templates can hold (csrc/riccati_backward.cuh, K1's;
-# csrc/riccati_backward_wide.cuh, K2's)
+# what the three templates can hold (csrc/riccati_backward.cuh, K1's;
+# csrc/riccati_backward_wide.cuh, K2's; csrc/riccati_backward_tall.cuh, the
+# tall one)
 SHARED_MAX = 232448        # bytes of shared memory a block may take on the H100
-MAX_ROWS = 32              # n + m: K2's template has a row of threads for each
+MAX_ROWS = 64              # n + m: the rule's range
+K2_MAX_ROWS = 32           # n + m: K2's template has a row of threads for each
 REGISTERS = 255            # 32-bit registers a thread may hold
 K1_TEAM = 4                # threads a lane in K1's template
 K1_MAX_ROWS = 2            # rows of P a team thread may own
@@ -72,6 +78,9 @@ K1_DEPTH = 8               # step tiles in K1's ring
 K1_THREADS = 32 * K1_TEAM + 64   # a block: 32 lanes' teams and two producer warps
 K2_LANES = (32, 16, 8, 4)  # lanes a block in K2's template, the first that fits
 K2_MAX_DEPTH = 3
+TALL_LANES = (8, 4, 2, 1)  # lanes a block in the tall template, the first that fits
+TALL_MAX_DEPTH = 2
+TALL_BARRIERS = 16         # bytes of the tall template's mbarriers (kMaxDepth, padded)
 
 
 def _slots(n, m):
@@ -124,6 +133,29 @@ def _k2_ring(n, m, lanes, masked, size):
     return depth, depth * tile + state + 8 * depth
 
 
+def _tall_state_values(n, m):
+    """Values a lane of the tall template's state in shared memory
+    (``State``): P, Qxx (then the new P unsymmetrized), p, Qx, Quu, Qux, Qu,
+    k, and a scratch region that holds fx^T P and fu^T P, then the factor,
+    K and Quu K."""
+    return 2 * n * n + 2 * n + m * m + m * n + 2 * m + max((n + m) * n, m * m + 2 * m * n)
+
+
+def _tall_threads(lanes):
+    return min(256 * lanes, 1024)
+
+
+def _tall_ring(n, m, lanes, masked, size):
+    """(tiles, bytes a block) of the tall template's ring at ``lanes`` lanes
+    a block: as many tiles (each padded to 16 bytes) as fit beside the
+    state and the step's mask (at most TALL_MAX_DEPTH), after the
+    mbarriers; (0, the bytes with one tile) where none fits."""
+    tile = -(-_tile_values(n, m, lanes, masked, size) * size // 16) * 16
+    state = (_tall_state_values(n, m) * lanes + m) * size
+    depth = min(TALL_MAX_DEPTH, (SHARED_MAX - TALL_BARRIERS - state) // tile)
+    return max(depth, 0), TALL_BARRIERS + max(depth, 1) * tile + state
+
+
 def _whole_warps(rows, lanes):
     g = 32 // lanes
     return -(-rows // g) * g
@@ -132,12 +164,14 @@ def _whole_warps(rows, lanes):
 @dataclasses.dataclass(frozen=True)
 class RiccatiPlan:
     """The recursion template and its parameters at one (n, m, dtype):
-    ``template`` "K1" (``csrc/riccati_backward.cuh``) or "K2"
-    (``csrc/riccati_backward_wide.cuh``); ``rows``, the rows of P a team
-    thread of K1's template owns (1 in K2's: a row of threads a row);
-    ``lanes`` a block; ``depth`` (tiles of the ring) and ``shared`` (bytes
-    a block), each (unmasked: K1, K2, K5; masked: K6a, K6b); ``threads`` a
-    block."""
+    ``template`` "K1" (``csrc/riccati_backward.cuh``), "K2"
+    (``csrc/riccati_backward_wide.cuh``) or "tall"
+    (``csrc/riccati_backward_tall.cuh``, K2's recursion past n + m = 32);
+    ``rows``, the rows of P a team thread of K1's template owns (1 in K2's:
+    a row of threads a row; 0 in the tall one: each phase hands its
+    elements to the block's threads in turn); ``lanes`` a block; ``depth``
+    (tiles of the ring) and ``shared`` (bytes a block), each (unmasked: K1,
+    K2, K5; masked: K6a, K6b); ``threads`` a block."""
 
     n: int
     m: int
@@ -154,33 +188,50 @@ class RiccatiPlan:
         return self.template == "K2"
 
     @property
+    def tall(self) -> bool:
+        return self.template == "tall"
+
+    @property
+    def suffix(self) -> str:
+        """What a kernel's name takes on this template: "" on K1's,
+        "_wide" on K2's, "_tall" on the tall one."""
+        return {"K1": "", "K2": "_wide", "tall": "_tall"}[self.template]
+
+    @property
     def main(self) -> str:
-        """The seven-array recursion's name: K1's or K2's."""
-        return "riccati_backward_wide" if self.wide else "riccati_backward"
+        """The seven-array recursion's name: K1's, K2's or the tall one's."""
+        return "riccati_backward" + self.suffix
+
+    @property
+    def ring(self) -> str:
+        """The ring entry's name."""
+        return {"K1": "riccati_ring", "K2": "riccati_wide_ring",
+                "tall": "riccati_tall_ring"}[self.template]
 
     def symbol(self, name: str) -> str:
-        """The C entry of kernel ``name`` (``riccati_backward``,
-        ``riccati_backward_wide``, ``riccati_packed``, ``riccati_masked``,
-        ``riccati_masked_packed``, ``riccati_ring``, ``riccati_wide_ring``)
-        in this plan's library."""
+        """The C entry of kernel ``name`` (``main``, ``riccati_packed``,
+        ``riccati_masked``, ``riccati_masked_packed``, ``ring``) in this
+        plan's library."""
         return f"{name}_{self.dtype}_n{self.n}_m{self.m}"
 
     def source(self) -> str:
         """The translation unit of this (n, m, dtype): the template's
         header and its parameters, and the family (riccati_policies.cuh's
         RICCATI_FAMILY)."""
+        threads = (f"{self.threads} threads" if self.tall
+                   else f"{self.rows} row(s) of P a thread")
         lines = [f"// Riccati recursion family at n={self.n}, m={self.m}, {self.dtype}: "
-                 f"{self.template}'s template, {self.lanes} lanes a block, "
-                 f"{self.rows} row(s) of P a thread",
+                 f"{self.template}'s template, {self.lanes} lanes a block, {threads}",
                  "// (written by iterativelqr_tpu_torch/ops/packed_backward.py::RiccatiPlan)"]
         if self.wide:
             lines += [f"#define RICCATI_WIDE_LANES {self.lanes}",
                       '#include "riccati_backward_wide.cuh"']
-            ring = "riccati_wide_ring"
+        elif self.tall:
+            lines += [f"#define RICCATI_TALL_LANES {self.lanes}",
+                      '#include "riccati_backward_tall.cuh"']
         else:
             lines += ['#include "riccati_backward.cuh"']
-            ring = "riccati_ring"
-        lines.append(f"RICCATI_FAMILY({self.main}, {ring}, {self.n}, {self.m}, "
+        lines.append(f"RICCATI_FAMILY({self.main}, {self.ring}, {self.n}, {self.m}, "
                      f"{_C_TYPES[self.dtype]}, {self.dtype})")
         return "\n".join(lines) + "\n"
 
@@ -194,30 +245,36 @@ def _refuse(n, m, dtype, why):
 @functools.lru_cache(maxsize=None)
 def riccati_plan(n: int, m: int, dtype, template: str = None) -> RiccatiPlan:
     """The template, and its parameters, that runs the recursion at
-    (n, m, dtype) on the card; ``template`` ("K1" or "K2") asks for one
-    (for comparing the two), else the rule picks:
+    (n, m, dtype) on the card; ``template`` ("K1", "K2" or "tall") asks for
+    one (for comparing them), else the rule picks:
 
     * K1's template where a thread's values (``k1_values``) fit its 255
       registers, its rows of P stay within K1_MAX_ROWS (n <= 8) and its
       ring of K1_DEPTH tiles fits a block's shared memory in f64 (so both
       dtypes take the same template): (2, 1), (3, 2), (4, 1) as before, and
       (3, 1), (4, 2), (5, 1), (5, 2), (6, 1);
-    * else K2's template at the most lanes a block (32, 16, 8, 4) whose
-      state and at least one step tile fit SHARED_MAX bytes, as many tiles
-      as fit (at most 3): (12, 4) at 32 lanes (3 tiles in f32, 1 in f64),
-      (6, 2), (7, 3), (13, 4) and (14, 7) in f32 at 32 lanes, (13, 4) and
-      (14, 7) in f64 and (24, 8) in f32 at 16, (24, 8) in f64 at 8.
+    * else, up to n + m = 32, K2's template at the most lanes a block (32,
+      16, 8, 4) whose state and at least one step tile fit SHARED_MAX
+      bytes, as many tiles as fit (at most 3): (12, 4) at 32 lanes (3 tiles
+      in f32, 1 in f64), (6, 2), (7, 3), (13, 4) and (14, 7) in f32 at 32
+      lanes, (13, 4) and (14, 7) in f64 and (24, 8) in f32 at 16, (24, 8)
+      in f64 at 8;
+    * past n + m = 32 (K2's block has a row of threads for each of P's and
+      Quu's rows), the tall template at the most lanes a block (8, 4, 2, 1)
+      whose state and one step tile fit, as many tiles as fit (at most 2):
+      (36, 12) at 4 lanes in f32 and 2 in f64, (48, 16) at 2 and 1, (62, 2)
+      at 2 and 1.  Every (n, m) with n + m <= 64 fits 1 lane and 2 tiles in
+      f64.
 
-    Where the two templates both hold the dims, the rule follows their
-    times on the card (``PERF.md`` §6, ``chip_smoke.py`` phase 10c): at
-    (5, 1) and (6, 1) K1's is 1.36-1.52 x faster; at (5, 2) and (6, 2)
+    Where K1's and K2's templates both hold the dims, the rule follows
+    their times on the card (``PERF.md`` §6, ``chip_smoke.py`` phase 10c):
+    at (5, 1) and (6, 1) K1's is 1.36-1.52 x faster; at (5, 2) and (6, 2)
     they are within 15% of each other either way.
 
     Refused (``NotImplementedError`` naming this rule): a dtype other than
-    f32 and f64, n < 1 or m < 1, n + m > 32 (a block of K2's template has a
-    row of threads for each of P's and Quu's rows), and a template asked
-    for that cannot hold the dims.  No (n, m) with n + m <= 32 is refused
-    in either dtype: 4 lanes hold (31, 1) in f64 (194,704 bytes, 2 tiles).
+    f32 and f64, n < 1 or m < 1, n + m > MAX_ROWS = 64, and a template
+    asked for that cannot hold the dims.  No (n, m) with n + m <= 64 is
+    refused in either dtype.
 
     The JAX package's limit is a VMEM budget: ``backward_pass_multiref``
     streams its outputs (``_kernel_mr_stream``) once the direct outputs'
@@ -233,12 +290,16 @@ def riccati_plan(n: int, m: int, dtype, template: str = None) -> RiccatiPlan:
     size = _SIZES[tag]
     if n < 1 or m < 1 or n + m > MAX_ROWS:
         _refuse(n, m, dtype, f"the rule takes n >= 1, m >= 1 and n + m <= {MAX_ROWS} "
-                             f"(K2's block has a row of threads a row of P and Quu)")
+                             f"(the range the templates are held to against the plain "
+                             f"version on the card)")
     # K1's template can hold the dims (its rows, its ring in f64), and the
     # rule takes it where a thread's values fit its registers
     k1_holds = n <= K1_TEAM * K1_MAX_ROWS and _k1_ring(n, m, True, 8)[1] <= SHARED_MAX
     if template is None:
-        template = "K1" if k1_holds and k1_values(n, m) <= REGISTERS else "K2"
+        if n + m > K2_MAX_ROWS:
+            template = "tall"
+        else:
+            template = "K1" if k1_holds and k1_values(n, m) <= REGISTERS else "K2"
     if template == "K1":
         if not k1_holds:
             _refuse(n, m, dtype,
@@ -248,8 +309,20 @@ def riccati_plan(n: int, m: int, dtype, template: str = None) -> RiccatiPlan:
         return RiccatiPlan(n, m, tag, "K1", -(-n // K1_TEAM), 32,
                            tuple(r[0] for r in rings), tuple(r[1] for r in rings),
                            K1_THREADS)
+    if template == "tall":
+        for lanes in TALL_LANES:
+            rings = [_tall_ring(n, m, lanes, masked, size) for masked in (False, True)]
+            if min(r[0] for r in rings) >= 1:
+                return RiccatiPlan(n, m, tag, "tall", 0, lanes, tuple(r[0] for r in rings),
+                                   tuple(r[1] for r in rings), _tall_threads(lanes))
+        _refuse(n, m, dtype,
+                f"the tall template's state and one step tile at 1 lane a block take "
+                f"{_tall_ring(n, m, 1, True, size)[1]} > {SHARED_MAX} bytes")
     if template != "K2":
-        raise ValueError(f"template {template!r}: 'K1' or 'K2'")
+        raise ValueError(f"template {template!r}: 'K1', 'K2' or 'tall'")
+    if n + m > K2_MAX_ROWS:
+        _refuse(n, m, dtype, f"K2's template holds n + m <= {K2_MAX_ROWS} (a row of "
+                             f"threads a row of P and Quu)")
     for lanes in K2_LANES:
         rings = [_k2_ring(n, m, lanes, masked, size) for masked in (False, True)]
         if min(r[0] for r in rings) >= 1:
@@ -294,33 +367,45 @@ def _t(a):
 
 
 def _chol(A, m):
+    """Lower Cholesky factor of A [m, m, B], as rows of [B] entries
+    (L[i][j], j <= i).  Right-looking, a column a pass, so that a call
+    issues O(m) tensor operations: each entry takes its updates in the
+    left-looking order (k = 0, 1, ..., one product then one subtraction
+    each), then its division or square root, so it rounds bitwise as the
+    entry-by-entry form (and as the kernels order them)."""
+    A = A.clone()
     L = [[None] * m for _ in range(m)]
-    for i in range(m):
-        for j in range(i + 1):
-            s = A[i, j]
-            for kk in range(j):
-                s = s - L[i][kk] * L[j][kk]
-            L[i][j] = torch.sqrt(s) if i == j else s / L[j][j]
+    for j in range(m):
+        d = torch.sqrt(A[j, j])
+        L[j][j] = d
+        if j + 1 == m:
+            break
+        col = A[j + 1:, j] / d
+        for i in range(j + 1, m):
+            L[i][j] = col[i - j - 1]
+        A[j + 1:, j + 1:] = A[j + 1:, j + 1:] - col[:, None] * col[None, :]
     return L
 
 
 def _chol_solve(L, cols, m):
-    outs = []
-    for col in cols:
-        y = [None] * m
-        for i in range(m):
-            s = col[i]
-            for kk in range(i):
-                s = s - L[i][kk] * y[kk]
-            y[i] = s / L[i][i]
-        x = [None] * m
-        for i in range(m - 1, -1, -1):
-            s = y[i]
-            for kk in range(i + 1, m):
-                s = s - L[kk][i] * x[kk]
-            x[i] = s / L[i][i]
-        outs.append(torch.stack(x, dim=0))
-    return outs
+    """(L L^T)^-1 col for each of ``cols`` ([m, B] each), by forward then
+    back substitution, all columns at once: each entry's operations in
+    the order of one column's substitution."""
+    R = torch.stack(cols, dim=0)
+    y = [None] * m
+    for i in range(m):
+        s = R[:, i]
+        for kk in range(i):
+            s = s - L[i][kk] * y[kk]
+        y[i] = s / L[i][i]
+    x = [None] * m
+    for i in range(m - 1, -1, -1):
+        s = y[i]
+        for kk in range(i + 1, m):
+            s = s - L[kk][i] * x[kk]
+        x[i] = s / L[i][i]
+    X = torch.stack(x, dim=1)
+    return [X[c] for c in range(len(cols))]
 
 
 def _riccati_step(n, m, reg, P, p, ok, fx, fu, gx, gu, gxx, guu, gux,
@@ -406,23 +491,26 @@ def backward_pass_multiref_reference(stacks, gxxT, gxT, reg, um=None,
 
 
 def kernel_symbol(n: int, m: int, dtype: torch.dtype) -> str:
-    """C entry point of the recursion (K1 or K2, ``riccati_plan``) at
-    (n, m, dtype); raises past the rule's range."""
+    """C entry point of the recursion (K1 or K2 on K2's or the tall
+    template, ``riccati_plan``) at (n, m, dtype); raises past the rule's
+    range."""
     plan = riccati_plan(n, m, dtype)
     return plan.symbol(plan.main)
 
 
 def family_symbol(name: str, n: int, m: int, dtype: torch.dtype) -> str:
     """C entry point of K5 (``riccati_packed``), K6a (``riccati_masked``) or
-    K6b (``riccati_masked_packed``) at (n, m, dtype), on K1's or K2's
-    template (``riccati_plan``); raises past the rule's range."""
+    K6b (``riccati_masked_packed``) at (n, m, dtype), on K1's, K2's or the
+    tall template (``riccati_plan``); raises past the rule's range."""
     return riccati_plan(n, m, dtype).symbol(name)
 
 
 def family_counter(narrow: LaunchCounter, wide: LaunchCounter,
-                   plan: RiccatiPlan) -> LaunchCounter:
+                   plan: RiccatiPlan, tall: LaunchCounter = None) -> LaunchCounter:
     """The launch count of a family member: its instantiation of K1's
-    template or of K2's."""
+    template, of K2's or of the tall one."""
+    if plan.tall:
+        return tall
     return wide if plan.wide else narrow
 
 
@@ -479,8 +567,7 @@ def riccati_ring(n: int, m: int, dtype: torch.dtype, masked: bool,
     (tiles, bytes of shared memory a block).  Builds the kernels on first
     use."""
     plan = riccati_plan(n, m, dtype) if plan is None else plan
-    name = "riccati_wide_ring" if plan.wide else "riccati_ring"
-    return ring_entry(plan.symbol(name), int(masked), lib=_library(plan))
+    return ring_entry(plan.symbol(plan.ring), int(masked), lib=_library(plan))
 
 
 def new_outputs(Tm1, n, m, B, dtype, device):
@@ -529,8 +616,9 @@ def backward_pass_multiref(stacks, gxxT, gxT, reg):
     and positive, else 0.0.
 
     CPU tensors take the plain reference.  CUDA tensors launch K1 or K2
-    (``riccati_plan``; built at the dims' first use) on the current stream,
-    without synchronising; dims past the rule's range raise.
+    (``riccati_plan``: K2's template, or the tall one past n + m = 32;
+    built at the dims' first use) on the current stream, without
+    synchronising; dims past the rule's range raise.
     """
     fx = stacks[0]
     device = fx.device
@@ -553,7 +641,7 @@ def backward_pass_multiref(stacks, gxxT, gxT, reg):
     _check("gxxT", gxxT, (n, n, B), dtype, device)
     _check("gxT", gxT, (n, B), dtype, device)
     _check("reg", reg, (B,), dtype, device)
-    counter = family_counter(RICCATI_LAUNCHES, RICCATI_WIDE_LAUNCHES, plan)
+    counter = family_counter(RICCATI_LAUNCHES, RICCATI_WIDE_LAUNCHES, plan, RICCATI_TALL_LAUNCHES)
     return launch(plan, plan.main, counter, (*stacks, gxxT, gxT, reg),
                   new_outputs(Tm1, n, m, B, dtype, device), Tm1, B)
 
@@ -632,8 +720,8 @@ def backward_pass_packed(packed, gxxT, gxT, reg, meta):
     Regularization rides the whole diagonal (invalid dims carry the packing's
     unit diagonal, and their Qux/Qu rows are zero, so their gains stay 0).
 
-    CPU tensors take the plain reference; CUDA tensors launch K5 (K1's or
-    K2's template, by the dims) on the current stream, without
+    CPU tensors take the plain reference; CUDA tensors launch K5 (K1's,
+    K2's or the tall template, by the dims) on the current stream, without
     synchronising.  The TPU kernel's lane blocks
     need the batch padded to a multiple of its block; K5 masks its ragged
     lane edge, so no padding is made.
@@ -650,7 +738,8 @@ def backward_pass_packed(packed, gxxT, gxT, reg, meta):
     _check("gxxT", gxxT, (n, n, B), dtype, device)
     _check("gxT", gxT, (n, B), dtype, device)
     _check("reg", reg, (B,), dtype, device)
-    counter = family_counter(RICCATI_PACKED_LAUNCHES, RICCATI_PACKED_WIDE_LAUNCHES, plan)
+    counter = family_counter(RICCATI_PACKED_LAUNCHES, RICCATI_PACKED_WIDE_LAUNCHES, plan,
+                             RICCATI_PACKED_TALL_LAUNCHES)
     return launch(plan, "riccati_packed", counter, (packed, gxxT, gxT, reg),
                   new_outputs(Tm1, n, m, B, dtype, device), Tm1, B)
 

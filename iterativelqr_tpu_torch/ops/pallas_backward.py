@@ -3,10 +3,11 @@ K6b), and the dispatch that runs it under the batched solve.
 
 Counterpart of ``iterativelqr_tpu/ops/pallas_backward.py``, whose two TPU
 kernels become two instantiations of a recursion template, K1's
-(``csrc/riccati_backward.cuh``) or K2's (``csrc/riccati_backward_wide.cuh``)
-as ``packed_backward.riccati_plan`` picks for the dims, built at their first
+(``csrc/riccati_backward.cuh``), K2's (``csrc/riccati_backward_wide.cuh``)
+or the tall one (``csrc/riccati_backward_tall.cuh``) as
+``packed_backward.riccati_plan`` picks for the dims, built at their first
 use; the JAX kernels take any (n, m), and so do these, within the rule's
-range (n + m <= 32):
+range (n + m <= 64):
 
 * K6a (the TPU kernel ``_kernel``, v1): ``backward_pass_masked`` on seven
   batch-last stacks, the terminal P, p read from row Tm1 of ``gxx``/``gx``,
@@ -46,9 +47,12 @@ from .batching import custom_vmap
 
 RICCATI_MASKED_LAUNCHES = pk.LaunchCounter()
 RICCATI_MASKED_PACKED_LAUNCHES = pk.LaunchCounter()
-# the same at the wide dims (K2's template)
+# the same at the wide dims (K2's template) and past n + m = 32 (the tall
+# template)
 RICCATI_MASKED_WIDE_LAUNCHES = pk.LaunchCounter()
 RICCATI_MASKED_PACKED_WIDE_LAUNCHES = pk.LaunchCounter()
+RICCATI_MASKED_TALL_LAUNCHES = pk.LaunchCounter()
+RICCATI_MASKED_PACKED_TALL_LAUNCHES = pk.LaunchCounter()
 
 
 def backward_pass_masked_reference(fx, fu, gx, gu, gxx, guu, gux, um, reg):
@@ -78,7 +82,8 @@ def backward_pass_masked(fx, fu, gx, gu, gxx, guu, gux, um, reg):
     for name, a, shape in zip(("fx", "fu", "gx", "gu", "gxx", "guu", "gux", "um", "reg"),
                               args, shapes):
         pk._check(name, a, shape, dtype, device)
-    counter = pk.family_counter(RICCATI_MASKED_LAUNCHES, RICCATI_MASKED_WIDE_LAUNCHES, plan)
+    counter = pk.family_counter(RICCATI_MASKED_LAUNCHES, RICCATI_MASKED_WIDE_LAUNCHES, plan,
+                                RICCATI_MASKED_TALL_LAUNCHES)
     return pk.launch(plan, "riccati_masked", counter, args, pk.new_outputs(Tm1, n, m, B, dtype, device),
                      Tm1, B)
 
@@ -108,7 +113,8 @@ def backward_pass_masked_packed(packed, gxxT, gxT, um, reg, meta):
     for name, a, shape in zip(("packed", "gxxT", "gxT", "um", "reg"), args, shapes):
         pk._check(name, a, shape, dtype, device)
     counter = pk.family_counter(RICCATI_MASKED_PACKED_LAUNCHES,
-                                RICCATI_MASKED_PACKED_WIDE_LAUNCHES, plan)
+                                RICCATI_MASKED_PACKED_WIDE_LAUNCHES, plan,
+                                RICCATI_MASKED_PACKED_TALL_LAUNCHES)
     return pk.launch(plan, "riccati_masked_packed", counter, args, pk.new_outputs(Tm1, n, m, B, dtype, device),
                      Tm1, B)
 

@@ -13,7 +13,8 @@ import pytest
 import torch
 import iterativelqr_tpu_torch as P
 from torch_user_problems import (acrobot_lambdas, car_user, demo_problem, farm_problem,
-                                 padded_actionless, padded_lift_project, quadrotor_matrix)
+                                 padded_actionless, padded_lift_project, quadrotor_matrix,
+                                 quadrotor_team, team_starts)
 
 from iterativelqr_tpu_torch import Constraint, Cost, Options, build_spec
 from iterativelqr_tpu_torch.models import acrobot, car, cartpole, particle, pendulum, quadrotor
@@ -45,14 +46,51 @@ def _assert_close_scaled(out, ref, tol):
                                    equal_nan=True)
 
 
-def _ring_edges(depth, Tm1=100):
+# chip_smoke.py's F32_OWN: on the tall template, an f32 output past the
+# tolerance is held to this many times the f32 plain version's own distance
+# from the plain version in f64 on the same inputs (its sums run in another
+# order; at (62, 2) the f32 plain version is about 1e-4 from f64)
+F32_OWN = 4.0
+
+
+def _assert_close_or_own(out, ref, ref64, tol):
+    """``_assert_close_scaled``; where ``ref64`` (the plain version in f64
+    on the same f32 inputs) is given, an output past the tolerance passes
+    within F32_OWN times the f32 plain version's own distance from it."""
+    for a, b, c in zip(out, ref, ref64 or ref):
+        try:
+            _assert_close_scaled((a,), (b,), tol)
+        except AssertionError:
+            if ref64 is None:
+                raise
+            keep = ~torch.isnan(c)
+            assert torch.equal(torch.isnan(a), torch.isnan(c))
+            e = float((a.double() - c)[keep].abs().max())
+            e32 = float((b.double() - c)[keep].abs().max())
+            assert e <= F32_OWN * e32, (e, e32)
+
+
+def _ring_edges(depth, Tm1=100, tall=False):
     """(B, Tm1) cases around a recursion template's ring of ``depth`` step
     tiles: the main path's shape, a ragged lane edge on the 16-byte copies
     (1000), one whose runs are not 16-byte aligned (4097: the one-value
     copies), a single partial block (31), and horizons shorter than, just
-    under and just over the ring (Tm1 = 0 runs no step)."""
+    under and just over the ring (Tm1 = 0 runs no step).  On the tall
+    template (n + m > 32, 8 to 1 lanes a block) numpy's stacks of 4096
+    lanes take gigabytes and minutes: 64 lanes (16 blocks or more), 65
+    (ragged, runs not 16-byte aligned) and 7 (one partial block at 8 lanes)
+    instead, the ring's edges at 8 lanes."""
+    if tall:
+        return ((64, Tm1), (65, Tm1), (7, Tm1),
+                (8, 0), (8, 1), (8, depth - 1), (8, depth + 1))
     return ((4096, Tm1), (1000, Tm1), (4097, Tm1), (31, Tm1),
             (64, 0), (64, 1), (64, depth - 1), (64, depth + 1))
+
+
+def _poison(n, m):
+    """The guu entry that makes Quu indefinite: past n + m = 32, fu^T P fu
+    reaches thousands, past -1e3."""
+    return -1.0e3 if n + m <= 32 else -1.0e6
 
 
 @pytest.mark.cuda
@@ -137,25 +175,25 @@ def test_riccati_wide_kernel_matches_plain(dtype, tol):
 
 @pytest.mark.cuda
 def test_riccati_kernel_rejects_what_it_was_not_built_for():
-    """Dims past the rule's range (n + m > 32) raise on a CUDA tensor, naming
+    """Dims past the rule's range (n + m > 64) raise on a CUDA tensor, naming
     the rule, in K1/K2's wrapper and in K5's, K6a's and K6b's entries (no
     plain version runs in their place); so does a non-contiguous stack."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    B, Tm1, n, m = 64, 5, 30, 3
+    B, Tm1, n, m = 64, 5, 60, 5
     st = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
           for a in _wide_stacks(np.random.default_rng(1), B, Tm1, n, m)]
     kin = [a.contiguous() for a in pk.prepare_stacks(
         *st, torch.ones((Tm1, m), dtype=torch.bool))]
     reg = torch.zeros(B, device="cuda")
-    with pytest.raises(NotImplementedError, match="riccati_plan.*n \\+ m <= 32"):
+    with pytest.raises(NotImplementedError, match="riccati_plan.*n \\+ m <= 64"):
         pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
     from iterativelqr_tpu_torch.ops import pallas_backward as pb
 
     lead = [a.movedim(-1, 0).contiguous() for a in st]
     for entry in (pk.backward_pass_batched_pallas_v3, pb.backward_pass_batched_pallas,
                   pb.backward_pass_batched_pallas_v2):
-        with pytest.raises(NotImplementedError, match="n=30, m=3"):
+        with pytest.raises(NotImplementedError, match="n=60, m=5"):
             entry(*lead, torch.ones((Tm1, m), dtype=torch.bool), reg)
     st4 = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
            for a in _stacks(np.random.default_rng(1), B, Tm1, 4, 1)]
@@ -166,33 +204,37 @@ def test_riccati_kernel_rejects_what_it_was_not_built_for():
             kin4[7].contiguous(), kin4[8].contiguous(), reg)
 
 
-RICCATI_GRID = ((3, 1), (4, 2), (5, 1), (5, 2), (6, 2), (7, 3), (13, 4), (14, 7), (24, 8))
+RICCATI_GRID = ((3, 1), (4, 2), (5, 1), (5, 2), (6, 2), (7, 3), (13, 4), (14, 7), (24, 8),
+                # past n + m = 32: the tall template
+                (20, 13), (24, 12), (36, 12), (48, 16), (62, 2), (2, 62))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 @pytest.mark.parametrize("n,m", RICCATI_GRID)
 def test_riccati_family_at_any_dims_matches_plain(n, m, dtype, tol):
-    """At dims no registered model has (chip_smoke.py phase 10's grid, on
-    K1's template, or on K2's at 32, 16 or 8 lanes a block): the library
-    built at first use reports the plan's ring; K1 or K2 at the edges of
-    that ring (``_ring_edges``, T=41), with indefinite Quu on every 61st
-    lane and a per-lane regularizer, launched once each on its template's
-    counter; then K5, K6a and K6b (``_check_packed_masked``)."""
+    """At dims no registered model has (chip_smoke.py phase 10's and 11's
+    grids, on K1's template, on K2's at 32, 16 or 8 lanes a block, or past
+    n + m = 32 on the tall template at 8 to 1 lanes): the library built at
+    first use reports the plan's ring; K1 or K2 at the edges of that ring
+    (``_ring_edges``, T=41), with indefinite Quu on every 61st lane and a
+    per-lane regularizer, launched once each on its template's counter;
+    then K5, K6a and K6b (``_check_packed_masked``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     plan = pk.riccati_plan(n, m, dtype)
     for masked in (False, True):
         assert pk.riccati_ring(n, m, dtype, masked) == (plan.depth[masked], plan.shared[masked])
-    counter = pk.RICCATI_WIDE_LAUNCHES if plan.wide else pk.RICCATI_LAUNCHES
+    counter = pk.family_counter(pk.RICCATI_LAUNCHES, pk.RICCATI_WIDE_LAUNCHES, plan,
+                                pk.RICCATI_TALL_LAUNCHES)
     make = _stacks if m == 1 else _wide_stacks
-    for B, Tm1 in _ring_edges(plan.depth[0], Tm1=40):
+    for B, Tm1 in _ring_edges(plan.depth[0], Tm1=40, tall=plan.tall):
         rng = np.random.default_rng(9)
         st = make(rng, B, Tm1, n, m)
         bad = np.zeros(B, bool)
         if Tm1 > 0:
             bad[::61] = True
-            st[5][Tm1 // 2, 0, 0, bad] = -1.0e3
+            st[5][Tm1 // 2, 0, 0, bad] = _poison(n, m)
         dev = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in st]
         kin = [a.contiguous() for a in pk.prepare_stacks(
             *dev, torch.ones((Tm1, m), dtype=torch.bool))]
@@ -202,7 +244,11 @@ def test_riccati_family_at_any_dims_matches_plain(n, m, dtype, tol):
         torch.cuda.synchronize()
         assert counter.launches == before + 1
         ref = pk.backward_pass_multiref_reference(kin[:7], kin[7], kin[8], reg)
-        _assert_close_scaled(out, ref, tol)
+        ref64 = None
+        if plan.tall and dtype == torch.float32:
+            ref64 = pk.backward_pass_multiref_reference(
+                [a.double() for a in kin[:7]], kin[7].double(), kin[8].double(), reg.double())
+        _assert_close_or_own(out, ref, ref64, tol)
         assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad)), (B, Tm1)
     for kernel in ("K5", "K6a", "K6b"):
         _check_packed_masked(kernel, n, m, dtype, tol, 40)
@@ -335,25 +381,36 @@ def test_rollout_kernels_refuse_what_they_cannot_run():
         fk.winner_reroll(r, torch.ones(B, device="cuda"), *live[:3], K_nc, *live[4:])
 
 
-_USER = {"acrobot": acrobot_lambdas, "farm": farm_problem, "demo": demo_problem}
+_USER = {"acrobot": acrobot_lambdas, "farm": farm_problem, "demo": demo_problem,
+         "team": lambda T, device: quadrotor_team(P, torch, T)}
 
 
 def _user_case(name, T, B, dtype, seed):
     """Live line-search arrays for a generated device model, from a numpy
     seed: the acrobot's functions in lambdas, examples/mpc_farm.py's
     problem, or examples/sensitivity_demo.py's with a different target ramp
-    in w on every lane; random non-converged gains, duals with lam = 0 on
-    half the lanes."""
+    in w on every lane, or the team of three quadrotors (about their
+    starts, hover thrust, gentler gains); random non-converged gains, duals
+    with lam = 0 on half the lanes."""
     spec = acrobot_lambdas(T) if name == "acrobot" else _USER[name](T, "cuda")
     r = fk.Rollouts(spec, "cuda")
     rng = np.random.default_rng(seed)
     nx, nu, nc, npar, Tm1 = spec.nx, spec.nu, spec.nc, spec.npar, T - 1
-    x0 = (0.05 if name == "acrobot" else 0.3) * rng.standard_normal((nx, B))
+    x0 = (0.05 if name in ("acrobot", "team") else 0.3) * rng.standard_normal((nx, B))
     ubar = 0.1 * rng.standard_normal((Tm1, nu, B))
     K = 0.1 * rng.standard_normal((Tm1, nu, nx, B))
     k = 0.1 * rng.standard_normal((Tm1, nu, B))
     duals = np.abs(0.5 * rng.standard_normal((T, nc, B))) * (rng.uniform(size=B) < 0.5)
     penalty = 10.0 * rng.uniform(0.5, 2.0, (T, nc, B))
+    if name == "team":
+        # thrusts near hover and gentler gains, as the registered
+        # quadrotor's case: 0.1 N(0, 1) thrusts tip some lanes' attitudes
+        # over within the horizon, where the rollout magnifies rounding
+        # (J near 1e13, kernel and plain 2e-3 apart in f64)
+        for i, p in enumerate(team_starts()):
+            x0[12 * i:12 * i + 3] += np.asarray(p)[:, None]
+        ubar = quadrotor.HOVER + 0.1 * ubar
+        K, k = 0.2 * K, 0.2 * k
     ws = np.zeros((T, npar, B))
     if npar:
         ramp = np.linspace(0.0, 1.0, T)[:, None]
@@ -368,20 +425,33 @@ def _user_case(name, T, B, dtype, seed):
     return r, (xbar, t(ubar), t(ws), t(K), t(k), t(duals), t(penalty))
 
 
+# the ring of step tiles each generated model's K3/K4 report (tiles, bytes
+# a block): csrc/sl_rollout.cuh's rule, mirrored in
+# tests/test_torch_quadrotor_team.py::_ring_rule; farm and demo load their
+# step inputs in the step, the team's two f64 tiles pass a block
+GENERATED_RINGS = {("acrobot", torch.float64): (8, 20608), ("acrobot", torch.float32): (8, 10368),
+                   ("farm", torch.float64): (0, 0), ("farm", torch.float32): (0, 0),
+                   ("demo", torch.float64): (0, 0), ("demo", torch.float32): (0, 0),
+                   ("team", torch.float64): (1, 139792), ("team", torch.float32): (2, 139808)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,T", [("acrobot", 101), ("farm", 11), ("demo", 11)])
+@pytest.mark.parametrize("name,T", [("acrobot", 101), ("farm", 11), ("demo", 11),
+                                    ("team", 41)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 def test_generated_rollout_kernels_match_plain(name, T, dtype, tol):
     """K3 (head and tail) and K4 of a generated device model against their
     plain versions on the same card inputs, at B=4096, 1000, 4097 and 31
     (aligned, ragged, one-value copies, one partial block), and K4's J
     equal to K3's at the same alpha; the launches count on the generated
-    symbols.  Tolerances as the registered models'."""
+    symbols.  Tolerances as the registered models'.  The team's (36, 12)
+    model reports the ring its dims give (1 tile in f64)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for B in (4096, 1000, 4097, 31):
         r, live = _user_case(name, T, B, dtype, seed=3)
         assert r.model.generated is not None, r.model_reason
+        assert fk.rollout_ring(r.model, dtype) == GENERATED_RINGS[name, dtype]
         before = (fk.GENERATED_SCORE_LAUNCHES.launches, fk.GENERATED_REROLL_LAUNCHES.launches)
         for j0, nb in ((0, 8), (8, 9)):
             J = fk.score_rollout(r, j0, nb, *live)
@@ -519,41 +589,54 @@ def _check_packed_masked(kernel, n, m, dtype, tol, Tm1):
 
     depth, _ = pk.riccati_ring(n, m, dtype, masked=kernel != "K5")
     make = _stacks if m == 1 else _wide_stacks
-    wide = pk.riccati_plan(n, m, dtype).wide
-    for B, Tm1_ in _ring_edges(depth, Tm1=Tm1):
+    plan = pk.riccati_plan(n, m, dtype)
+    for B, Tm1_ in _ring_edges(depth, Tm1=Tm1, tall=plan.tall):
         rng = np.random.default_rng(8)
         st = make(rng, B, Tm1_, n, m)
         bad = np.zeros(B, bool)
         if Tm1_ > 0:
             bad[::61] = True
-            st[5][Tm1_ // 2, 0, 0, bad] = -1.0e3
+            st[5][Tm1_ // 2, 0, 0, bad] = _poison(n, m)
         st = [torch.as_tensor(a, dtype=dtype, device="cuda").contiguous() for a in st]
         um = torch.ones((Tm1_, m), dtype=dtype, device="cuda")
         if m > 1:
             um[:, -1] = 0.0
         reg = torch.as_tensor(rng.uniform(1e-3, 1.0, B), dtype=dtype, device="cuda")
+        # the plain versions in f64 on the same (f32) inputs
+        st64, um64, reg64 = [a.double() for a in st], um.double(), reg.double()
         if kernel == "K5":
             packed, gxxT, gxT, meta = pk.pack_stacks_bt(*st, um > 0.5)
-            counter = pk.RICCATI_PACKED_WIDE_LAUNCHES if wide else pk.RICCATI_PACKED_LAUNCHES
+            counter = pk.family_counter(pk.RICCATI_PACKED_LAUNCHES,
+                                        pk.RICCATI_PACKED_WIDE_LAUNCHES, plan,
+                                        pk.RICCATI_PACKED_TALL_LAUNCHES)
             run = lambda: pk.backward_pass_packed(packed, gxxT, gxT, reg, meta)
             plain = lambda: pk.backward_pass_packed_reference(packed, gxxT, gxT, reg, meta)
+            plain64 = lambda: pk.backward_pass_packed_reference(
+                packed.double(), gxxT.double(), gxT.double(), reg64, meta)
         elif kernel == "K6a":
-            counter = pb.RICCATI_MASKED_WIDE_LAUNCHES if wide else pb.RICCATI_MASKED_LAUNCHES
+            counter = pk.family_counter(pb.RICCATI_MASKED_LAUNCHES,
+                                        pb.RICCATI_MASKED_WIDE_LAUNCHES, plan,
+                                        pb.RICCATI_MASKED_TALL_LAUNCHES)
             run = lambda: pb.backward_pass_masked(*st, um, reg)
             plain = lambda: pb.backward_pass_masked_reference(*st, um, reg)
+            plain64 = lambda: pb.backward_pass_masked_reference(*st64, um64, reg64)
         else:
             packed = pk.pack_slots((st[0], st[1], st[2][:-1], st[3], st[4][:-1], st[5], st[6]))
             gxxT, gxT, meta = st[4][-1].contiguous(), st[2][-1].contiguous(), dict(n=n, m=m)
-            counter = (pb.RICCATI_MASKED_PACKED_WIDE_LAUNCHES if wide
-                       else pb.RICCATI_MASKED_PACKED_LAUNCHES)
+            counter = pk.family_counter(pb.RICCATI_MASKED_PACKED_LAUNCHES,
+                                        pb.RICCATI_MASKED_PACKED_WIDE_LAUNCHES, plan,
+                                        pb.RICCATI_MASKED_PACKED_TALL_LAUNCHES)
             run = lambda: pb.backward_pass_masked_packed(packed, gxxT, gxT, um, reg, meta)
             plain = lambda: pb.backward_pass_masked_packed_reference(packed, gxxT, gxT, um, reg,
                                                                      meta)
+            plain64 = lambda: pb.backward_pass_masked_packed_reference(
+                packed.double(), gxxT.double(), gxT.double(), um64, reg64, meta)
         before = counter.launches
         out = run()
         torch.cuda.synchronize()
         assert counter.launches == before + 1
-        _assert_close_scaled(out, plain(), tol)
+        _assert_close_or_own(out, plain(), plain64() if plan.tall and dtype == torch.float32
+                             else None, tol)
         assert torch.equal(out[-1].cpu() == 0, torch.as_tensor(bad)), (B, Tm1_)
         if m > 1 and kernel != "K5":
             good = torch.as_tensor(~bad, device="cuda")

@@ -120,7 +120,8 @@ def test_prepare_stacks_guu_fixup():
     (2, 1, torch.float64, True),
     (3, 1, torch.float32, True),     # no registered model's dims: built at first use
     (12, 4, torch.float16, False),
-    (30, 3, torch.float32, False),   # past the rule's range, n + m <= 32
+    (30, 3, torch.float32, True),    # past n + m = 32: the tall template
+    (60, 5, torch.float32, False),   # past the rule's range, n + m <= 64
 ])
 def test_unsupported_instantiation_raises(n, m, dtype, ok):
     """An (n, m, dtype) outside the rule's range raises before any launch
@@ -128,7 +129,9 @@ def test_unsupported_instantiation_raises(n, m, dtype, ok):
     any other names the kernel its dims select, built at its first use."""
     if ok:
         plan = pk.riccati_plan(n, m, dtype)
-        kernel = "riccati_backward_wide" if plan.wide else "riccati_backward"
+        kernel = {"K1": "riccati_backward", "K2": "riccati_backward_wide",
+                  "tall": "riccati_backward_tall"}[plan.template]
+        assert plan.tall == (n + m > 32)
         tag = {torch.float32: "f32", torch.float64: "f64"}[dtype]
         assert pk.kernel_symbol(n, m, dtype) == f"{kernel}_{tag}_n{n}_m{m}"
     else:

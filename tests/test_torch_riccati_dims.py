@@ -1,12 +1,12 @@
-"""The backward recursion at any (n, m): the rule that picks K1's or K2's
-template and its parameters (iterativelqr_tpu_torch/ops/packed_backward.py::
-riccati_plan), the translation unit each (n, m, dtype) is built from, and
-the plain recursion at dims no registered model has, against the JAX
-package's Pallas kernels in interpret mode.
+"""The backward recursion at any (n, m): the rule that picks K1's, K2's or
+the tall template and its parameters (iterativelqr_tpu_torch/ops/
+packed_backward.py::riccati_plan), the translation unit each (n, m, dtype)
+is built from, and the plain recursion at dims no registered model has,
+against the JAX package's Pallas kernels in interpret mode.
 
 On the CPU the wrappers take their plain PyTorch versions; the CUDA
 kernels at these dims are held against the plain versions on the card by
-tests/test_torch_cuda.py and chip_smoke.py (phase 10).  f64 throughout;
+tests/test_torch_cuda.py and chip_smoke.py (phases 10 and 11).  f64 throughout;
 tolerance 1e-10 relative to the largest value, as
 tests/test_torch_packed_backward_wide.py: both sides are IEEE f64 and sum
 the same products in other orders.
@@ -31,6 +31,8 @@ torch.set_num_threads(1)
 
 TOL = 1e-10
 GRID = ((3, 1), (4, 2), (5, 1), (5, 2), (6, 2), (7, 3), (13, 4), (14, 7), (24, 8))
+# past n + m = 32: chip_smoke.py phase 11's grid
+TALL_GRID = ((20, 13), (24, 12), (36, 12), (48, 16), (62, 2), (2, 62))
 F32, F64 = torch.float32, torch.float64
 
 
@@ -55,19 +57,27 @@ def test_registered_dims_keep_their_kernels(n, m, template, depth, shared):
 
 @pytest.mark.parametrize("dtype", [F32, F64])
 def test_every_dims_in_range_fit_a_block(dtype):
-    """Every (n, m) with n + m <= 32 gets a plan whose shared memory, masked
+    """Every (n, m) with n + m <= 64 gets a plan whose shared memory, masked
     or not, fits a block, with at least one ring tile and at most 1024
-    threads; K2's lanes are the most that fit."""
+    threads; K2's lanes (n + m <= 32) and the tall template's (past 32) are
+    the most that fit."""
     size = {F32: 4, F64: 8}[dtype]
-    for n, m in itertools.product(range(1, 32), range(1, 32)):
+    assert pk.MAX_ROWS == 64
+    for n, m in itertools.product(range(1, 64), range(1, 64)):
         if n + m > pk.MAX_ROWS:
             continue
         plan = pk.riccati_plan(n, m, dtype)
         assert max(plan.shared) <= pk.SHARED_MAX == 232448, (n, m)
         assert min(plan.depth) >= 1 and plan.threads <= 1024, (n, m)
+        assert plan.tall == (n + m > pk.K2_MAX_ROWS == 32), (n, m)
         if plan.wide:
             for lanes in (l for l in pk.K2_LANES if l > plan.lanes):
                 assert min(pk._k2_ring(n, m, lanes, masked, size)[0]
+                           for masked in (False, True)) < 1, (n, m, lanes)
+        elif plan.tall:
+            assert plan.threads == min(256 * plan.lanes, 1024)
+            for lanes in (l for l in pk.TALL_LANES if l > plan.lanes):
+                assert min(pk._tall_ring(n, m, lanes, masked, size)[0]
                            for masked in (False, True)) < 1, (n, m, lanes)
         else:
             assert plan.rows == -(-n // pk.K1_TEAM) <= pk.K1_MAX_ROWS
@@ -86,8 +96,8 @@ def test_the_grid_takes_fewer_lanes_where_32_do_not_fit():
 
 
 @pytest.mark.parametrize("n,m,dtype,match", [
-    (30, 3, F32, "n \\+ m <= 32"),
-    (1, 32, F64, "n \\+ m <= 32"),
+    (60, 5, F32, "n \\+ m <= 64"),
+    (1, 64, F64, "n \\+ m <= 64"),
     (0, 1, F32, "n >= 1"),
     (4, 1, torch.float16, "float32 or float64"),
     (12, 4, torch.float16, "float32 or float64"),
@@ -101,6 +111,39 @@ def test_a_template_asked_for_that_cannot_hold_the_dims_raises():
     with pytest.raises(NotImplementedError, match="K1's template holds"):
         pk.riccati_plan(12, 4, F32, template="K1")
     assert pk.riccati_plan(4, 1, F32, template="K2").lanes == 32
+    with pytest.raises(NotImplementedError, match="K2's template holds n \\+ m <= 32"):
+        pk.riccati_plan(30, 3, F32, template="K2")
+    assert pk.riccati_plan(12, 4, F32, template="tall").lanes == 8
+
+
+@pytest.mark.parametrize("n,m,dtype,lanes,depth,shared", [
+    # once refused (n + m > 32), now held
+    (30, 3, F32, 8, (2, 2), (223996, 224028)),
+    (1, 32, F64, 8, (1, 1), (213712, 213968)),
+    # the team of three quadrotors, in f32 (the solve's) and f64
+    (36, 12, F32, 4, (2, 2), (196672, 196768)),
+    (36, 12, F64, 2, (2, 2), (196720, 196912)),
+    # the ends of the range: one lane a block in f64
+    (62, 2, F64, 1, (2, 2), (223392, 223424)),
+    (2, 62, F64, 2, (1, 1), (198272, 198768)),
+])
+def test_tall_dims_hold_a_plan(n, m, dtype, lanes, depth, shared):
+    """Past n + m = 32 the rule takes the tall template at the most lanes a
+    block (8, 4, 2, 1) whose state and one step tile fit, as many tiles as
+    fit (at most 2), min(256 lanes, 1024) threads; its kernels are named
+    ``*_tall``."""
+    plan = pk.riccati_plan(n, m, dtype)
+    assert (plan.template, plan.lanes, plan.depth, plan.shared) == ("tall", lanes, depth, shared)
+    assert plan.threads == min(256 * lanes, 1024) and plan.rows == 0
+    assert (plan.main, plan.ring) == ("riccati_backward_tall", "riccati_tall_ring")
+    assert pk.kernel_symbol(n, m, dtype) == f"riccati_backward_tall_{plan.dtype}_n{n}_m{m}"
+    assert pk.family_counter(pk.RICCATI_PACKED_LAUNCHES, pk.RICCATI_PACKED_WIDE_LAUNCHES, plan,
+                             pk.RICCATI_PACKED_TALL_LAUNCHES) is pk.RICCATI_PACKED_TALL_LAUNCHES
+    size = {F32: 4, F64: 8}[dtype]
+    for masked in (False, True):
+        tile = -(-pk._tile_values(n, m, lanes, masked, size) * size // 16) * 16
+        state = (pk._tall_state_values(n, m) * lanes + m) * size
+        assert plan.shared[masked] == pk.TALL_BARRIERS + depth[masked] * tile + state
 
 
 # (b) the translation unit ---------------------------------------------------
@@ -111,15 +154,18 @@ def test_a_template_asked_for_that_cannot_hold_the_dims_raises():
     (5, 2, F64, "riccati_backward.cuh", None),
     (12, 4, F32, "riccati_backward_wide.cuh", "#define RICCATI_WIDE_LANES 32"),
     (24, 8, F64, "riccati_backward_wide.cuh", "#define RICCATI_WIDE_LANES 8"),
+    (36, 12, F32, "riccati_backward_tall.cuh", "#define RICCATI_TALL_LANES 4"),
+    (62, 2, F64, "riccati_backward_tall.cuh", "#define RICCATI_TALL_LANES 1"),
 ])
 def test_instantiation_source(n, m, dtype, header, lanes_line):
     plan = pk.riccati_plan(n, m, dtype)
     src = plan.source()
     tag, ctype = {F32: ("f32", "float"), F64: ("f64", "double")}[dtype]
-    ring = "riccati_wide_ring" if plan.wide else "riccati_ring"
+    ring = {"K1": "riccati_ring", "K2": "riccati_wide_ring", "tall": "riccati_tall_ring"}[
+        plan.template]
     assert f'#include "{header}"' in src
     assert f"RICCATI_FAMILY({plan.main}, {ring}, {n}, {m}, {ctype}, {tag})" in src
-    assert (lanes_line in src) if lanes_line else "RICCATI_WIDE_LANES" not in src
+    assert (lanes_line in src) if lanes_line else "_LANES" not in src
     assert (_build.CSRC / header).exists()
     # the same text keys the same library; another dims or dtype another
     assert src == pk.riccati_plan(n, m, dtype).source()
@@ -158,11 +204,13 @@ def _jax_multiref(stacks_bl, reg, u_mask):
     return [np.asarray(o).reshape(o.shape[:-2] + (B,)) for o in out]
 
 
-@pytest.mark.parametrize("n,m", [(5, 2), (13, 4)])
-def test_plain_matches_jax_kernel_at_new_dims(n, m):
-    """(5, 2) and (13, 4), f64, B=256, Tm1=24: indefinite Quu on 17 lanes
+@pytest.mark.parametrize("n,m,Tm1", [(5, 2, 24), (13, 4, 24), (36, 12, 8)])
+def test_plain_matches_jax_kernel_at_new_dims(n, m, Tm1):
+    """(5, 2), (13, 4) and the team's (36, 12) (where JAX takes its
+    streamed kernel, ``_kernel_mr_stream``), f64, B=256, Tm1=24 (8 at (36,
+    12), a multiple of the JAX kernels' chunk): indefinite Quu on 17 lanes
     at one step (ok = 0 there) and a per-lane regularizer."""
-    B, Tm1 = 256, 24   # a multiple of the JAX kernels' chunk (8)
+    B = 256
     rng = np.random.default_rng(20 + n)
     st = stacks(rng, B, Tm1, n, m)
     st[5][:17, 5] = -1.0e3
@@ -194,6 +242,33 @@ def test_masked_plain_matches_jax_kernel_at_6_2():
                                           torch.as_tensor(um), torch.as_tensor(reg))
     ref = jpb.backward_pass_batched_pallas(*(jnp.asarray(a) for a in st), jnp.asarray(um),
                                            jnp.asarray(reg), block_b=8, interpret=True)
+    for a, b in zip(out, ref):
+        close(a.numpy(), np.asarray(b), TOL)
+    assert (out[0].numpy()[:, ::2, -1, :] == 0.0).all()
+
+
+# (e) K6a's and K6b's plain versions past n + m = 32 -------------------------
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+def test_masked_plain_matches_jax_kernels_at_24_12(variant):
+    """K6a's (v1) and K6b's (v2) entries at (24, 12), where the rule takes
+    the tall template, f64, B=128 (v2's lane block), T=9, the last action
+    masked on half the steps (its derivative entries nonzero) and a
+    per-lane regularizer, against JAX's kernels in interpret mode, to
+    1e-10."""
+    B, T, n, m = 128, 9, 24, 12
+    assert pk.riccati_plan(n, m, F64).tall
+    st = stacks(np.random.default_rng(2412), B, T - 1, n, m)
+    um = np.ones((T - 1, m), bool)
+    um[::2, -1] = False
+    reg = np.linspace(0.0, 0.5, B)
+    port = {"v1": pb.backward_pass_batched_pallas, "v2": pb.backward_pass_batched_pallas_v2}
+    jax_fn = {"v1": jpb.backward_pass_batched_pallas, "v2": jpb.backward_pass_batched_pallas_v2}
+    out = port[variant](*(torch.as_tensor(a) for a in st), torch.as_tensor(um),
+                        torch.as_tensor(reg))
+    ref = jax_fn[variant](*(jnp.asarray(a) for a in st), jnp.asarray(um), jnp.asarray(reg),
+                          block_b=128, interpret=True)
     for a, b in zip(out, ref):
         close(a.numpy(), np.asarray(b), TOL)
     assert (out[0].numpy()[:, ::2, -1, :] == 0.0).all()

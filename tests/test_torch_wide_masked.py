@@ -66,8 +66,10 @@ def test_wide_dims_take_k2s_template():
             assert pk.family_symbol(name, N, M, dtype) == f"{name}_{dn}_n12_m4"
     assert pk.family_counter(pb.RICCATI_MASKED_LAUNCHES, pb.RICCATI_MASKED_WIDE_LAUNCHES,
                              pk.riccati_plan(N, M, torch.float32)) is pb.RICCATI_MASKED_WIDE_LAUNCHES
-    with pytest.raises(NotImplementedError, match="riccati_plan.*n \\+ m <= 32"):
-        pk.family_symbol("riccati_masked", 30, 3, torch.float32)
+    assert pk.family_symbol("riccati_masked", 30, 3, torch.float32) == \
+        "riccati_masked_f32_n30_m3"   # past n + m = 32: the tall template
+    with pytest.raises(NotImplementedError, match="riccati_plan.*n \\+ m <= 64"):
+        pk.family_symbol("riccati_masked", 60, 5, torch.float32)
 
 
 def test_v3_entry_matches_jax_at_wide_dims():

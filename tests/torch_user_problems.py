@@ -6,8 +6,9 @@ acrobot's functions wrapped in lambdas, which the rollout kernels' registry
 does not recognise; models/quadrotor.py's and models/car.py's problems
 written with matrices, constant indices and norms, and a small problem of
 the ops the generator lowers since products and the wider math; the
-padded problems of tests/test_padding.py and a planar quadrotor at (6, 2),
-built in either package.  Imports torch and the port only."""
+padded problems of tests/test_padding.py, a planar quadrotor at (6, 2) and
+a team of three quadrotors at (36, 12), built in either package.  Imports
+torch and the port only."""
 
 import torch
 
@@ -317,6 +318,97 @@ def planar_quadrotor_inputs(B, T, seed=0, start=(0.0, 0.0)):
     xs[:, 0] = 0.1 * np.random.default_rng(seed).standard_normal((B, 6))
     xs[:, 0, :2] += start
     return xs, np.full((B, T - 1, 2), PQ_HOVER), np.zeros((B, T, 0))
+
+
+# the team of three quadrotors: the starts on a circle of radius TEAM_R
+# about the origin at 120 degrees, each goal the point across the circle,
+# so that every straight path crosses the centre; the thrust box of
+# models/quadrotor.py's problem; the least distance between two rotorcraft
+TEAM_R = 0.75
+TEAM_DIRECTIONS = ((1.0, 0.0), (-0.5, 0.8660254037844386), (-0.5, -0.8660254037844386))
+
+
+def team_starts(radius=TEAM_R):
+    return tuple((radius * c, radius * s, 0.0) for c, s in TEAM_DIRECTIONS)
+
+
+def team_goals(radius=TEAM_R):
+    return tuple((-x, -y, z) for x, y, z in team_starts(radius))
+
+
+TEAM_UMAX = 6.0
+TEAM_SEP = 0.3
+TEAM_PAIRS = ((0, 1), (0, 2), (1, 2))
+
+
+def quadrotor_team(pkg, xp, T=41, radius=TEAM_R):
+    """Three quadrotors planned as one system, in either package (``pkg``
+    the port or the JAX package, ``xp`` torch or jax.numpy): each stepped
+    by its own package's ``models/quadrotor.py::quadrotor_discrete``, so n
+    = 36 (three 12-state blocks), m = 12 (three 4-rotor blocks).  Each
+    tracks its goal with models/quadrotor.py's weights (1 on the position
+    error, 0.5 on the angles, 0.1 on the velocities and rates, 0.05 on the
+    thrusts about hover; 1 on the whole terminal error); a step's
+    inequality rows are the thrust box 0 <= u <= 6 (24 rows) and the
+    separations |p_i - p_j|^2 >= 0.3^2 of the three pairs (3 rows); the
+    terminal goal is an equality (36 rows).  The goals lie across a circle
+    of ``radius`` from the starts (``team_starts``, ``team_goals``), so
+    every straight path crosses the centre at the same time.  Constants
+    are Python floats, so the functions keep the inputs' dtype."""
+    import importlib
+
+    quad = importlib.import_module(pkg.__name__ + ".models.quadrotor")
+    hover = quad.MASS * quad.GRAVITY / 4.0
+    goals = team_goals(radius)
+    goal = [v for g in goals for v in g + (0.0,) * 9]
+
+    def dynamics(x, u):
+        return xp.concatenate([quad.quadrotor_discrete(x[12 * i:12 * i + 12], u[4 * i:4 * i + 4])
+                               for i in range(3)])
+
+    def stage_cost(x, u):
+        total = 0.0
+        for i, g in enumerate(goals):
+            xi, du = x[12 * i:12 * i + 12], u[4 * i:4 * i + 4] - hover
+            pos = sum((xi[k] - g[k]) ** 2 for k in range(3))
+            total = (total + 1.0 * pos + 0.5 * xp.sum(xi[3:6] * xi[3:6])
+                     + 0.1 * xp.sum(xi[6:12] * xi[6:12]) + 0.05 * xp.sum(du * du))
+        return total
+
+    def terminal_cost(x, u):
+        return 1.0 * sum((x[k] - g) ** 2 for k, g in enumerate(goal))
+
+    def separation(x, i, j):
+        d = x[12 * i:12 * i + 3] - x[12 * j:12 * j + 3]
+        return TEAM_SEP ** 2 - xp.sum(d * d)
+
+    def stage_con(x, u):
+        return xp.concatenate([-u, u - TEAM_UMAX,
+                               xp.stack([separation(x, i, j) for i, j in TEAM_PAIRS])])
+
+    dyn = pkg.Dynamics(dynamics, 36, 12)
+    stage = pkg.Cost(stage_cost, 36, 12)
+    term = pkg.Cost(terminal_cost, 36, 0)
+    limits = pkg.Constraint(stage_con, 36, 12, indices_inequality=range(27))
+    goal_con = pkg.Constraint(lambda x, u: xp.stack([x[k] - g for k, g in enumerate(goal)]), 36, 0)
+    return pkg.build_spec([dyn] * (T - 1), [stage] * (T - 1) + [term],
+                          [limits] * (T - 1) + [goal_con])
+
+
+def quadrotor_team_inputs(B, T, seed=0, radius=TEAM_R):
+    """Initial guesses: each quadrotor hovering at its start over the whole
+    horizon (hover thrust on every rotor and step), the initial states
+    plus 0.1 N(0, 1) on every state (a numpy seed); no parameters (numpy,
+    f64).  (Zero states after t = 0 would put the three at one point, where
+    the separation rows have no gradient.)"""
+    import numpy as np
+
+    hover = quadrotor.MASS * quadrotor.GRAVITY / 4.0
+    xs = np.zeros((B, T, 36))
+    for i, p in enumerate(team_starts(radius)):
+        xs[:, :, 12 * i:12 * i + 3] = p
+    xs[:, 0] += 0.1 * np.random.default_rng(seed).standard_normal((B, 36))
+    return xs, np.full((B, T - 1, 12), hover), np.zeros((B, T, 0))
 
 
 def math_problem(T, device="cpu"):
