@@ -3,7 +3,8 @@
 chip_smoke.py's phases 3, 3b and 3c (B=4096; K1, K5, K6 acrobot (4, 1)
 T=101, K1 also at car's (3, 2) and particle's (2, 1), K6 (3, 2); K2, and
 K5, K6 at (12, 4), quadrotor T=41; K3 and K4 acrobot T=101, car T=51,
-quadrotor T=41).  A case that a checkout cannot run (an instantiation it
+quadrotor T=41; past n + m = 32, K2 at chip_smoke.py's TALL_GRID and K5, K6a,
+K6b at (36, 12), f32, T=41).  A case that a checkout cannot run (an instantiation it
 lacks raises NotImplementedError) is left out of that checkout's results.
 Each case's outputs on its inputs are hashed (SHA-256 of their bytes), and
 cases that every tree ran are reported bitwise equal or not across the
@@ -45,6 +46,15 @@ def _smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _holds(pk, n, m, dtype):
+    """Does this checkout's rule hold (n, m, dtype)?"""
+    try:
+        pk.riccati_plan(n, m, dtype)
+    except NotImplementedError:
+        return False
+    return True
 
 
 def _cases(cs, pk, pb, fk, torch):
@@ -101,6 +111,34 @@ def _cases(cs, pk, pb, fk, torch):
                 nbytes = cs.rollout_bytes(r.spec, B, size, nb)
                 ops = cs.OPS_PER_STEP[name] * (T - 1) * B * (nb or 1)
                 cases.append((f"{what} {name} T={T} {dn}", run, cs.bound_ms(nbytes, ops)[0]))
+    # past n + m = 32 (the tall template): K2 at chip_smoke.py's TALL_GRID and
+    # K5, K6a, K6b at the team's (36, 12), f32, B=4096, T=TEAM_T, on stacks
+    # drawn on the card (chip_smoke.py::device_stacks)
+    T = cs.TEAM_T
+    for n, m in cs.TALL_GRID:
+        if not _holds(pk, n, m, torch.float32):
+            continue
+        kin = [a.contiguous() for a in pk.prepare_stacks(
+            *(a.float() for a in cs.device_stacks(cs.SEED, B, T - 1, n, m)),
+            torch.ones((T - 1, m), dtype=torch.bool))]
+        reg = torch.zeros(B, dtype=torch.float32, device="cuda")
+        run = lambda kin=kin, reg=reg: pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
+        out = run()
+        nbytes = sum(a.numel() * a.element_size() for a in (*kin, reg, *out))
+        cases.append((f"K2 ({n},{m}) T={T} f32", run,
+                      cs.bound_ms(nbytes, cs.riccati_ops(n, m) * (T - 1) * B)[0]))
+    n, m = cs.TEAM
+    st = [a.float().contiguous() for a in cs.device_stacks(cs.SEED, B, T - 1, n, m)]
+    um = torch.ones((T - 1, m), dtype=torch.float32, device="cuda")
+    um[:, -1] = 0.0
+    reg = torch.full((B,), 0.1, dtype=torch.float32, device="cuda")
+    for label in ("K5", "K6a", "K6b"):
+        kern, _, _, kin = cs.packed_masked_runs(pk, pb, label, st, um, reg)
+        out = kern()
+        nbytes = sum(a.numel() * a.element_size() for a in (*kin, *out))
+        cases.append((f"{label} ({n},{m}) T={T} f32", kern,
+                      cs.bound_ms(nbytes, cs.riccati_ops(n, m) * (T - 1) * B)[0]))
+    cs.device_stacks.cache_clear()
     torch.cuda.synchronize()
     return cases
 
@@ -125,6 +163,7 @@ def child(tree: Path, label: str, repeats: int, only):
     if hasattr(pk, "build"):
         # the recursion's libraries, built at first use: all of them now
         pk.build(*cs.REGISTERED_DIMS, dtypes=cs.DTYPES)
+        pk.build(*(d for d in cs.TALL_GRID if _holds(pk, *d, torch.float32)))
     build_s = time.perf_counter() - t0
     cases = [c for c in _cases(cs, pk, pb, fk, torch)
              if not only or any(o in c[0] for o in only)]

@@ -51,7 +51,7 @@ Phases, each of which raises (non-zero exit) when it fails:
 4c. the per-instance solver's vmap route at acrobot, f32 (bench.py's
    initial guess): the literal make_batched_solve_fn(spec, Options())
    (traces on, the "auto" backward = the reverse scan, loop rollouts) at
-   B=B_VMAP_LOOP=14, T=T_VMAP_LOOP=41, and at B=B_VMAP_K6=64,
+   B=B_VMAP_LOOP=14, T=T_VMAP_LOOP=41, and at B=B_VMAP_K6=16,
    T=T_LOOP=51 the tuned preset with
    traces through
    make_solve_fn(..., backward_impl=make_backward_dispatch(variant="v1" |
@@ -72,7 +72,9 @@ Phases, each of which raises (non-zero exit) when it fails:
    (tests/fixtures/golden_*.npz) solved on the card through "pallas" in
    f64, and through the per-instance solver the golden car with
    backward_pass="scan" and the golden quadrotor with the default "auto"
-   (on one instance the associative scan);
+   (on one instance the associative scan).  The CPU half of the first two
+   checks runs in a worker process that needs no card, from phase 1 on
+   (beside phases 2-4);
 6a. the associative backward scan (ops/assoc.py) against the port's reverse
    scan on the card at (4, 1), (3, 2) T=101 and (12, 4) T=41, B=64 and one
    instance, f64 and f32; both timed (CUDA events, f32, acrobot's dims)
@@ -173,7 +175,7 @@ Phases, each of which raises (non-zero exit) when it fails:
    pendulum T=1025 linearization in f64, then the long-horizon example's
    solve (pendulum T=T_LONG=33, four chunks on the card);
 9f. utils/profiling.trace around a tuned solve on phase 4's kernel inputs,
-   cut to PROFILE_TRIPS=4 trips, after an untraced call and a timed one,
+   cut to PROFILE_TRIPS=2 trips, after an untraced call and a timed one,
    read from the exported trace: without Python frames, the ten device
    operations with the most device time, the share of the solve's window
    in which the card ran any device operation, and that share trip by
@@ -219,17 +221,19 @@ Phases, each of which raises (non-zero exit) when it fails:
    kernels; on the loop cell's lanes within 0.01 of the kernel solve's
    there), the least separation and the objectives lane by lane; (a)
    the libraries of the tall grid (20, 13), (24, 12), (36, 12), (48, 16),
-   (62, 2), (2, 62) in f32 and f64, built in the background: seconds, each
-   plan against its library's ring entry, registers and spills; (b) K2,
-   K5, K6a and K6b there against their plain versions as in 10b (stacks
-   drawn on the card; an f32 output past 1e-4 held to F32_OWN times the
-   f32 plain version's own distance from f64); (c) K2 at (36, 12) and
-   (48, 16), f32, B=4096, T=41, against the bound and the plain version,
-   and K5, K6a, K6b at (36, 12).
+   (62, 2), (2, 62) and, past n + m = 64, (70, 4), (4, 70) in f32 and f64,
+   built in the background: seconds, each plan against its library's ring
+   entry, registers and spills; (b) K2, K5, K6a and K6b there against
+   their plain versions as in 10b (stacks drawn on the card; an f32 output
+   past 1e-4 held to F32_OWN times the f32 plain version's own distance
+   from f64); (c) K2 at every grid dims, f32, B=4096, T=41, against the
+   bound and the plain version (timed on its check's run), the share of a
+   step's cycles in each phase at (36, 12) and (48, 16) (a build with the
+   phase clocks, for measuring only), and K5, K6a, K6b at (36, 12).
 
 Budget: the whole run stays under 800 s (1200 s limit).  For that,
 parity's loop cell runs on 4 lanes, tuned's loop cell on 16, phase 4c's
-cell (a) on 14 and its acrobot cells (b) and (c) on 64 (each was 4096),
+cell (a) on 14 and its acrobot cells (b) and (c) on 16 (each was 4096),
 the first two and 4c's cells (b) and (c)
 (and the kernel cells paired with them) at T=T_LOOP=51 and cell (a) at
 T=T_VMAP_LOOP=41, phase 5's
@@ -239,7 +243,8 @@ DDP at T=T_DDP (was 51), phase 9e's long-horizon solve at T=T_LONG and
 phase 9f's trace over PROFILE_TRIPS trips, the splits time 5 iterations
 (were 20) and a plain version's time is one run after its check
 (PLAIN_REPS), phase 9c compacts the tuned preset (was parity) and phase
-9f traces 4 trips (was 8): the reasons and trip counts stand beside B_LOOP,
+9f traces 2 trips (was 8), and phase 5's CPU half runs in a worker process
+beside phases 2-4: the reasons and trip counts stand beside B_LOOP,
 run_compacted_devices and PROFILE_TRIPS.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
@@ -254,6 +259,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -315,7 +321,11 @@ T_MAIN, B_MAIN = 101, 4096
 #   the slowest lane's: on the port's CPU path (f32) 118 at B=256 and 108
 #   on its first 64 lanes, solved 1.0; T=41 took 164 trips (solved
 #   0.996).  K6a and K6b stay held and timed at B=4096, T=101 in phase
-#   3c, and the quadrotor cells (d) and (e) keep B=4096.
+#   3c, and the quadrotor cells (d) and (e) keep B=4096.  Cut from 64 to
+#   16 lanes (109 trips, 39.8 and 40.4 s in an 832.7 s stretch of a run,
+#   NVIDIA H100 80GB HBM3, 700 W): a lane's iterations do not depend on
+#   the others (on the CPU path the first 16 lanes took the same 78, 92,
+#   53, ... at B=16 as at B=64, 92 at most against 108).
 # - COMPACT_GRAINS (was 128, 256 and 1024: 24.0 s of the run): phase 6b's
 #   tuned compaction runs at the module's GRAIN only, the best of the
 #   three on the card (PR 7-9).
@@ -333,7 +343,7 @@ T_DDP = 8
 B_LOOP = 4
 B_LOOP_TUNED = 16
 B_VMAP_LOOP = 14
-B_VMAP_K6 = 64
+B_VMAP_K6 = 16
 T_LOOP = 51
 T_VMAP_LOOP = 41
 SEED = 0
@@ -420,6 +430,41 @@ def cuda_ms(fn, reps=10, warmup=2):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def within_own(name, outs, refs32, refs64):
+    """max |kernel - plain f32| over the outputs, where each output of an
+    f32 kernel is within F32_OWN times the f32 plain version's own distance
+    from the f64 plain version (``refs64``) on the same inputs, its
+    non-finite positions those of the f64 one; raises otherwise."""
+    worst = 0.0
+    for a, b, c in zip(outs, refs32, refs64):
+        fin = torch.isfinite(c)
+        if not torch.equal(torch.isfinite(a), fin):
+            raise AssertionError(f"{name}: non-finite positions differ from the f64 plain version")
+        if not fin.any():
+            continue
+        e, e32 = float((a[fin] - c[fin]).abs().max()), float((b[fin] - c[fin]).abs().max())
+        if not e <= F32_OWN * e32:
+            raise AssertionError(f"{name}: max |kernel - plain f64| {e:.3e} > {F32_OWN} x the f32 "
+                                 f"plain version's {e32:.3e}")
+        worst = max(worst, float((a[fin] - b[fin]).abs().max()))
+    log(f"[tall] {name}: past 1e-4 of the f32 plain version, within {F32_OWN} x its own "
+        f"distance from f64 (11b's rule)")
+    return worst
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds on the card): one run bracketed by
+    synchronisation, as cuda_ms(fn, **PLAIN_REPS) times it."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 # ---------------------------------------------------------------------------
@@ -1880,8 +1925,10 @@ T_LONG = 33
 # 80 to 265 ms, hence the second trace without it.  Then cut to 4 trips
 # for phase 11's time (8 trips: 37.7 s of phase 9f in an 843.2 s run,
 # NVIDIA H100 80GB HBM3, 700 W): the trips after the warm-up read the same
-# busy share one by one (0.0754-0.0918 at 8 trips), so 4 show it
-PROFILE_TRIPS = 4
+# busy share one by one (0.0754-0.0918 at 8 trips), so 4 show it; then
+# to 2 (4 trips: 17.6 s of phase 9f in an 832.7 s stretch of a run, NVIDIA
+# H100 80GB HBM3, 700 W), the busy share of two warmed trips
+PROFILE_TRIPS = 2
 SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_scratch")
 
 
@@ -2673,81 +2720,115 @@ def run_matrix_solves(P, model_fracs, walls):
 # ---------------------------------------------------------------------------
 
 
-def check_card_vs_cpu(P):
-    """The card's kernel path (forward_kernel="pallas") against the port's
-    plain CPU loop path ("scan"), acrobot T=9, car and quadrotor T=8, B=4,
-    f64: equal iterates, trajectories within 1e-8."""
+def card_vs_cpu_cases():
+    """Phase 5's card-against-CPU cases: (name, model module, T, inputs) of
+    the SL route's check, and the vmap route's models and configurations
+    (label, options, K6 variant, the kernel the card's run launches)."""
     from iterativelqr_tpu_torch.models import acrobot, car, quadrotor
 
-    for name, mod, T, make in (("acrobot", acrobot, 9, bench_inputs),
-                               ("car", car, 8, functools.partial(model_inputs, "car")),
-                               ("quadrotor", quadrotor, 8,
-                                functools.partial(model_inputs, "quadrotor"))):
-        B = 4
-        spec = P.build_spec(*mod.problem(T)[:3])
-        base = dict(record_traces=False, max_iterations=12, max_dual_updates=3)
-        sols = {}
-        for dev, fkm in (("cpu", "scan"), ("cuda", "pallas")):
-            xs, us, ws = make(B, T, torch.float64, dev)
-            for c in counters().values():
-                c.reset()
-            opts = P.Options(**base, forward_kernel=fkm)
-            sols[dev] = P.make_batched_solve_fn(spec, opts, device=dev,
-                                                dtype=torch.float64)(xs, us, ws)
-            if dev == "cuda":
-                check_launches(f"card vs cpu {name}", fkm,
-                               {k: c.launches for k, c in counters().items()}, name)
-        a, b = sols["cpu"], sols["cuda"]
-        for f in ("iterations", "al_iterations", "status"):
-            if not torch.equal(getattr(a, f), getattr(b, f).cpu()):
-                raise AssertionError(f"card vs cpu {name}: {f} differ")
-        for f in ("xs", "us", "objective", "max_violation"):
-            torch.testing.assert_close(getattr(b, f).cpu(), getattr(a, f), rtol=1e-8, atol=1e-8)
-        log(f"[check] card pallas vs plain CPU scan, {name} (T={T}, B={B}, f64): "
-            f"iterations {a.iterations.tolist()} equal; max |dxs| {float((a.xs - b.xs.cpu()).abs().max()):.3e}")
-
-
-def check_vmap_card_vs_cpu(P):
-    """The vmap route on the card against the port's plain CPU path,
-    acrobot T=9 and car T=8, B=4, f64, with equal iterates: Options() (the
-    "auto" backward, here the reverse scan), the K6a and K6b dispatches
-    (backward_pass="scan" plus backward_impl) and backward_pass="packed"
-    (K1 through make_derive_backward), each cut to 12 iterations x 3 rounds
-    as the SL check above."""
-    from iterativelqr_tpu_torch.models import acrobot, car
-    from iterativelqr_tpu_torch.ops.pallas_backward import make_backward_dispatch
-
-    base = dict(max_iterations=12, max_dual_updates=3)
+    sl = (("acrobot", acrobot, 9, bench_inputs),
+          ("car", car, 8, functools.partial(model_inputs, "car")),
+          ("quadrotor", quadrotor, 8, functools.partial(model_inputs, "quadrotor")))
     configs = (("Options()", {}, None, None),
                ("K6a dispatch", dict(backward_pass="scan"), "v1", "riccati_masked"),
                ("K6b dispatch", dict(backward_pass="scan"), "v2", "riccati_masked_packed"),
                ('backward_pass="packed"', dict(backward_pass="packed"), None, "riccati_backward"))
-    for name, mod, T, make in (("acrobot", acrobot, 9, bench_inputs),
-                               ("car", car, 8, functools.partial(model_inputs, "car"))):
-        B = 4
-        spec = P.build_spec(*mod.problem(T)[:3])
+    return sl, sl[:2], configs
+
+
+CARD_VS_CPU_FIELDS = ("iterations", "al_iterations", "status", "xs", "us", "objective",
+                      "max_violation")
+
+
+def card_vs_cpu_solve(P, mod, T, make, dev, fkm):
+    """Phase 5's SL-route solve (acrobot T=9, car and quadrotor T=8, B=4,
+    f64, 12 iterations x 3 rounds) on ``dev`` with ``fkm`` rollouts."""
+    spec = P.build_spec(*mod.problem(T)[:3])
+    xs, us, ws = make(4, T, torch.float64, dev)
+    opts = P.Options(record_traces=False, max_iterations=12, max_dual_updates=3,
+                     forward_kernel=fkm)
+    return P.make_batched_solve_fn(spec, opts, device=dev, dtype=torch.float64)(xs, us, ws)
+
+
+def vmap_card_vs_cpu_solve(P, mod, T, make, dev, kw, variant):
+    """Phase 5's vmap-route solve (B=4, f64, 12 iterations x 3 rounds) on
+    ``dev`` with options ``kw`` and the K6 dispatch ``variant`` (or none)."""
+    from iterativelqr_tpu_torch.ops.pallas_backward import make_backward_dispatch
+
+    spec = P.build_spec(*mod.problem(T)[:3])
+    xs, us, ws = make(4, T, torch.float64, dev)
+    impl = None if variant is None else make_backward_dispatch(variant=variant)
+    opts = P.Options(max_iterations=12, max_dual_updates=3, **kw)
+    return P.make_solve_fn(spec, opts, backward_impl=impl, device=dev).vmap()(xs, us, ws)
+
+
+def card_vs_cpu_cpu_half():
+    """Phase 5's CPU solves, the plain loop path of each card-against-CPU
+    check, in a worker process that needs no card (started beside phase
+    4, ``main``): {case: {field: CPU tensor}}."""
+    import iterativelqr_tpu_torch as P
+
+    sl, vmap_models, configs = card_vs_cpu_cases()
+    res = {}
+    for name, mod, T, make in sl:
+        sol = card_vs_cpu_solve(P, mod, T, make, "cpu", "scan")
+        res["sl", name] = {f: getattr(sol, f) for f in CARD_VS_CPU_FIELDS}
+    for name, mod, T, make in vmap_models:
+        for label, kw, variant, _ in configs:
+            sol = vmap_card_vs_cpu_solve(P, mod, T, make, "cpu", kw, variant)
+            res["vmap", name, label] = {f: getattr(sol, f)
+                                        for f in CARD_VS_CPU_FIELDS + ("trace_mask",)}
+    return res
+
+
+def check_card_vs_cpu(P, cpu):
+    """The card's kernel path (forward_kernel="pallas") against the port's
+    plain CPU loop path ("scan", ``cpu``: card_vs_cpu_cpu_half's), acrobot
+    T=9, car and quadrotor T=8, B=4, f64: equal iterates, trajectories
+    within 1e-8."""
+    for name, mod, T, make in card_vs_cpu_cases()[0]:
+        for c in counters().values():
+            c.reset()
+        b = card_vs_cpu_solve(P, mod, T, make, "cuda", "pallas")
+        check_launches(f"card vs cpu {name}", "pallas",
+                       {k: c.launches for k, c in counters().items()}, name)
+        a = cpu["sl", name]
+        for f in ("iterations", "al_iterations", "status"):
+            if not torch.equal(a[f], getattr(b, f).cpu()):
+                raise AssertionError(f"card vs cpu {name}: {f} differ")
+        for f in ("xs", "us", "objective", "max_violation"):
+            torch.testing.assert_close(getattr(b, f).cpu(), a[f], rtol=1e-8, atol=1e-8)
+        log(f"[check] card pallas vs plain CPU scan, {name} (T={T}, B=4, f64): "
+            f"iterations {a['iterations'].tolist()} equal; max |dxs| "
+            f"{float((a['xs'] - b.xs.cpu()).abs().max()):.3e}")
+
+
+def check_vmap_card_vs_cpu(P, cpu):
+    """The vmap route on the card against the port's plain CPU path
+    (``cpu``: card_vs_cpu_cpu_half's), acrobot T=9 and car T=8, B=4, f64,
+    with equal iterates: Options() (the "auto" backward, here the reverse
+    scan), the K6a and K6b dispatches (backward_pass="scan" plus
+    backward_impl) and backward_pass="packed" (K1 through
+    make_derive_backward), each cut to 12 iterations x 3 rounds as the SL
+    check above."""
+    _, vmap_models, configs = card_vs_cpu_cases()
+    for name, mod, T, make in vmap_models:
         for label, kw, variant, kname in configs:
-            opts = P.Options(**base, **kw)
-            sols = {}
-            for dev in ("cpu", "cuda"):
-                xs, us, ws = make(B, T, torch.float64, dev)
-                impl = None if variant is None else make_backward_dispatch(variant=variant)
-                for c in counters().values():
-                    c.reset()
-                sols[dev] = P.make_solve_fn(spec, opts, backward_impl=impl,
-                                            device=dev).vmap()(xs, us, ws)
-                launched = {k: c.launches for k, c in counters().items() if c.launches}
-                if dev == "cuda" and set(launched) != ({kname} if kname else set()):
-                    raise AssertionError(f"vmap card vs cpu {name} {label}: launches {launched}")
-            a, b = sols["cpu"], sols["cuda"]
+            for c in counters().values():
+                c.reset()
+            b = vmap_card_vs_cpu_solve(P, mod, T, make, "cuda", kw, variant)
+            launched = {k: c.launches for k, c in counters().items() if c.launches}
+            if set(launched) != ({kname} if kname else set()):
+                raise AssertionError(f"vmap card vs cpu {name} {label}: launches {launched}")
+            a = cpu["vmap", name, label]
             for f in ("iterations", "al_iterations", "status", "trace_mask"):
-                if not torch.equal(getattr(a, f), getattr(b, f).cpu()):
+                if not torch.equal(a[f], getattr(b, f).cpu()):
                     raise AssertionError(f"vmap card vs cpu {name} {label}: {f} differ")
             for f in ("xs", "us", "objective", "max_violation"):
-                torch.testing.assert_close(getattr(b, f).cpu(), getattr(a, f), rtol=1e-8, atol=1e-8)
-            log(f"[check] vmap route card vs plain CPU, {name} {label} (T={T}, B={B}, f64): "
-                f"iterations {a.iterations.tolist()} equal; max |dxs| "
-                f"{float((a.xs - b.xs.cpu()).abs().max()):.3e}")
+                torch.testing.assert_close(getattr(b, f).cpu(), a[f], rtol=1e-8, atol=1e-8)
+            log(f"[check] vmap route card vs plain CPU, {name} {label} (T={T}, B=4, f64): "
+                f"iterations {a['iterations'].tolist()} equal; max |dxs| "
+                f"{float((a['xs'] - b.xs.cpu()).abs().max()):.3e}")
 
 
 def check_golden_per_instance(P, backward_pass, fixture):
@@ -3154,12 +3235,13 @@ def run_planar_quadrotor(P, pk, fk):
 # three quadrotors at (36, 12) solved end to end
 # ---------------------------------------------------------------------------
 
-TALL_GRID = ((20, 13), (24, 12), (36, 12), (48, 16), (62, 2), (2, 62))
+# past n + m = 64 at (70, 4) and (4, 70): the fit rule's range (riccati_plan)
+TALL_GRID = ((20, 13), (24, 12), (36, 12), (48, 16), (62, 2), (2, 62), (70, 4), (4, 70))
+SHARES_DIMS = ((36, 12), (48, 16))   # 11c prints the phase shares of a step here
 # phase 11b (the tall template only): where an f32 kernel's output misses
 # the f32 tolerance against f64, it is held to this many times the f32 plain
 # version's own distance from f64 (the kernel's sums run in another order)
 F32_OWN = 4.0
-TALL_TIMED = ((36, 12), (48, 16))   # 11c: K2 on the tall template, f32, B=4096, T=41
 TEAM = (36, 12)                     # 11d: tests/torch_user_problems.py::quadrotor_team
 # the ring of step tiles the team's K3/K4 take (tiles, bytes a block): 546
 # slots of 32 lanes a tile; two f64 tiles (279,584 B) pass a block's 232,448
@@ -3198,19 +3280,26 @@ def start_team_build(P, pk, fk, pool):
     return spec, model, pool.submit(run)
 
 
+def clocked_plan(pk, n, m, dtype=torch.float32):
+    """The rule's plan at (n, m, dtype) with the tall template's phase
+    clocks built in (``RiccatiPlan.clocks``, a build for measuring only)."""
+    return dataclasses.replace(pk.riccati_plan(n, m, dtype), clocks=True)
+
+
 def start_tall_grid(pk, pool):
     """Phase 11a's build, queued in the background behind the team's and
     10a's: the tall grid's libraries in f32 and f64 but the team's
-    (36, 12) f32 (``start_team_build``).  Returns (plans, the pending
-    build's seconds)."""
+    (36, 12) f32 (``start_team_build``), and 11c's clocked builds at
+    SHARES_DIMS in f32.  Returns (plans, the pending build's seconds)."""
     from iterativelqr_tpu_torch import _build
 
     plans = [pk.riccati_plan(n, m, d) for n, m in TALL_GRID for d in DTYPES]
     team = pk.riccati_plan(*TEAM, torch.float32)
+    clocked = [clocked_plan(pk, n, m) for n, m in SHARES_DIMS]
 
     def run():
         t0 = time.perf_counter()
-        _build.build_generated(*(p.source() for p in plans if p != team))
+        _build.build_generated(*(p.source() for p in plans + clocked if p != team))
         return time.perf_counter() - t0
 
     return plans, pool.submit(run)
@@ -3267,26 +3356,33 @@ def device_case(seed, B, Tm1, n, m, dtype, poison):
 
 
 def time_tall(pk, pb):
-    """Phase 11c: K2 on the tall template at TALL_TIMED, f32, B=4096,
-    T=TEAM_T, on stacks drawn on the card (``device_stacks``), against the
-    bound (bytes at 3.35 TB/s or operations at 67 TFLOP/s, the larger) and
-    the plain version (one run after a check), with the bytes of the
-    sectors its copies touch beside the bytes it must read; and K5, K6a and
-    K6b at the team's (36, 12) on the same stacks with the last action
-    masked, each through its wrapper with the counts set to 0 just before
-    and read just after.  Each kernel's every output is held to its plain
-    version in f32 on the same inputs at 11b's f32 tolerance, 1e-4 of
-    max(|plain|, 1).  Returns {kernel name: record} of (36, 12), K2's
-    launches those of its wrapper (the team's solve sets them later)."""
+    """Phase 11c: K2 on the tall template at every TALL_GRID dims, f32,
+    B=4096, T=TEAM_T, on stacks drawn on the card (``device_stacks``),
+    against the bound (bytes at 3.35 TB/s or operations at 67 TFLOP/s, the
+    larger) and the plain version's time (the one run of its check), with
+    the bytes of the sectors its copies touch beside the
+    bytes it must read, and the share of a step's cycles in each phase
+    (``tall_phase_shares``, the clocked builds of 11a) at SHARES_DIMS; and
+    K5, K6a and K6b
+    at the team's (36, 12) on the same stacks with the last action masked,
+    each through its wrapper with the counts set to 0 just before and read
+    just after.  Each kernel's every output is held to its plain version in
+    f32 on the same inputs at 11b's f32 tolerance, 1e-4 of max(|plain|,
+    1), or, past it, by 11b's F32_OWN rule against the plain version in f64
+    (``within_own``: at (62, 2) the f32 plain version is itself about 1e-4
+    from f64).  Returns ({kernel name: record} of (36, 12), {(n, m): K2's record}
+    of the other dims); K2's launches are its wrapper's (the team's solve
+    sets (36, 12)'s later)."""
     B, T = B_MAIN, TEAM_T
-    records = {}
-    for n, m in TALL_TIMED:
+    records, grid = {}, {}
+    for n, m in TALL_GRID:
         st = [a.float() for a in device_stacks(SEED, B, T - 1, n, m)]
         kin = [a.contiguous() for a in pk.prepare_stacks(*st, torch.ones((T - 1, m), dtype=torch.bool))]
+        del st
         reg = torch.zeros(B, dtype=torch.float32, device="cuda")
-        outs = pk.new_outputs(T - 1, n, m, B, torch.float32, "cuda")
         inputs = sum(a.numel() * a.element_size() for a in kin)
-        nbytes = inputs + sum(a.numel() * a.element_size() for a in (reg, *outs))
+        nbytes = inputs + sum(a.numel() * a.element_size() for a in (
+            reg, *pk.new_outputs(T - 1, n, m, B, torch.float32, "cuda")))
         ops = riccati_ops(n, m) * (T - 1) * B
         plan = pk.riccati_plan(n, m, torch.float32)
         run = lambda: pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
@@ -3296,10 +3392,20 @@ def time_tall(pk, pb):
         out = run()
         torch.cuda.synchronize()
         launches = counters()[plan.main].launches
-        err, _ = max_err(f"{plan.main} ({n}, {m}) B={B} f32", [a.double() for a in out],
-                         [b.double() for b in plain()], PLAIN_TOLS[torch.float32])
+        ref, p_ms = timed_once(plain)   # the plain version timed on its check's run
+        name = f"{plan.main} ({n}, {m}) B={B} f32"
+        outs, refs = [a.double() for a in out], [b.double() for b in ref]
+        try:
+            err, _ = max_err(name, outs, refs, PLAIN_TOLS[torch.float32])
+        except AssertionError:
+            # 11b's rule on the tall template: an f32 output past the
+            # tolerance is held to F32_OWN times the f32 plain version's
+            # own distance from the plain version in f64 on the same inputs
+            ref64 = pk.backward_pass_multiref_reference(
+                [a.double() for a in kin[:7]], kin[7].double(), kin[8].double(), reg.double())
+            err = within_own(name, outs, refs, ref64)
+        del out, ref, outs, refs
         k_ms = cuda_ms(run)
-        p_ms = cuda_ms(plain, **PLAIN_REPS)
         b_ms, b_by = bound_ms(nbytes, ops)
         # the tiles' copies read every input once, in runs of a block's
         # lanes: 16 B (4 lanes f32) or 8 B (2 lanes) of each 32-B sector,
@@ -3308,14 +3414,21 @@ def time_tall(pk, pb):
         sectors = inputs * 32 // min(run_bytes, 32)
         log(f"[tall] {plan.main} n={n} m={m} T={T} B={B} f32 on the tall template ({plan.lanes} "
             f"lanes, {plan.threads} threads, ring {plan.depth[0]}): kernel {k_ms:.4f} ms (median "
-            f"of 10), plain {p_ms:.3f} ms (one run), max |kernel - plain| {err:.3e}; bound "
-            f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations); "
-            f"{b_ms / k_ms:.1%} of the bound; its copies read {run_bytes}-B runs: the sectors "
-            f"they touch hold {sectors / 1e6:.1f} MB against the inputs' {inputs / 1e6:.1f} MB "
+            f"of 10), plain {p_ms:.3f} ms (its check's run), max |kernel - plain| {err:.3e}; "
+            f"bound {b_ms:.4f} ms ({b_by}; "
+            f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations); {b_ms / k_ms:.1%} of the "
+            f"bound; its copies read {run_bytes}-B runs: the sectors they touch hold "
+            f"{sectors / 1e6:.1f} MB against the inputs' {inputs / 1e6:.1f} MB "
             f"({sectors / inputs:.0f} x without reuse across blocks in L2)")
+        del kin
+        if (n, m) in SHARES_DIMS:
+            tall_phase_shares(pk, n, m)
+        rec = dict(launches=launches, max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                   bound_by=b_by)
         if (n, m) == TEAM:
-            records[plan.main] = dict(launches=launches, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                      bound_ms=b_ms, bound_by=b_by)
+            records[plan.main] = rec
+        else:
+            grid[n, m] = rec
     n, m = TEAM
     st = [a.float().contiguous() for a in device_stacks(SEED, B, T - 1, n, m)]
     um = torch.ones((T - 1, m), dtype=torch.float32, device="cuda")
@@ -3344,7 +3457,45 @@ def time_tall(pk, pb):
             f"({b_by}); {b_ms / k_ms:.1%} of the bound")
         records[kname] = dict(launches=1, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                               bound_ms=b_ms, bound_by=b_by)
-    return records
+    device_stacks.cache_clear()
+    return records, grid
+
+
+def tall_phase_shares(pk, n, m, dtype=torch.float32, B=B_MAIN, T=TEAM_T, reps=3):
+    """The share of a step's cycles in each phase of the tall template
+    (``pk.PHASES``: the copy wait, A1, A2, B, C and its Quu_eff K, D, E) at (n, m), on
+    ``device_stacks``: a library of the rule's plan built with the phase
+    clocks (``RiccatiPlan.clocks``, for measuring only), launched once to
+    warm up and then ``reps`` times, the clocks read after.  Logs and
+    returns ({phase: share}, cycles a step a block, ms a launch of the
+    clocked build)."""
+    from iterativelqr_tpu_torch import _build
+
+    plan = clocked_plan(pk, n, m, dtype)
+    _build.build_generated(plan.source())
+    st = [a.to(dtype) for a in device_stacks(SEED, B, T - 1, n, m)]
+    kin = [a.contiguous() for a in pk.prepare_stacks(*st, torch.ones((T - 1, m), dtype=torch.bool))]
+    reg = torch.zeros(B, dtype=dtype, device="cuda")
+    scratch = pk.LaunchCounter()
+    run = lambda: pk.launch(plan, plan.main, scratch, (*kin, reg),
+                            pk.new_outputs(T - 1, n, m, B, dtype, "cuda"), T - 1, B)
+    run()
+    torch.cuda.synchronize()
+    pk.phase_clocks(plan)
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    clocks = pk.phase_clocks(plan)
+    total = sum(clocks.values())
+    shares = {k: v / total for k, v in clocks.items()}
+    blocks = -(-B // plan.lanes)
+    per_step = total / (reps * blocks * (T - 1))
+    ms = cuda_ms(run, reps=5, warmup=1)
+    log(f"[tall] phase shares n={n} m={m} {str(dtype).split('.')[-1]} B={B} T={T} ({plan.lanes} "
+        f"lanes, {plan.threads} threads; clocked build {ms:.4f} ms): "
+        + ", ".join(f"{k} {v:.1%}" for k, v in shares.items())
+        + f"; {per_step:.0f} cycles a step a block")
+    return shares, per_step, ms
 
 
 def team_cases(P):
@@ -3473,6 +3624,11 @@ def main():
                           text=True, check=True, timeout=60).stdout.strip().splitlines()[-1]
     log(f"[id] {smi}; torch {torch.__version__}; CUDA {torch.version.cuda}; nvcc: {nvcc}; "
         f"device count {torch.cuda.device_count()}")
+    # phase 5's CPU half in a worker process that needs no card, from now
+    # until phase 5 (beside phases 2-4, which wait on the card and nvcc)
+    cpu_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    cpu_worker = cpu_pool.submit(card_vs_cpu_cpu_half)
 
     # the kernel library (K3/K4) and the recursion's libraries at the
     # registered models' dims (otherwise each built at its first use), their
@@ -3550,8 +3706,10 @@ def main():
             f"{len(differ)} lanes" + (f" (first {differ[:8]}: {its_a[differ[:8]].tolist()} vs "
                                       f"{its_b[differ[:8]].tolist()})" if differ else ""))
 
-    check_card_vs_cpu(P)
-    check_vmap_card_vs_cpu(P)
+    cpu_half = cpu_worker.result()
+    cpu_pool.shutdown()
+    check_card_vs_cpu(P, cpu_half)
+    check_vmap_card_vs_cpu(P, cpu_half)
     at("phase 5 card vs cpu")
     # phases 8a's, 11d's, 10a's and 11a's builds in the background, from
     # phase 5's golden half on (beside its CPU-bound half they slowed it by
@@ -3693,9 +3851,12 @@ def main():
     at("phase 11a")
     check_riccati_grid(pk, pb, TALL_GRID, "tall")
     at("phase 11b")
-    records.update(time_tall(pk, pb))
+    tall_records, tall_grid = time_tall(pk, pb)
+    records.update(tall_records)
     records["riccati_backward_tall"].pop("launches")   # its wrapper's; the team's solve's:
     launches["riccati_backward_tall"] = team_counts["riccati_backward_tall"]
+    for (n, m), rec in tall_grid.items():   # no solve runs these dims: their wrapper's launch
+        extra.append(("riccati_backward_tall", f"n={n} m={m}", rec))
     for kname in ("riccati_packed_tall", "riccati_masked_tall", "riccati_masked_packed_tall"):
         # no solve of the JAX package runs K5, and no SL solve K6a/K6b:
         # their launches are those of one call of their wrapper (11c)

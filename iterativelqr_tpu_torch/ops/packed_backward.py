@@ -69,7 +69,6 @@ RICCATI_PACKED_TALL_LAUNCHES = LaunchCounter()
 # csrc/riccati_backward_wide.cuh, K2's; csrc/riccati_backward_tall.cuh, the
 # tall one)
 SHARED_MAX = 232448        # bytes of shared memory a block may take on the H100
-MAX_ROWS = 64              # n + m: the rule's range
 K2_MAX_ROWS = 32           # n + m: K2's template has a row of threads for each
 REGISTERS = 255            # 32-bit registers a thread may hold
 K1_TEAM = 4                # threads a lane in K1's template
@@ -135,14 +134,17 @@ def _k2_ring(n, m, lanes, masked, size):
 
 def _tall_state_values(n, m):
     """Values a lane of the tall template's state in shared memory
-    (``State``): P, Qxx (then the new P unsymmetrized), p, Qx, Quu, Qux, Qu,
-    k, and a scratch region that holds fx^T P and fu^T P, then the factor,
-    K and Quu K."""
-    return 2 * n * n + 2 * n + m * m + m * n + 2 * m + max((n + m) * n, m * m + 2 * m * n)
+    (``State``): P with p as its last column, Qxx (then the new P
+    unsymmetrized), Qx, Quu, Qux, Qu, k, and a scratch region that holds
+    fx^T [P p] and fu^T [P p], then the factor, K and Quu K."""
+    return (n * (n + 1) + n * n + n + m * m + m * n + 2 * m
+            + max((n + m) * (n + 1), m * m + 2 * m * n))
 
 
 def _tall_threads(lanes):
-    return min(256 * lanes, 1024)
+    """Threads a block of the tall template: a Cholesky warp a lane, the
+    producer warp after them, and at least 8 warps."""
+    return 32 * max(8, lanes + 1)
 
 
 def _tall_ring(n, m, lanes, masked, size):
@@ -171,7 +173,9 @@ class RiccatiPlan:
     a row of threads a row; 0 in the tall one: each phase hands its
     elements to the block's threads in turn); ``lanes`` a block; ``depth``
     (tiles of the ring) and ``shared`` (bytes a block), each (unmasked: K1,
-    K2, K5; masked: K6a, K6b); ``threads`` a block."""
+    K2, K5; masked: K6a, K6b); ``threads`` a block; ``clocks``, the tall
+    template's phase clocks built in (for measuring only: ``phase_clocks``;
+    no solve's plan has them)."""
 
     n: int
     m: int
@@ -182,6 +186,7 @@ class RiccatiPlan:
     depth: tuple
     shared: tuple
     threads: int
+    clocks: bool = False
 
     @property
     def wide(self) -> bool:
@@ -228,6 +233,7 @@ class RiccatiPlan:
                       '#include "riccati_backward_wide.cuh"']
         elif self.tall:
             lines += [f"#define RICCATI_TALL_LANES {self.lanes}",
+                      *(["#define RICCATI_TALL_CLOCKS 1"] if self.clocks else []),
                       '#include "riccati_backward_tall.cuh"']
         else:
             lines += ['#include "riccati_backward.cuh"']
@@ -261,37 +267,41 @@ def riccati_plan(n: int, m: int, dtype, template: str = None) -> RiccatiPlan:
       in f64 at 8;
     * past n + m = 32 (K2's block has a row of threads for each of P's and
       Quu's rows), the tall template at the most lanes a block (8, 4, 2, 1)
-      whose state and one step tile fit, as many tiles as fit (at most 2):
-      (36, 12) at 4 lanes in f32 and 2 in f64, (48, 16) at 2 and 1, (62, 2)
-      at 2 and 1.  Every (n, m) with n + m <= 64 fits 1 lane and 2 tiles in
-      f64.
+      whose state (``_tall_state_values``) and one step tile fit SHARED_MAX
+      bytes, as many tiles as fit (at most 2; ``_tall_ring``): (36, 12) at
+      4 lanes in f32 and 2 in f64, (48, 16) at 2 and 1, (62, 2) at 2 and 1,
+      (70, 4) at 2 and 1 (one tile), (4, 70) at 2 and 1.
 
     Where K1's and K2's templates both hold the dims, the rule follows
     their times on the card (``PERF.md`` §6, ``chip_smoke.py`` phase 10c):
     at (5, 1) and (6, 1) K1's is 1.36-1.52 x faster; at (5, 2) and (6, 2)
     they are within 15% of each other either way.
 
-    Refused (``NotImplementedError`` naming this rule): a dtype other than
-    f32 and f64, n < 1 or m < 1, n + m > MAX_ROWS = 64, and a template
-    asked for that cannot hold the dims.  No (n, m) with n + m <= 64 is
-    refused in either dtype.
+    The range is the fit rule: one lane's state and one step tile in a
+    block's shared memory, in that dtype.  So the limit differs by dtype
+    and by the split of n + m: in f64 from n + m = 76 (m = 1) through 82
+    (m = 12) to 99 (m = 62); in f32 from 107 (m = 1) to 141.  It is the
+    card's counterpart of the JAX package's VMEM budget
+    (``iterativelqr_tpu/ops/packed_backward.py::_VMEM_BUDGET``):
+    ``backward_pass_multiref`` streams its outputs (``_kernel_mr_stream``)
+    once the direct outputs' blocks pass the TPU's scoped VMEM, sizes its
+    chunk down to one step (``_auto_chunk``) and traces any (n, m) whose
+    chunk fits.  The card's limits are per block and do not depend on T or
+    B: a lane's state lives in one block for the whole sweep, and the
+    outputs go straight to device memory.
 
-    The JAX package's limit is a VMEM budget: ``backward_pass_multiref``
-    streams its outputs (``_kernel_mr_stream``) once the direct outputs'
-    blocks pass the TPU's scoped VMEM, and traces any (n, m) whose inputs'
-    chunk fits.  The card's limits are per block (registers, 227 KB of
-    shared memory, 1024 threads) and do not depend on T or B: a lane's
-    state lives in one block for the whole sweep, and the outputs go
-    straight to device memory.
+    Refused (``NotImplementedError`` naming this rule): a dtype other than
+    f32 and f64, n < 1 or m < 1, dims whose one lane and one step tile do
+    not fit a block in that dtype (spreading a lane over a cluster's
+    shared memory is not done), and a template asked for that cannot hold
+    the dims.
     """
     if dtype not in _DTYPES:
         _refuse(n, m, dtype, "the kernels take float32 or float64")
     tag = _DTYPES[dtype]
     size = _SIZES[tag]
-    if n < 1 or m < 1 or n + m > MAX_ROWS:
-        _refuse(n, m, dtype, f"the rule takes n >= 1, m >= 1 and n + m <= {MAX_ROWS} "
-                             f"(the range the templates are held to against the plain "
-                             f"version on the card)")
+    if n < 1 or m < 1:
+        _refuse(n, m, dtype, "the rule takes n >= 1 and m >= 1")
     # K1's template can hold the dims (its rows, its ring in f64), and the
     # rule takes it where a thread's values fit its registers
     k1_holds = n <= K1_TEAM * K1_MAX_ROWS and _k1_ring(n, m, True, 8)[1] <= SHARED_MAX
@@ -316,8 +326,9 @@ def riccati_plan(n: int, m: int, dtype, template: str = None) -> RiccatiPlan:
                 return RiccatiPlan(n, m, tag, "tall", 0, lanes, tuple(r[0] for r in rings),
                                    tuple(r[1] for r in rings), _tall_threads(lanes))
         _refuse(n, m, dtype,
-                f"the tall template's state and one step tile at 1 lane a block take "
-                f"{_tall_ring(n, m, 1, True, size)[1]} > {SHARED_MAX} bytes")
+                f"the fit rule: one lane's state and one step tile of the tall template "
+                f"take {_tall_ring(n, m, 1, True, size)[1]} > {SHARED_MAX} bytes of a "
+                f"block's shared memory in {tag}")
     if template != "K2":
         raise ValueError(f"template {template!r}: 'K1', 'K2' or 'tall'")
     if n + m > K2_MAX_ROWS:
@@ -381,8 +392,8 @@ def _chol(A, m):
         if j + 1 == m:
             break
         col = A[j + 1:, j] / d
-        for i in range(j + 1, m):
-            L[i][j] = col[i - j - 1]
+        for i, c in enumerate(col.unbind(0), start=j + 1):
+            L[i][j] = c
         A[j + 1:, j + 1:] = A[j + 1:, j + 1:] - col[:, None] * col[None, :]
     return L
 
@@ -390,14 +401,16 @@ def _chol(A, m):
 def _chol_solve(L, cols, m):
     """(L L^T)^-1 col for each of ``cols`` ([m, B] each), by forward then
     back substitution, all columns at once: each entry's operations in
-    the order of one column's substitution."""
-    R = torch.stack(cols, dim=0)
+    the order of one column's substitution (the forward one right-looking,
+    a row's subtractions k = 0, 1, ... as the left-looking loop makes
+    them: O(m) tensor operations where that loop made O(m^2))."""
+    R = torch.stack(cols, dim=0).clone()
     y = [None] * m
     for i in range(m):
-        s = R[:, i]
-        for kk in range(i):
-            s = s - L[i][kk] * y[kk]
-        y[i] = s / L[i][i]
+        y[i] = R[:, i] / L[i][i]
+        if i + 1 < m:
+            below = torch.stack([L[k][i] for k in range(i + 1, m)], dim=0)
+            R[:, i + 1:] = R[:, i + 1:] - below[None] * y[i][:, None]
     x = [None] * m
     for i in range(m - 1, -1, -1):
         s = y[i]
@@ -568,6 +581,24 @@ def riccati_ring(n: int, m: int, dtype: torch.dtype, masked: bool,
     use."""
     plan = riccati_plan(n, m, dtype) if plan is None else plan
     return ring_entry(plan.symbol(plan.ring), int(masked), lib=_library(plan))
+
+
+PHASES = ("wait", "A1", "A2", "B", "C", "Q", "D", "E")   # csrc/riccati_backward_tall.cuh's Phase
+
+
+def phase_clocks(plan: RiccatiPlan, reset: bool = True) -> dict:
+    """{phase: cycles} of the tall template's steps (``PHASES``: the copy
+    wait, then each phase up to its barrier), summed over the blocks of the
+    launches of ``plan``'s library since the last reset; ``plan`` has
+    ``clocks`` (a build for measuring only)."""
+    if not (plan.tall and plan.clocks):
+        raise ValueError("phase_clocks: a tall plan built with clocks=True")
+    fn = _library(plan).riccati_tall_clocks
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    out = (ctypes.c_ulonglong * len(PHASES))()
+    if fn(ctypes.addressof(out), int(reset)) != 0:
+        raise RuntimeError("riccati_tall_clocks failed")
+    return dict(zip(PHASES, out))
 
 
 def new_outputs(Tm1, n, m, B, dtype, device):

@@ -7,7 +7,7 @@ kernels become two instantiations of a recursion template, K1's
 or the tall one (``csrc/riccati_backward_tall.cuh``) as
 ``packed_backward.riccati_plan`` picks for the dims, built at their first
 use; the JAX kernels take any (n, m), and so do these, within the rule's
-range (n + m <= 64):
+range (the fit rule: one lane's state and one step tile in a block):
 
 * K6a (the TPU kernel ``_kernel``, v1): ``backward_pass_masked`` on seven
   batch-last stacks, the terminal P, p read from row Tm1 of ``gxx``/``gx``,

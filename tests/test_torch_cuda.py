@@ -175,25 +175,26 @@ def test_riccati_wide_kernel_matches_plain(dtype, tol):
 
 @pytest.mark.cuda
 def test_riccati_kernel_rejects_what_it_was_not_built_for():
-    """Dims past the rule's range (n + m > 64) raise on a CUDA tensor, naming
-    the rule, in K1/K2's wrapper and in K5's, K6a's and K6b's entries (no
-    plain version runs in their place); so does a non-contiguous stack."""
+    """Dims past the rule's range (one lane and one step tile do not fit a
+    block: (120, 1) in f32) raise on a CUDA tensor, naming the rule, in
+    K1/K2's wrapper and in K5's, K6a's and K6b's entries (no plain version
+    runs in their place); so does a non-contiguous stack."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    B, Tm1, n, m = 64, 5, 60, 5
+    B, Tm1, n, m = 64, 5, 120, 1
     st = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
           for a in _wide_stacks(np.random.default_rng(1), B, Tm1, n, m)]
     kin = [a.contiguous() for a in pk.prepare_stacks(
         *st, torch.ones((Tm1, m), dtype=torch.bool))]
     reg = torch.zeros(B, device="cuda")
-    with pytest.raises(NotImplementedError, match="riccati_plan.*n \\+ m <= 64"):
+    with pytest.raises(NotImplementedError, match="riccati_plan.*the fit rule"):
         pk.backward_pass_multiref(kin[:7], kin[7], kin[8], reg)
     from iterativelqr_tpu_torch.ops import pallas_backward as pb
 
     lead = [a.movedim(-1, 0).contiguous() for a in st]
     for entry in (pk.backward_pass_batched_pallas_v3, pb.backward_pass_batched_pallas,
                   pb.backward_pass_batched_pallas_v2):
-        with pytest.raises(NotImplementedError, match="n=60, m=5"):
+        with pytest.raises(NotImplementedError, match="n=120, m=1"):
             entry(*lead, torch.ones((Tm1, m), dtype=torch.bool), reg)
     st4 = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
            for a in _stacks(np.random.default_rng(1), B, Tm1, 4, 1)]
@@ -205,8 +206,9 @@ def test_riccati_kernel_rejects_what_it_was_not_built_for():
 
 
 RICCATI_GRID = ((3, 1), (4, 2), (5, 1), (5, 2), (6, 2), (7, 3), (13, 4), (14, 7), (24, 8),
-                # past n + m = 32: the tall template
-                (20, 13), (24, 12), (36, 12), (48, 16), (62, 2), (2, 62))
+                # past n + m = 32: the tall template (past n + m = 64 at
+                # (70, 4) and (4, 70))
+                (20, 13), (24, 12), (36, 12), (48, 16), (62, 2), (2, 62), (70, 4), (4, 70))
 
 
 @pytest.mark.cuda

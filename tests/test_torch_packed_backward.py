@@ -121,7 +121,8 @@ def test_prepare_stacks_guu_fixup():
     (3, 1, torch.float32, True),     # no registered model's dims: built at first use
     (12, 4, torch.float16, False),
     (30, 3, torch.float32, True),    # past n + m = 32: the tall template
-    (60, 5, torch.float32, False),   # past the rule's range, n + m <= 64
+    (60, 5, torch.float32, True),    # past n + m = 64: the fit rule holds it
+    (200, 1, torch.float32, False),  # past the fit rule: one lane and one tile do not fit
 ])
 def test_unsupported_instantiation_raises(n, m, dtype, ok):
     """An (n, m, dtype) outside the rule's range raises before any launch

@@ -16,6 +16,7 @@ and closer starts with the inputs' 0.1 N(0, 1) noise begin inside the
 separation."""
 
 import concurrent.futures
+import multiprocessing
 
 import jax
 import jax.numpy as jnp
@@ -120,15 +121,24 @@ def _inputs():
     return quadrotor_team_inputs(B_SOLVE, T_SOLVE, seed=1, radius=R_SOLVE)
 
 
-def _jax_lowered():
-    """The JAX package's vmap-route solve, traced and lowered.  Its
+def _jax_solution():
+    """The JAX package's vmap-route solve of ``_inputs()`` (iterations,
+    objective, xs), traced, compiled and run in a worker process of its
+    own (the tests' JAX settings: CPU, f64, the compile cache), beside the
+    port's solve in this one: its trace alone took 25-33 s of Python.  Its
     backward pass is named: at B=4 > T // 7 the vmap rule of "auto" takes
     the reverse scan too (``ops/backward.py::_assoc_wins``), so the program
     is the same, but "auto" also traces the associative scan for a single
     instance (8 of the 33 s the trace took)."""
+    from iterativelqr_tpu.utils.compile_cache import setup_compile_cache
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    setup_compile_cache("cpu")
     spec = quadrotor_team(jilqr, jnp, T=T_SOLVE, radius=R_SOLVE)
     fn = jmake_batched(spec, jilqr.Options(**TUNED, backward_pass="scan"))
-    return jax.jit(fn).lower(*(jnp.asarray(a) for a in _inputs()))
+    jsol = jax.jit(fn)(*(jnp.asarray(a) for a in _inputs()))
+    return {f: np.asarray(getattr(jsol, f)) for f in ("iterations", "objective", "xs")}
 
 
 def test_sl_solve_matches_jax():
@@ -138,17 +148,15 @@ def test_sl_solve_matches_jax():
     iterations lane by lane and objectives within 1e-8 relative of the JAX
     package's vmap-route solve (traces on), and the trajectories within
     1e-8 of the largest value; the rotorcraft left their starts."""
-    lowered = _jax_lowered()
     spec = quadrotor_team(P, torch, T=T_SOLVE, radius=R_SOLVE)
     opts = P.Options(**TUNED, record_traces=False, batched_solver="sl", forward_kernel="pallas")
     inputs = _inputs()
-    # XLA compiles the JAX solve (without the GIL) while the port solves
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        compiled = pool.submit(lowered.compile)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jax_side = pool.submit(_jax_solution)
         sol = P.make_batched_solve_fn(spec, opts, device="cpu", dtype=torch.float64)(
             *(torch.as_tensor(a) for a in inputs))
-        jsol = compiled.result()(*(jnp.asarray(a) for a in inputs))
-    want = {f: np.asarray(getattr(jsol, f)) for f in ("iterations", "objective", "xs")}
+        want = jax_side.result(timeout=600)
     np.testing.assert_array_equal(sol.iterations.numpy(), want["iterations"])
     np.testing.assert_allclose(sol.objective.numpy(), want["objective"], rtol=1e-8, atol=0)
     np.testing.assert_allclose(sol.xs.numpy(), want["xs"], rtol=0,

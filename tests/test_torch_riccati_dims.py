@@ -31,9 +31,12 @@ torch.set_num_threads(1)
 
 TOL = 1e-10
 GRID = ((3, 1), (4, 2), (5, 1), (5, 2), (6, 2), (7, 3), (13, 4), (14, 7), (24, 8))
-# past n + m = 32: chip_smoke.py phase 11's grid
-TALL_GRID = ((20, 13), (24, 12), (36, 12), (48, 16), (62, 2), (2, 62))
+# past n + m = 32: chip_smoke.py phase 11's grid (past 64 at (70, 4), (4, 70))
+TALL_GRID = ((20, 13), (24, 12), (36, 12), (48, 16), (62, 2), (2, 62), (70, 4), (4, 70))
 F32, F64 = torch.float32, torch.float64
+# the fit rule's limits: the least n + m that one lane and one step tile of
+# the tall template do not fit (m = 1), and the most n + m that they fit
+LIMITS = {F32: (108, 141), F64: (77, 99)}
 
 
 # (a) the rule ---------------------------------------------------------------
@@ -57,14 +60,24 @@ def test_registered_dims_keep_their_kernels(n, m, template, depth, shared):
 
 @pytest.mark.parametrize("dtype", [F32, F64])
 def test_every_dims_in_range_fit_a_block(dtype):
-    """Every (n, m) with n + m <= 64 gets a plan whose shared memory, masked
-    or not, fits a block, with at least one ring tile and at most 1024
-    threads; K2's lanes (n + m <= 32) and the tall template's (past 32) are
-    the most that fit."""
+    """Every (n, m) whose one lane and one step tile of the tall template
+    fit a block in that dtype (the fit rule) gets a plan whose shared
+    memory, masked or not, fits a block, with at least one ring tile and at
+    most 1024 threads; K2's lanes (n + m <= 32) and the tall template's
+    (past 32) are the most that fit.  Every other (n, m) is refused naming
+    the rule, and the range covers every n + m below its least refusal
+    (LIMITS)."""
     size = {F32: 4, F64: 8}[dtype]
-    assert pk.MAX_ROWS == 64
-    for n, m in itertools.product(range(1, 64), range(1, 64)):
-        if n + m > pk.MAX_ROWS:
+    first, last = LIMITS[dtype]
+    for n, m in itertools.product(range(1, last + 2), range(1, last + 2)):
+        if n + m > last + 1:
+            continue
+        fits = min(pk._tall_ring(n, m, 1, masked, size)[0] for masked in (False, True)) >= 1
+        assert fits or n + m >= first, (n, m)
+        assert not fits or n + m <= last, (n, m)
+        if not fits:
+            with pytest.raises(NotImplementedError, match="riccati_plan.*the fit rule"):
+                pk.riccati_plan(n, m, dtype)
             continue
         plan = pk.riccati_plan(n, m, dtype)
         assert max(plan.shared) <= pk.SHARED_MAX == 232448, (n, m)
@@ -75,7 +88,7 @@ def test_every_dims_in_range_fit_a_block(dtype):
                 assert min(pk._k2_ring(n, m, lanes, masked, size)[0]
                            for masked in (False, True)) < 1, (n, m, lanes)
         elif plan.tall:
-            assert plan.threads == min(256 * plan.lanes, 1024)
+            assert plan.threads == 32 * max(8, plan.lanes + 1)
             for lanes in (l for l in pk.TALL_LANES if l > plan.lanes):
                 assert min(pk._tall_ring(n, m, lanes, masked, size)[0]
                            for masked in (False, True)) < 1, (n, m, lanes)
@@ -96,8 +109,10 @@ def test_the_grid_takes_fewer_lanes_where_32_do_not_fit():
 
 
 @pytest.mark.parametrize("n,m,dtype,match", [
-    (60, 5, F32, "n \\+ m <= 64"),
-    (1, 64, F64, "n \\+ m <= 64"),
+    # past the fit rule: one lane and one step tile do not fit a block in
+    # this dtype ((76, 1) in f32 is held)
+    (76, 1, F64, "the fit rule: .* 235992 > 232448 bytes .* in f64"),
+    (200, 1, F32, "the fit rule: .* > 232448 bytes .* in f32"),
     (0, 1, F32, "n >= 1"),
     (4, 1, torch.float16, "float32 or float64"),
     (12, 4, torch.float16, "float32 or float64"),
@@ -116,25 +131,35 @@ def test_a_template_asked_for_that_cannot_hold_the_dims_raises():
     assert pk.riccati_plan(12, 4, F32, template="tall").lanes == 8
 
 
-@pytest.mark.parametrize("n,m,dtype,lanes,depth,shared", [
+@pytest.mark.parametrize("n,m,dtype,lanes,threads,depth,shared", [
     # once refused (n + m > 32), now held
-    (30, 3, F32, 8, (2, 2), (223996, 224028)),
-    (1, 32, F64, 8, (1, 1), (213712, 213968)),
+    (30, 3, F32, 8, 288, (2, 2), (225052, 225084)),
+    (1, 32, F64, 8, 288, (1, 1), (213712, 213968)),
     # the team of three quadrotors, in f32 (the solve's) and f64
-    (36, 12, F32, 4, (2, 2), (196672, 196768)),
-    (36, 12, F64, 2, (2, 2), (196720, 196912)),
-    # the ends of the range: one lane a block in f64
-    (62, 2, F64, 1, (2, 2), (223392, 223424)),
-    (2, 62, F64, 2, (1, 1), (198272, 198768)),
+    (36, 12, F32, 4, 256, (2, 2), (197440, 197536)),
+    (36, 12, F64, 2, 256, (2, 2), (197488, 197680)),
+    # one lane a block in f64
+    (62, 2, F64, 1, 256, (2, 2), (223904, 223936)),
+    (2, 62, F64, 2, 256, (1, 1), (198272, 198768)),
+    # past n + m = 64, once refused: held by the fit rule in both dtypes
+    (70, 4, F32, 2, 256, (1, 1), (207616, 207632)),
+    (70, 4, F64, 1, 256, (1, 1), (207632, 207664)),
+    (4, 70, F32, 2, 256, (2, 2), (175912, 176488)),
+    (4, 70, F64, 1, 256, (2, 2), (176192, 177312)),
+    (60, 5, F32, 2, 256, (2, 2), (219236, 219300)),
+    (1, 64, F64, 2, 256, (1, 1), (205440, 205952)),
+    # refused in f64 (one lane does not fit), held in f32
+    (76, 1, F32, 1, 256, (2, 2), (165140, 165172)),
 ])
-def test_tall_dims_hold_a_plan(n, m, dtype, lanes, depth, shared):
+def test_tall_dims_hold_a_plan(n, m, dtype, lanes, threads, depth, shared):
     """Past n + m = 32 the rule takes the tall template at the most lanes a
     block (8, 4, 2, 1) whose state and one step tile fit, as many tiles as
-    fit (at most 2), min(256 lanes, 1024) threads; its kernels are named
+    fit (at most 2), 32 max(4, lanes + 1) threads (a Cholesky warp a lane,
+    the producer warp, at least 8 warps); its kernels are named
     ``*_tall``."""
     plan = pk.riccati_plan(n, m, dtype)
     assert (plan.template, plan.lanes, plan.depth, plan.shared) == ("tall", lanes, depth, shared)
-    assert plan.threads == min(256 * lanes, 1024) and plan.rows == 0
+    assert plan.threads == threads == 32 * max(8, lanes + 1) and plan.rows == 0
     assert (plan.main, plan.ring) == ("riccati_backward_tall", "riccati_tall_ring")
     assert pk.kernel_symbol(n, m, dtype) == f"riccati_backward_tall_{plan.dtype}_n{n}_m{m}"
     assert pk.family_counter(pk.RICCATI_PACKED_LAUNCHES, pk.RICCATI_PACKED_WIDE_LAUNCHES, plan,
@@ -272,3 +297,36 @@ def test_masked_plain_matches_jax_kernels_at_24_12(variant):
     for a, b in zip(out, ref):
         close(a.numpy(), np.asarray(b), TOL)
     assert (out[0].numpy()[:, ::2, -1, :] == 0.0).all()
+
+
+# (f) the plain recursion past n + m = 64 ------------------------------------
+
+
+def test_plain_matches_jax_step_math_at_70_4():
+    """At (70, 4), past the old n + m = 64 and held now by the fit rule in
+    both dtypes: the port's plain recursion (what the tall template is held
+    to on the card) against the JAX package's step math
+    (``iterativelqr_tpu/ops/packed_backward.py::_riccati_step``, the body
+    of its kernels, eager, a Python loop over t: its interpret-mode kernel
+    would take minutes to trace here), f64, B=16, Tm1=4, indefinite Quu on
+    3 lanes at one step and a per-lane regularizer, to 1e-10."""
+    B, Tm1, n, m = 16, 4, 70, 4
+    assert pk.riccati_plan(n, m, F32).tall and pk.riccati_plan(n, m, F64).tall
+    rng = np.random.default_rng(704)
+    st = stacks(rng, B, Tm1, n, m)
+    st[5][:3, 1] = -1.0e3
+    reg = np.abs(rng.standard_normal(B))
+    bl = [_batch_last(a) for a in st]
+    out = _port_multiref(bl, reg, np.ones((Tm1, m), bool))
+    fx, fu, gx, gu, gxx, guu, gux = (jnp.asarray(a) for a in bl)
+    P, p, ok = gxx[-1], gx[-1], jnp.ones(B)
+    ref = [[None] * Tm1 for _ in range(5)]
+    for t in range(Tm1 - 1, -1, -1):
+        K, kff, Qx, Qu, P, p, ok = jpk._riccati_step(
+            n, m, jnp.asarray(reg), P, p, ok, fx[t], fu[t], gx[t], gu[t], gxx[t], guu[t], gux[t])
+        for i, a in enumerate((K, kff, Qx, Qu, p)):
+            ref[i][t] = np.asarray(a)
+    for name, a, b in zip(["K", "k", "Qx", "Qu", "p"], ref, out):
+        close(b, np.stack(a), TOL)
+    np.testing.assert_array_equal(out[-1], np.asarray(ok))
+    assert (out[-1][:3] == 0).all() and (out[-1][3:] == 1).all()

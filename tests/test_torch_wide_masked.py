@@ -59,7 +59,7 @@ def _both(entry_port, entry_jax, st, um, reg, **jkw):
 def test_wide_dims_take_k2s_template():
     """(12, 4) is a wide pair: K5, K6a and K6b resolve to the instantiations
     of K2's template, counted apart from K1's; dims past the rule's range
-    raise."""
+    (one lane and one step tile do not fit a block) raise."""
     for name in ("riccati_packed", "riccati_masked", "riccati_masked_packed"):
         for dtype, dn in ((torch.float32, "f32"), (torch.float64, "f64")):
             assert pk.riccati_plan(N, M, dtype).wide
@@ -68,8 +68,10 @@ def test_wide_dims_take_k2s_template():
                              pk.riccati_plan(N, M, torch.float32)) is pb.RICCATI_MASKED_WIDE_LAUNCHES
     assert pk.family_symbol("riccati_masked", 30, 3, torch.float32) == \
         "riccati_masked_f32_n30_m3"   # past n + m = 32: the tall template
-    with pytest.raises(NotImplementedError, match="riccati_plan.*n \\+ m <= 64"):
-        pk.family_symbol("riccati_masked", 60, 5, torch.float32)
+    assert pk.family_symbol("riccati_masked", 60, 5, torch.float32) == \
+        "riccati_masked_f32_n60_m5"   # past n + m = 64: the fit rule holds it
+    with pytest.raises(NotImplementedError, match="riccati_plan.*the fit rule"):
+        pk.family_symbol("riccati_masked", 200, 1, torch.float32)
 
 
 def test_v3_entry_matches_jax_at_wide_dims():
