@@ -47,7 +47,7 @@ Phases, each of which raises (non-zero exit) when it fails:
    fraction from batch_stats and recomputed from the returned trajectories
    with constraint_values; K1 (acrobot, car) or K2 (quadrotor), K3 and K4
    launches counted over each timed solve; the per-iteration split of
-   derive+backward against line search in each;
+   each into its phases' spans (utils/profiling.py) in each;
 4c. the per-instance solver's vmap route at acrobot, f32 (bench.py's
    initial guess): the literal make_batched_solve_fn(spec, Options())
    (traces on, the "auto" backward = the reverse scan, loop rollouts) at
@@ -944,28 +944,36 @@ def check_rollouts(fk, models=ROLLOUT_MODELS):
 # ---------------------------------------------------------------------------
 
 
-class Sections:
-    """``section(name)`` context manager for make_batched_solve_sl: host
-    wall time and device time (CUDA events, no synchronisation) per phase."""
+PHASES = ("derive", "augment", "backward", "slope", "line_search", "al_update")
 
-    def __init__(self):
-        self.host = collections.Counter()
-        self.events = collections.defaultdict(list)
 
-    @contextlib.contextmanager
-    def __call__(self, name):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        a.record()
-        yield
-        b.record()
-        self.host[name] += time.perf_counter() - t0
-        self.events[name].append((a, b))
+def phase_ms(run, tag):
+    """``run()`` under utils/profiling.trace (its Chrome trace lands in
+    SCRATCH/phases_<tag>/); returns (its result, host ms and device ms, the
+    stream time between each span's CUDA events, summed by span name).  The
+    spans inside a solve's ``finish`` are left out."""
+    from iterativelqr_tpu_torch.utils import profiling
 
-    def device_ms(self):
+    profiling.drain()
+    with profiling.trace(os.path.join(SCRATCH, f"phases_{tag}")):
+        out = run()
         torch.cuda.synchronize()
-        return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in self.events.items()}
+    recs = profiling.drain()
+    by_id = {r["id"]: r for r in recs}
+
+    def in_finish(r):
+        while r is not None:
+            if r["name"] == "finish":
+                return True
+            r = by_id.get(r["parent"])
+        return False
+
+    host, dev = collections.Counter(), collections.Counter()
+    for r in recs:
+        if not in_finish(r):
+            host[r["name"]] += (r["host_end_ns"] - r["host_start_ns"]) / 1e6
+            dev[r["name"]] += r["device_ms"]
+    return out, host, dev
 
 
 def bench_inputs(B, T, dtype, device):
@@ -999,24 +1007,13 @@ LAUNCH_NAMES = ("riccati_backward", "riccati_backward_wide", "sl_score_rollout",
 
 
 def counters():
-    from iterativelqr_tpu_torch.ops import packed_backward as pk
-    from iterativelqr_tpu_torch.ops import pallas_backward as pb
-    from iterativelqr_tpu_torch.ops import sl_forward_kernel as fk
+    """The port's launch counters (utils/profiling.py's registry) by kernel
+    family, in LAUNCH_NAMES's order."""
+    from iterativelqr_tpu_torch.ops import pallas_backward, sl_forward_kernel  # noqa: F401
+    from iterativelqr_tpu_torch.utils import profiling
 
-    return dict(zip(LAUNCH_NAMES, (pk.RICCATI_LAUNCHES, pk.RICCATI_WIDE_LAUNCHES,
-                                   fk.SCORE_LAUNCHES, fk.REROLL_LAUNCHES,
-                                   pk.RICCATI_PACKED_LAUNCHES,
-                                   pb.RICCATI_MASKED_LAUNCHES,
-                                   pb.RICCATI_MASKED_PACKED_LAUNCHES,
-                                   pk.RICCATI_PACKED_WIDE_LAUNCHES,
-                                   pb.RICCATI_MASKED_WIDE_LAUNCHES,
-                                   pb.RICCATI_MASKED_PACKED_WIDE_LAUNCHES,
-                                   fk.GENERATED_SCORE_LAUNCHES,
-                                   fk.GENERATED_REROLL_LAUNCHES,
-                                   pk.RICCATI_TALL_LAUNCHES,
-                                   pk.RICCATI_PACKED_TALL_LAUNCHES,
-                                   pb.RICCATI_MASKED_TALL_LAUNCHES,
-                                   pb.RICCATI_MASKED_PACKED_TALL_LAUNCHES)))
+    found = profiling.launch_counters()
+    return {k: found[k] for k in LAUNCH_NAMES}
 
 
 def counted_solve(P, solve, args):
@@ -1080,26 +1077,19 @@ def report(name, sol, stats, frac, frac_true, wall, counts, na, B):
 
 
 def per_iteration_split(name, spec, opts, xs, us, ws):
-    """The same solve with the per-phase timer, cut to its first
+    """The same solve traced, cut to its first
     SPLIT_ITERATIONS iterations (on acrobot every lane is still live then):
-    host and device-event ms per iteration of derive+backward and of the
-    line search."""
+    host and device-event ms per iteration of each phase's span (traced)."""
     from iterativelqr_tpu_torch.core.solve_sl import make_batched_solve_sl
 
-    sections = Sections()
     timed = make_batched_solve_sl(
         spec, dataclasses.replace(opts, max_total_iterations=SPLIT_ITERATIONS),
-        device=xs.device, dtype=xs.dtype, section=sections)
-    sol = timed(xs, us, ws)
-    torch.cuda.synchronize()
-    dev_ms = sections.device_ms()
+        device=xs.device, dtype=xs.dtype)
+    sol, host, dev = phase_ms(lambda: timed(xs, us, ws), name.replace("/", "_"))
     trips = int(sol.iterations.max())
-    der_host = sections.host["derive_backward"] / trips * 1e3
-    ls_host = sections.host["line_search"] / trips * 1e3
-    der_dev = dev_ms["derive_backward"] / trips
-    ls_dev = dev_ms["line_search"] / trips
-    log(f"[slice] {name}: per iteration (first {trips}) derive+backward {der_host:.2f} ms host / {der_dev:.2f} ms device-events, "
-        f"line search {ls_host:.2f} ms host / {ls_dev:.2f} ms device-events")
+    log(f"[slice] {name}: per iteration (first {trips}, traced) " + ", ".join(
+        f"{k} {host[k] / trips:.2f} ms host / {dev[k] / trips:.2f} ms device-events"
+        for k in PHASES))
 
 
 def run_preset(P, name, kw, fkm, B, T=T_MAIN, spec=None):
@@ -1215,24 +1205,20 @@ def run_model(P, model, fkm, spec=None, label=None):
 SPLIT_ITERATIONS_VMAP = 3
 
 
-def vmap_solver(P, spec, variant, device, section=None, **kw):
+def vmap_solver(P, spec, variant, device, **kw):
     """The batched solve of one phase 4c cell: "auto" is the literal
-    make_batched_solve_fn(spec, Options()) (make_solve_fn(...).vmap() when a
-    timer ``section`` is given: the same route); "v1"/"v2" the tuned preset
+    make_batched_solve_fn(spec, Options()); "v1"/"v2" the tuned preset
     with traces through make_solve_fn(..., backward_impl=
     make_backward_dispatch(variant=...)).vmap().  ``kw`` are further
     options."""
     from iterativelqr_tpu_torch.ops.pallas_backward import make_backward_dispatch
 
-    timer = {} if section is None else {"section": section}
     if variant == "auto":
-        if section is None:
-            return P.make_batched_solve_fn(spec, P.Options(**kw), device=device,
-                                           dtype=torch.float32)
-        return P.make_solve_fn(spec, P.Options(**kw), device=device, **timer).vmap()
+        return P.make_batched_solve_fn(spec, P.Options(**kw), device=device,
+                                       dtype=torch.float32)
     opts = P.Options(**dict(TUNED, record_traces=True, backward_pass="scan", **kw))
     return P.make_solve_fn(spec, opts, backward_impl=make_backward_dispatch(variant=variant),
-                           device=device, **timer).vmap()
+                           device=device).vmap()
 
 
 @contextlib.contextmanager
@@ -1350,15 +1336,12 @@ def run_vmap_cell(P, variant, B, model="acrobot"):
         f"on {int((tally['truncated'] > 0).sum())} lanes, trace slots written again "
         f"{int(tally['rewrites'].sum())}, dropped {int(tally['dropped'].sum())}: "
         f"count + written again + dropped = iterations on every lane")
-    sections = Sections()
-    timed = vmap_solver(P, spec, variant, device, max_total_iterations=SPLIT_ITERATIONS_VMAP,
-                        section=sections)
-    part = timed(xs, us, ws)
-    dev_ms = sections.device_ms()
+    timed = vmap_solver(P, spec, variant, device, max_total_iterations=SPLIT_ITERATIONS_VMAP)
+    part, host, dev = phase_ms(lambda: timed(xs, us, ws), f"vmap_{variant}_{model}")
     n_it = int(part.iterations.max())
-    log(f"[vmap] {name}: per iteration (first {n_it}) " + ", ".join(
-        f"{k} {sections.host[k] / n_it * 1e3:.2f} ms host / {dev_ms[k] / n_it:.2f} ms device-events"
-        for k in ("derive", "backward", "line_search")))
+    log(f"[vmap] {name}: per iteration (first {n_it}, traced) " + ", ".join(
+        f"{k} {host[k] / n_it:.2f} ms host / {dev[k] / n_it:.2f} ms device-events"
+        for k in PHASES))
     return sol, counts
 
 
@@ -1802,7 +1785,7 @@ def run_farm(P, spec=None, label="farm"):
     launch in every warm solve (counts set to 0 just before and read just
     after each).  Reports
     plans/s (B x steps / wall of the warm steps), trips a step, and a split
-    of one more warm step into re-roll, derive+backward and line search,
+    of one more warm step into re-roll and the solve's phases (spans),
     host against device-event time.  Returns (plans/s, the warm solves'
     launch counts)."""
     from iterativelqr_tpu_torch.core.solve_sl import make_batched_solve_sl
@@ -1879,18 +1862,20 @@ def run_farm(P, spec=None, label="farm"):
         f"{total['sl_score_rollout']}, K4 {total['sl_winner_reroll']}; mean distance to the goal "
         f"{dist:.3f}")
     # one more warm step, split: the re-roll (host loop) and the solve's
-    # phases, host wall against device-event time
-    sections = Sections()
-    timed = make_batched_solve_sl(spec, opts, device=dev, dtype=dtype, dual_warm_start=True,
-                                  section=sections)
-    with sections("reroll"):
-        args = reroll(x, sol)
-    part = timed(*args)
-    torch.cuda.synchronize()
-    dev_ms = sections.device_ms()
-    log(f"[{label}] one more warm step ({int(part.iterations.max())} trips), host / device-event ms: "
-        + ", ".join(f"{k} {sections.host[k] * 1e3:.2f} / {dev_ms[k]:.2f}"
-                    for k in ("reroll", "derive_backward", "line_search")))
+    # phases, host wall against device-event time (traced)
+    from iterativelqr_tpu_torch.utils import profiling
+
+    timed = make_batched_solve_sl(spec, opts, device=dev, dtype=dtype, dual_warm_start=True)
+
+    def step():
+        with profiling.annotate("reroll"):
+            args = reroll(x, sol)
+        return timed(*args)
+
+    part, host, dev_ms = phase_ms(step, label.replace("/", "_"))
+    log(f"[{label}] one more warm step ({int(part.iterations.max())} trips, traced), host / "
+        "device-event ms: " + ", ".join(f"{k} {host[k]:.2f} / {dev_ms[k]:.2f}"
+                                       for k in ("reroll",) + PHASES))
     return B * FARM_STEPS / wall, total
 
 
@@ -2304,7 +2289,7 @@ def profile_tuned(P, ref):
         with open(path) as f:
             events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
         window = max((e for e in events if e.get("cat") == "user_annotation"
-                      and e.get("name") == "tuned_solve"),
+                      and e.get("name") == profiling.PREFIX + "tuned_solve"),
                      key=lambda e: float(e.get("dur", 0.0)))
         device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
         if not device:

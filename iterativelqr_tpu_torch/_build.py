@@ -30,6 +30,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from .utils import profiling
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -83,16 +85,18 @@ def _log_path() -> Path:
 
 def _run(cmds):
     """Start every command at once, wait for all; raise on the first that
-    failed.  Returns each command's output."""
-    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True))
-             for cmd in cmds]
+    failed.  Returns each command's output.  The wait adds to the counter
+    ``build.nvcc_s``."""
     outs, failed = [], None
-    for cmd, proc in procs:
-        out, _ = proc.communicate()
-        outs.append(out)
-        if proc.returncode != 0 and failed is None:
-            failed = (cmd, proc.returncode, out)
+    with profiling.timer("build.nvcc_s"):
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in cmds]
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            outs.append(out)
+            if proc.returncode != 0 and failed is None:
+                failed = (cmd, proc.returncode, out)
     if failed:
         cmd, rc, out = failed
         raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
@@ -160,11 +164,17 @@ def build_generated(*sources: str) -> list:
     return outs
 
 
+def _load(path: Path) -> ctypes.CDLL:
+    """Load a built library; the seconds add to the counter ``build.load_s``."""
+    with profiling.timer("build.load_s"):
+        return ctypes.CDLL(str(path))
+
+
 @functools.lru_cache(maxsize=None)
 def load_generated(source: str) -> ctypes.CDLL:
     """Build (if needed) and load a generated translation unit's library,
     once per process."""
-    return ctypes.CDLL(str(build_generated(source)[0]))
+    return _load(build_generated(source)[0])
 
 
 def _demangle(names):
@@ -208,4 +218,4 @@ def ptxas_report(log: Path = None) -> list:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
-    return ctypes.CDLL(str(build()))
+    return _load(build())

@@ -30,7 +30,6 @@ them on every backward attempt, never the "auto" dispatch.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 from typing import Callable, NamedTuple, Optional
@@ -43,6 +42,7 @@ from ..ops import packed_backward as pk
 from ..ops.backward import backward_pass
 from ..ops.batching import broadcast_lanes, lane_call, select, while_lanes
 from ..ops.forward import armijo_slope, line_search, trajectory_sensitivities
+from ..utils import profiling
 from ..utils.printing import live_progress_line
 from .options import Options
 from .spec import ProblemSpec
@@ -182,10 +182,6 @@ def _set_at(tr, value, *idx):
     return torch.where(hit, value, tr)
 
 
-def _no_section(name):
-    return contextlib.nullcontext()
-
-
 class SolveFn:
     """A built solver.  ``solve(xs_init [T,nx], us_init [T-1,nu], ws
     [T,npar])`` (plus ``duals0, penalty0`` [T,nc] with ``dual_warm_start``)
@@ -233,7 +229,6 @@ def make_solve_fn(
     backward_impl: Optional[Callable] = None,
     *,
     device="cuda",
-    section: Callable = _no_section,
 ) -> SolveFn:
     """Build the solver ``(xs_init, us_init, ws) -> Solution``.
 
@@ -245,10 +240,9 @@ def make_solve_fn(
     make_backward_dispatch``, whose batched rule runs K6a/K6b).  The solve
     runs on ``device`` (the card unless the caller passes "cpu"; CPU
     tensors run every kernel's plain version); the dtype is the inputs'.
-    ``section(name)`` returns a context manager wrapped around each
-    iteration's "derive", "backward" and "line_search" phases (the default
-    does nothing; the packed path's derive and backward are one dispatch,
-    left out); a caller passes a timer to split an iteration's time.
+    An iteration's phases are spans (``utils/profiling.py``): "derive",
+    "augment", "backward", "slope", "line_search" and "al_update" (the
+    packed path's first four are ``ops/packed_pipeline.py``'s).
     """
     if backward_impl is not None and options.backward_pass == "packed":
         raise ValueError(
@@ -285,25 +279,27 @@ def make_solve_fn(
         """Derivative stacks + AL augmentation + backward pass + Armijo
         slope; inputs with leading lane axes."""
         m = masks(xs.dtype)
-        with section("derive"):
+        with profiling.annotate("derive"):
             fx, fu = dv.dynamics_jacobians(spec, xs, us, ws)
             gx, gu = dv.cost_gradients(spec, xs, us, ws)
             gxx, guu, gux = dv.cost_hessians(spec, xs, us, ws)
             if nc > 0:
                 cx, cu = dv.constraint_jacobians(spec, xs, us, ws)
-                dgx, dgu, dgxx, dguu, dgux = al_ops.al_gradient_terms(
-                    c, cx, cu, duals, penalty, m["ineq"])
-                gx, gu = gx + dgx, gu + dgu
-                gxx, guu, gux = gxx + dgxx, guu + dguu, gux + dgux
             # full DDP: the dynamics curvature, contracted with Vx(t+1)
             # inside the scan step; the regularization retry re-runs the
             # same recursion with it
             f2 = dv.dynamics_hessians(spec, xs, us, ws) if o.ddp else None
-        with section("backward"):
+        if nc > 0:
+            with profiling.annotate("augment"):
+                dgx, dgu, dgxx, dguu, dgux = al_ops.al_gradient_terms(
+                    c, cx, cu, duals, penalty, m["ineq"])
+                gx, gu = gx + dgx, gu + dgu
+                gxx, guu, gux = gxx + dgxx, guu + dguu, gux + dgux
+        with profiling.annotate("backward"):
             K, k, Qx, Qu, p, _ok, reg_next = backward_pass(
                 fx, fu, gx, gu, gxx, guu, gux, m["u_bool"], reg, o,
                 impl=backward_impl, batched=batched, f2=f2)
-        with section("derive"):
+        with profiling.annotate("slope"):
             # Lagrangian gradient inf-norm over valid dims
             lx = torch.abs(Qx - p) * m["x"]
             lu = torch.abs(Qu) * m["u"]
@@ -378,7 +374,7 @@ def make_solve_fn(
             xs, us, ws, duals, penalty, c, reg, batched)
         stop_grad = grad_norm < o.lagrangian_gradient_tolerance
         obj_fn = lambda xs_, us_: al_objective(xs_, us_, ws, duals, penalty)
-        with section("line_search"):
+        with profiling.annotate("line_search"):
             xs_n, us_n, J_n, c_n, st, step = line_search(
                 spec, obj_fn, xs, us, ws, K, k, slope, J, c, o,
                 duals=duals, penalty=penalty)
@@ -424,83 +420,85 @@ def make_solve_fn(
             xs_n, us_n, J_n, c_n, status, step, _K, _k, grad_norm, reg, stop_grad = iterate(
                 s.xs, s.us, s.ws, s.duals, s.penalty, s.J, s.c, s.reg,
                 s.status, s.step_size, batched)
-            inner1 = s.inner_it + 1
-            round_end = (stop_grad | (torch.abs(J_n - s.J) < o.objective_tolerance)
-                         | (~status) | (inner1 >= o.max_iterations))
-            viol = viol_of(c_n)
-            truncated = torch.zeros_like(round_end)
-            if o.early_round_iteration_cap is not None:
-                # inexact early rounds: penalty-continuation truncation, never
-                # in the first round, only with geometric feasibility
-                # progress, at most max_consecutive_truncations in a row
-                cap_fired = ((inner1 >= o.early_round_iteration_cap)
-                             & (s.al_it > 0)
-                             & (s.al_it + 1 < o.max_dual_updates)
-                             & (s.trunc_streak < o.max_consecutive_truncations))
-                if o.truncation_requires_progress:
-                    cap_fired = cap_fired & (viol < o.truncation_progress_factor * s.viol_prev)
-                truncated = cap_fired & ~round_end
-                round_end = round_end | cap_fired
-            feasible = viol <= o.constraint_tolerance
-            solve_done = round_end & (feasible | (s.al_it + 1 >= o.max_dual_updates))
-            if o.early_round_iteration_cap is not None:
-                solve_done = solve_done | (s.total_it + 1 >= o.max_iterations * o.max_dual_updates)
-            if o.max_total_iterations is not None:
-                # budget exhausted: stop outright, no dual update
-                solve_done = solve_done | (s.total_it + 1 >= o.max_total_iterations)
-            do_update = round_end & ~solve_done
+            with profiling.annotate("al_update"):
+                inner1 = s.inner_it + 1
+                round_end = (stop_grad | (torch.abs(J_n - s.J) < o.objective_tolerance)
+                             | (~status) | (inner1 >= o.max_iterations))
+                viol = viol_of(c_n)
+                truncated = torch.zeros_like(round_end)
+                if o.early_round_iteration_cap is not None:
+                    # inexact early rounds: penalty-continuation truncation, never
+                    # in the first round, only with geometric feasibility
+                    # progress, at most max_consecutive_truncations in a row
+                    cap_fired = ((inner1 >= o.early_round_iteration_cap)
+                                 & (s.al_it > 0)
+                                 & (s.al_it + 1 < o.max_dual_updates)
+                                 & (s.trunc_streak < o.max_consecutive_truncations))
+                    if o.truncation_requires_progress:
+                        cap_fired = cap_fired & (viol < o.truncation_progress_factor * s.viol_prev)
+                    truncated = cap_fired & ~round_end
+                    round_end = round_end | cap_fired
+                feasible = viol <= o.constraint_tolerance
+                solve_done = round_end & (feasible | (s.al_it + 1 >= o.max_dual_updates))
+                if o.early_round_iteration_cap is not None:
+                    solve_done = solve_done | (
+                        s.total_it + 1 >= o.max_iterations * o.max_dual_updates)
+                if o.max_total_iterations is not None:
+                    # budget exhausted: stop outright, no dual update
+                    solve_done = solve_done | (s.total_it + 1 >= o.max_total_iterations)
+                do_update = round_end & ~solve_done
 
-            new_duals, new_pen = al_transition(c_n, viol, s.duals, s.penalty,
-                                               s.viol_prev, truncated)
-            duals2 = select(do_update, new_duals, s.duals)
-            pen2 = select(do_update, new_pen, s.penalty)
-            ineq = masks(dtype)["ineq"]
-            if nc > 0:
-                # rebase the carried objective onto the new AL parameters
-                J_reb = (J_n - al_ops.al_terms(c_n, s.duals, s.penalty, ineq)
-                         + al_ops.al_terms(c_n, duals2, pen2, ineq))
-                J2 = torch.where(do_update, J_reb, J_n)
-            else:
-                J2 = J_n
+                new_duals, new_pen = al_transition(c_n, viol, s.duals, s.penalty,
+                                                   s.viol_prev, truncated)
+                duals2 = select(do_update, new_duals, s.duals)
+                pen2 = select(do_update, new_pen, s.penalty)
+                ineq = masks(dtype)["ineq"]
+                if nc > 0:
+                    # rebase the carried objective onto the new AL parameters
+                    J_reb = (J_n - al_ops.al_terms(c_n, s.duals, s.penalty, ineq)
+                             + al_ops.al_terms(c_n, duals2, pen2, ineq))
+                    J2 = torch.where(do_update, J_reb, J_n)
+                else:
+                    J2 = J_n
 
-            ws2 = s.ws
-            if callback is not None:
-                cb = apply_callback(xs_n, us_n, s.ws, duals2, pen2, s.al_it, batched)
-                xs_cb = select(do_update, cb[0], xs_n)
-                us_cb = select(do_update, cb[1], us_n)
-                ws2 = select(do_update, cb[2], s.ws)
-                duals2 = select(do_update, cb[3], duals2)
-                pen2 = select(do_update, cb[4], pen2)
-                # a callback may have changed the problem: re-evaluate
-                J_cb, c_cb = al_objective(xs_cb, us_cb, ws2, duals2, pen2)
-                xs_n, us_n = xs_cb, us_cb
-                J2 = torch.where(do_update, J_cb, J2)
-                c_n = select(do_update, c_cb, c_n)
+                ws2 = s.ws
+                if callback is not None:
+                    cb = apply_callback(xs_n, us_n, s.ws, duals2, pen2, s.al_it, batched)
+                    xs_cb = select(do_update, cb[0], xs_n)
+                    us_cb = select(do_update, cb[1], us_n)
+                    ws2 = select(do_update, cb[2], s.ws)
+                    duals2 = select(do_update, cb[3], duals2)
+                    pen2 = select(do_update, cb[4], pen2)
+                    # a callback may have changed the problem: re-evaluate
+                    J_cb, c_cb = al_objective(xs_cb, us_cb, ws2, duals2, pen2)
+                    xs_n, us_n = xs_cb, us_cb
+                    J2 = torch.where(do_update, J_cb, J2)
+                    c_n = select(do_update, c_cb, c_n)
 
-            if o.live_progress:
-                progress(round_end & ~s.stop, s.al_it, inner1, J_n, grad_norm, viol)
+                if o.live_progress:
+                    progress(round_end & ~s.stop, s.al_it, inner1, J_n, grad_norm, viol)
 
-            ai, ii = s.al_it, s.inner_it
-            tr = (lambda a, v: _set_at(a, v, ai, ii)) if rt else (lambda a, v: a)
-            return _FusedCarry(
-                xs=xs_n, us=us_n, ws=ws2, duals=duals2, penalty=pen2,
-                J=J2, c=c_n, reg=reg,
-                viol_prev=torch.where(round_end, viol, s.viol_prev),
-                al_it=s.al_it + (round_end & ~truncated).to(s.al_it.dtype),
-                inner_it=torch.where(round_end, torch.zeros_like(inner1), inner1),
-                total_it=s.total_it + 1,
-                status=status, step_size=step, viol=viol, stop=solve_done,
-                trunc_streak=torch.where(
-                    round_end,
-                    torch.where(truncated, s.trunc_streak + 1,
-                                torch.zeros_like(s.trunc_streak)),
-                    s.trunc_streak),
-                trace_cost=tr(s.trace_cost, J_n),
-                trace_grad=tr(s.trace_grad, grad_norm),
-                trace_viol=tr(s.trace_viol, viol),
-                trace_step=tr(s.trace_step, step),
-                trace_mask=tr(s.trace_mask, torch.ones_like(s.stop)),
-            )
+                ai, ii = s.al_it, s.inner_it
+                tr = (lambda a, v: _set_at(a, v, ai, ii)) if rt else (lambda a, v: a)
+                return _FusedCarry(
+                    xs=xs_n, us=us_n, ws=ws2, duals=duals2, penalty=pen2,
+                    J=J2, c=c_n, reg=reg,
+                    viol_prev=torch.where(round_end, viol, s.viol_prev),
+                    al_it=s.al_it + (round_end & ~truncated).to(s.al_it.dtype),
+                    inner_it=torch.where(round_end, torch.zeros_like(inner1), inner1),
+                    total_it=s.total_it + 1,
+                    status=status, step_size=step, viol=viol, stop=solve_done,
+                    trunc_streak=torch.where(
+                        round_end,
+                        torch.where(truncated, s.trunc_streak + 1,
+                                    torch.zeros_like(s.trunc_streak)),
+                        s.trunc_streak),
+                    trace_cost=tr(s.trace_cost, J_n),
+                    trace_grad=tr(s.trace_grad, grad_norm),
+                    trace_viol=tr(s.trace_viol, viol),
+                    trace_step=tr(s.trace_step, step),
+                    trace_mask=tr(s.trace_mask, torch.ones_like(s.stop)),
+                )
 
         return while_lanes(lambda s: ~s.stop, body, carry, "solve")
 
@@ -593,59 +591,60 @@ def make_solve_fn(
                 it_cap,
                 s.viol_prev if (it_cap is not None and o.truncation_requires_progress) else None,
                 batched)
-            # stop and dual decisions on constraints evaluated fresh at the
-            # inner solution
-            c_fresh = dv.constraint_values(spec, inner.xs, inner.us, s.ws)
-            viol_fresh = viol_of(c_fresh)
-            stop = viol_fresh <= o.constraint_tolerance
-            if o.max_total_iterations is not None:
-                stop = stop | (s.total_iters + inner.it >= o.max_total_iterations)
-            truncated = torch.zeros_like(stop)
-            if it_cap is not None:
-                # round ended by the cap, not by converging
-                truncated = ((~inner.stop) & (inner.it >= it_cap)
-                             & (it_cap < o.max_iterations)
-                             & (inner.it < o.max_iterations))
-            if nc > 0:
-                new_duals, new_penalty = al_transition(
-                    c_fresh, viol_fresh, s.duals, s.penalty, s.viol_prev, truncated)
-                duals = select(stop, s.duals, new_duals)
-                penalty = select(stop, s.penalty, new_penalty)
-            else:
-                duals, penalty = s.duals, s.penalty
-                stop = torch.ones_like(stop)
-            if o.live_progress:
-                progress(cond(s), s.al_it, inner.it, inner.J, inner.grad_norm,
-                         viol_fresh)
-            ws_next = s.ws
-            xs_next, us_next = inner.xs, inner.us
-            if callback is not None:
-                cb = apply_callback(inner.xs, inner.us, s.ws, duals, penalty,
-                                    s.al_it, batched)
-                # applied only while the outer loop continues
-                xs_next = select(stop, xs_next, cb[0])
-                us_next = select(stop, us_next, cb[1])
-                ws_next = select(stop, s.ws, cb[2])
-                duals = select(stop, duals, cb[3])
-                penalty = select(stop, penalty, cb[4])
-            tr = (lambda a, v: _set_at(a, v, s.al_it)) if rt else (lambda a, v: a)
-            return _OuterCarry(
-                xs=xs_next, us=us_next, ws=ws_next, duals=duals, penalty=penalty,
-                reg=inner.reg,
-                al_it=s.al_it + torch.where(truncated, 0, 1).to(s.al_it.dtype),
-                stop=stop, total_iters=s.total_iters + inner.it,
-                J=inner.J, grad_norm=inner.grad_norm, viol=viol_fresh,
-                viol_prev=viol_fresh, status=inner.status,
-                step_size=inner.step_size,
-                trunc_streak=torch.where(truncated, s.trunc_streak + 1,
-                                         torch.zeros_like(s.trunc_streak)),
-                K=inner.K, k=inner.k,
-                trace_cost=tr(s.trace_cost, inner.tr_cost),
-                trace_grad=tr(s.trace_grad, inner.tr_grad),
-                trace_viol=tr(s.trace_viol, inner.tr_viol),
-                trace_step=tr(s.trace_step, inner.tr_step),
-                trace_mask=tr(s.trace_mask, inner.tr_mask),
-            )
+            with profiling.annotate("al_update"):
+                # stop and dual decisions on constraints evaluated fresh at the
+                # inner solution
+                c_fresh = dv.constraint_values(spec, inner.xs, inner.us, s.ws)
+                viol_fresh = viol_of(c_fresh)
+                stop = viol_fresh <= o.constraint_tolerance
+                if o.max_total_iterations is not None:
+                    stop = stop | (s.total_iters + inner.it >= o.max_total_iterations)
+                truncated = torch.zeros_like(stop)
+                if it_cap is not None:
+                    # round ended by the cap, not by converging
+                    truncated = ((~inner.stop) & (inner.it >= it_cap)
+                                 & (it_cap < o.max_iterations)
+                                 & (inner.it < o.max_iterations))
+                if nc > 0:
+                    new_duals, new_penalty = al_transition(
+                        c_fresh, viol_fresh, s.duals, s.penalty, s.viol_prev, truncated)
+                    duals = select(stop, s.duals, new_duals)
+                    penalty = select(stop, s.penalty, new_penalty)
+                else:
+                    duals, penalty = s.duals, s.penalty
+                    stop = torch.ones_like(stop)
+                if o.live_progress:
+                    progress(cond(s), s.al_it, inner.it, inner.J, inner.grad_norm,
+                             viol_fresh)
+                ws_next = s.ws
+                xs_next, us_next = inner.xs, inner.us
+                if callback is not None:
+                    cb = apply_callback(inner.xs, inner.us, s.ws, duals, penalty,
+                                        s.al_it, batched)
+                    # applied only while the outer loop continues
+                    xs_next = select(stop, xs_next, cb[0])
+                    us_next = select(stop, us_next, cb[1])
+                    ws_next = select(stop, s.ws, cb[2])
+                    duals = select(stop, duals, cb[3])
+                    penalty = select(stop, penalty, cb[4])
+                tr = (lambda a, v: _set_at(a, v, s.al_it)) if rt else (lambda a, v: a)
+                return _OuterCarry(
+                    xs=xs_next, us=us_next, ws=ws_next, duals=duals, penalty=penalty,
+                    reg=inner.reg,
+                    al_it=s.al_it + torch.where(truncated, 0, 1).to(s.al_it.dtype),
+                    stop=stop, total_iters=s.total_iters + inner.it,
+                    J=inner.J, grad_norm=inner.grad_norm, viol=viol_fresh,
+                    viol_prev=viol_fresh, status=inner.status,
+                    step_size=inner.step_size,
+                    trunc_streak=torch.where(truncated, s.trunc_streak + 1,
+                                             torch.zeros_like(s.trunc_streak)),
+                    K=inner.K, k=inner.k,
+                    trace_cost=tr(s.trace_cost, inner.tr_cost),
+                    trace_grad=tr(s.trace_grad, inner.tr_grad),
+                    trace_viol=tr(s.trace_viol, inner.tr_viol),
+                    trace_step=tr(s.trace_step, inner.tr_step),
+                    trace_mask=tr(s.trace_mask, inner.tr_mask),
+                )
 
         return while_lanes(cond, body, carry, "solve")
 

@@ -6,7 +6,9 @@ once at entry and once at exit.  Per-instance semantics are those of the
 JAX module (same iterate sequence, stopping rules, dual-update points).
 
 The JAX ``lax.while_loop`` is a Python loop here: its test ``all(stop)`` is
-one host sync per iteration.
+one host sync per iteration.  Each trip is a span (``utils/profiling.py``)
+whose children partition it: ``derive``, ``augment``, ``backward`` and
+``slope`` (``ops/packed_pipeline.py``), ``line_search`` and ``al_update``.
 
 Restrictions (as in the JAX module): no record_traces, no live_progress,
 fused AL loop only, no ddp.
@@ -15,6 +17,7 @@ fused AL loop only, no ddp.
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Callable, NamedTuple
 
 import torch
@@ -23,8 +26,9 @@ from ..ops import packed_backward as pk
 from ..ops.packed_pipeline import make_derive_backward_sl
 from ..ops.sl_forward_kernel import device_model, select_kernels
 from ..ops.sl_ops import SLOps, from_sl, to_sl
+from ..utils import profiling
 from .options import Options
-from .solve import Solution, _no_section
+from .solve import Solution
 from .spec import ProblemSpec
 
 
@@ -52,7 +56,7 @@ class SLParts(NamedTuple):
     entry/exit; ``body`` is one solver iteration on the carry."""
 
     init: Callable    # (xs [B,T,nx], us, ws[, duals, penalty]) -> (_SLCarry, ws_sl)
-    body: Callable    # ws_sl -> (_SLCarry -> _SLCarry)
+    body: Callable    # (ws_sl[, solve id]) -> (_SLCarry -> _SLCarry)
     finish: Callable  # (_SLCarry, ws_sl) -> Solution (batch-leading)
 
 
@@ -69,11 +73,7 @@ def build_kernels(spec: ProblemSpec, use_kernels: bool, dtype) -> list:
 def make_sl_parts(
     spec: ProblemSpec, options: Options = Options(), *,
     device="cuda", dtype=torch.float32, dual_warm_start: bool = False,
-    section: Callable = _no_section,
 ) -> SLParts:
-    """``section(name)`` returns a context manager wrapped around each
-    iteration's "derive_backward" and "line_search" phases (the default does
-    nothing); a caller passes a timer to split an iteration's time."""
     if options.record_traces:
         raise ValueError("SL batched solver does not record traces; "
                          "use the vmap path (record_traces=True)")
@@ -102,23 +102,34 @@ def make_sl_parts(
         return (SLOps(spec, o, device=device, dtype=dtype),
                 make_derive_backward_sl(spec, o, device=device))
 
-    def body(ws):
+    def body(ws, solve: int = None):
+        """One trip on the carry; ``solve`` is the id its spans carry (a
+        new one by default)."""
         ops, derive = built()
+        solve = profiling.new_solve() if solve is None else solve
+        trips = itertools.count()
 
         def _body(s: _SLCarry) -> _SLCarry:
-            live = ~s.stop
-            with section("derive_backward"):
+            with profiling.annotate("trip", solve=solve, trip=next(trips)):
                 K, k, slope, grad, reg = derive(
                     s.xs, s.us, ws, s.duals, s.penalty, s.c, s.reg
                 )
-            stop_grad = grad < o.lagrangian_gradient_tolerance
-            # `need`: lanes whose line-search result survives into the carry
-            # (stopped and gradient-converged lanes discard it)
-            with section("line_search"):
-                xs_n, us_n, J_n, c_n, status, step = ops.line_search(
-                    s.xs, s.us, ws, K, k, slope, s.J, s.c, s.duals, s.penalty,
-                    need=live & ~stop_grad,
-                )
+                with profiling.annotate("line_search"):
+                    live = ~s.stop
+                    stop_grad = grad < o.lagrangian_gradient_tolerance
+                    # `need`: lanes whose line-search result survives into
+                    # the carry (stopped and gradient-converged lanes
+                    # discard it)
+                    step_n = ops.line_search(
+                        s.xs, s.us, ws, K, k, slope, s.J, s.c, s.duals,
+                        s.penalty, need=live & ~stop_grad,
+                    )
+                with profiling.annotate("al_update"):
+                    return al_update(s, live, stop_grad, reg, *step_n)
+
+        def al_update(s, live, stop_grad, reg, xs_n, us_n, J_n, c_n, status, step):
+            """The stopping tests, the AL round's dual update and the carry
+            (stopped lanes keep theirs)."""
             # (the JAX module puts an XLA optimization_barrier here, a
             # workaround for an XLA miscompile; eager PyTorch needs none)
             keep = ~stop_grad
@@ -278,14 +289,13 @@ def make_sl_parts(
 def make_batched_solve_sl(
     spec: ProblemSpec, options: Options = Options(), *,
     device="cuda", dtype=torch.float32, dual_warm_start: bool = False,
-    section: Callable = _no_section,
 ):
     """Build ``(xs [B,T,nx], us [B,T-1,nu], ws [B,T,npar]) -> Solution``
     (batch-leading).  With ``dual_warm_start`` the callable takes two extra
     batch-leading tensors ``(duals0 [B,T,nc], penalty0 [B,T,nc])``."""
     parts = make_sl_parts(
         spec, options, device=device, dtype=dtype,
-        dual_warm_start=dual_warm_start, section=section,
+        dual_warm_start=dual_warm_start,
     )
 
     def solve_batch(xs_init, us_init, ws_b, *warm) -> Solution:
@@ -297,13 +307,26 @@ def make_batched_solve_sl(
 def sl_trips(parts: SLParts, *args):
     """The single-shot SL solve of ``args`` as a generator: it yields after
     queueing each loop trip (before that trip's ``all(stop)`` test, the
-    trip's only sync outside the body) and returns the Solution."""
-    s, ws = parts.init(*args)
-    step = parts.body(ws)
-    while not bool(s.stop.all()):
+    trip's only sync outside the body) and returns the Solution.  A solve
+    that finishes adds its entry to ``profiling.solve_log()``."""
+    solve = profiling.new_solve()
+    with profiling.annotate("init", solve=solve):
+        s, ws = parts.init(*args)
+    step = parts.body(ws, solve)
+    trips = 0
+    while True:
+        with profiling.sync("sync.stop", solve=solve, trip=trips):
+            if bool(s.stop.all()):
+                break
         s = step(s)
+        trips += 1
         yield
-    return parts.finish(s, ws)
+    with profiling.annotate("finish", solve=solve):
+        sol = parts.finish(s, ws)
+        # every lane is live on its first total_it trips: their sum is the
+        # lane-trips the loop worked on
+        profiling.log_solve(solve, s.stop.shape[-1], trips, sol.iterations.sum())
+    return sol
 
 
 def run_interleaved(gens):

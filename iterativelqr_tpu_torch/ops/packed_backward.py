@@ -40,30 +40,20 @@ import math
 import torch
 
 from .. import _build
+from ..utils.profiling import LaunchCounter
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _C_TYPES = {"f32": "float", "f64": "double"}
 _SIZES = {"f32": 4, "f64": 8}
 
 
-class LaunchCounter:
-    """Counts kernel launches, so a run can show that its main path went
-    through the kernel."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def reset(self):
-        self.launches = 0
-
-
-RICCATI_LAUNCHES = LaunchCounter()
-RICCATI_WIDE_LAUNCHES = LaunchCounter()
-RICCATI_PACKED_LAUNCHES = LaunchCounter()
-RICCATI_PACKED_WIDE_LAUNCHES = LaunchCounter()
+RICCATI_LAUNCHES = LaunchCounter("riccati_backward")
+RICCATI_WIDE_LAUNCHES = LaunchCounter("riccati_backward_wide")
+RICCATI_PACKED_LAUNCHES = LaunchCounter("riccati_packed")
+RICCATI_PACKED_WIDE_LAUNCHES = LaunchCounter("riccati_packed_wide")
 # the same on the tall template (n + m > 32)
-RICCATI_TALL_LAUNCHES = LaunchCounter()
-RICCATI_PACKED_TALL_LAUNCHES = LaunchCounter()
+RICCATI_TALL_LAUNCHES = LaunchCounter("riccati_backward_tall")
+RICCATI_PACKED_TALL_LAUNCHES = LaunchCounter("riccati_packed_tall")
 
 # what the three templates can hold (csrc/riccati_backward.cuh, K1's;
 # csrc/riccati_backward_wide.cuh, K2's; csrc/riccati_backward_tall.cuh, the

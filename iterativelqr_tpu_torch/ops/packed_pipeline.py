@@ -19,6 +19,7 @@ import torch
 from torch.func import vmap
 
 from ..core.spec import ProblemSpec
+from ..utils import profiling
 from . import packed_backward as pk
 from .batching import custom_vmap
 from .derivatives import _merge_groups
@@ -109,96 +110,104 @@ def make_derive_backward_sl(spec: ProblemSpec, options, device):
     def derive(xs, us, ws, lam, rho, c, reg, valid=None):
         dtype = xs.dtype
         B = xs.shape[-1]
-        stacks = _grouped_bt2(fns, comb_key, Tm1, (xs[:-1], us, ws[:-1]))
-        if nc > 0:
-            fx, fu, gx_s, gu, gxx_s, guu, gux, cx_s, cu = stacks
-        else:
-            fx, fu, gx_s, gu, gxx_s, guu, gux = stacks
+        with profiling.annotate("derive"):
+            stacks = _grouped_bt2(fns, comb_key, Tm1, (xs[:-1], us, ws[:-1]))
+            if nc > 0:
+                fx, fu, gx_s, gu, gxx_s, guu, gux, cx_s, cu = stacks
+            else:
+                fx, fu, gx_s, gu, gxx_s, guu, gux = stacks
 
-        # terminal stage (u = 0)
-        u0 = xs.new_zeros((nu, B))
-        gxT, _ = grad_T(xs[-1], u0, ws[-1])
-        gxxT, _, _ = hess_T(xs[-1], u0, ws[-1])
-        gx = torch.cat([gx_s, gxT[None]], dim=0)       # [T,nx,B]
-        gxx = torch.cat([gxx_s, gxxT[None]], dim=0)    # [T,nx,nx,B]
+            # terminal stage (u = 0)
+            u0 = xs.new_zeros((nu, B))
+            gxT, _ = grad_T(xs[-1], u0, ws[-1])
+            gxxT, _, _ = hess_T(xs[-1], u0, ws[-1])
+            gx = torch.cat([gx_s, gxT[None]], dim=0)       # [T,nx,B]
+            gxx = torch.cat([gxx_s, gxxT[None]], dim=0)    # [T,nx,nx,B]
+            if nc > 0:
+                cxT, _ = cjac_T(xs[-1], u0, ws[-1])
+                cx = torch.cat([cx_s, cxT[None]], dim=0)   # [T,nc,nx,B]
 
-        # AL Gauss-Newton augmentation (broadcast-multiply-reduce, as the
-        # JAX pipeline writes it)
-        if nc > 0:
-            cxT, _ = cjac_T(xs[-1], u0, ws[-1])
-            cx = torch.cat([cx_s, cxT[None]], dim=0)   # [T,nc,nx,B]
-            inactive = ineq & (c < 0.0) & (lam == 0.0)
-            a = (~inactive).to(dtype)
-            irho = rho * a
-            ctmp = lam + irho * c
-            cxr = cx * irho[:, :, None]                 # [t,c,i,B]
-            cur = cu * irho[:-1, :, None]
-            gx = gx + torch.sum(cx * ctmp[:, :, None], dim=1)
-            gxx = gxx + torch.sum(cxr[:, :, :, None] * cx[:, :, None, :], dim=1)
-            gu = gu + torch.sum(cu * ctmp[:-1, :, None], dim=1)
-            guu = guu + torch.sum(cur[:, :, :, None] * cu[:, :, None, :], dim=1)
-            gux = gux + torch.sum(cur[:, :, :, None] * cx[:-1, :, None, :], dim=1)
+        with profiling.annotate("augment"):
+            # AL Gauss-Newton augmentation (broadcast-multiply-reduce, as
+            # the JAX pipeline writes it)
+            if nc > 0:
+                inactive = ineq & (c < 0.0) & (lam == 0.0)
+                a = (~inactive).to(dtype)
+                irho = rho * a
+                ctmp = lam + irho * c
+                cxr = cx * irho[:, :, None]                 # [t,c,i,B]
+                cur = cu * irho[:-1, :, None]
+                gx = gx + torch.sum(cx * ctmp[:, :, None], dim=1)
+                gxx = gxx + torch.sum(cxr[:, :, :, None] * cx[:, :, None, :], dim=1)
+                gu = gu + torch.sum(cu * ctmp[:-1, :, None], dim=1)
+                guu = guu + torch.sum(cur[:, :, :, None] * cu[:, :, None, :], dim=1)
+                gux = gux + torch.sum(cur[:, :, :, None] * cx[:-1, :, None, :], dim=1)
 
-        kin = pk.prepare_stacks(fx, fu, gx, gu, gxx, guu, gux, u_mask)
-        kin = tuple(t.contiguous() for t in kin)
-        stacks_k, gxxT_k, gxT_k = kin[:7], kin[7], kin[8]
+            kin = pk.prepare_stacks(fx, fu, gx, gu, gxx, guu, gux, u_mask)
+            kin = tuple(t.contiguous() for t in kin)
+            stacks_k, gxxT_k, gxT_k = kin[:7], kin[7], kin[8]
 
-        # adaptive-regularization retry around the kernel, batch-wide as in
-        # the JAX pipeline: lanes already ok re-run with their own reg.  The
-        # loop test is one host sync per kernel launch.
-        reg = reg.to(dtype)
-        reg_try, reg_used = reg, reg
-        ok = torch.zeros(B, dtype=torch.bool, device=xs.device)
-        outs = None
-        i = 0
-        while i <= o.max_regularization_steps and not bool(ok.all()):
-            reg_run = torch.where(ok, reg_used, reg_try).contiguous()
-            outs = pk.backward_pass_multiref(stacks_k, gxxT_k, gxT_k, reg_run)
-            ok_now = outs[-1] > 0.5
-            if valid is not None:
-                ok_now = ok_now | ~valid
-            reg_next = torch.clamp(reg_run * o.regularization_scale,
-                                   o.regularization_min, o.regularization_max)
-            reg_try = torch.where(ok_now, reg_run, reg_next)
-            reg_used = reg_run
-            ok = ok_now
-            i += 1
-        if outs is None:
-            # max_regularization_steps < 0: no attempt, zero gains and ok
-            # false, as the JAX loop's initial state
-            outs = tuple(a.zero_() for a in pk.new_outputs(Tm1, nx, nu, B, dtype, xs.device))
-        K_t, k_t, Qx_t, Qu_t, p_t, _ok = outs
+        with profiling.annotate("backward"):
+            # adaptive-regularization retry around the kernel, batch-wide as
+            # in the JAX pipeline: lanes already ok re-run with their own
+            # reg.  The loop test is one host sync per kernel launch.
+            reg = reg.to(dtype)
+            reg_try, reg_used = reg, reg
+            ok = torch.zeros(B, dtype=torch.bool, device=xs.device)
+            outs = None
+            i = 0
+            while i <= o.max_regularization_steps:
+                with profiling.sync("sync.retry"):
+                    if bool(ok.all()):
+                        break
+                reg_run = torch.where(ok, reg_used, reg_try).contiguous()
+                outs = pk.backward_pass_multiref(stacks_k, gxxT_k, gxT_k, reg_run)
+                ok_now = outs[-1] > 0.5
+                if valid is not None:
+                    ok_now = ok_now | ~valid
+                reg_next = torch.clamp(reg_run * o.regularization_scale,
+                                       o.regularization_min, o.regularization_max)
+                reg_try = torch.where(ok_now, reg_run, reg_next)
+                reg_used = reg_run
+                ok = ok_now
+                i += 1
+            if outs is None:
+                # max_regularization_steps < 0: no attempt, zero gains and
+                # ok false, as the JAX loop's initial state
+                outs = tuple(a.zero_() for a in pk.new_outputs(Tm1, nx, nu, B, dtype, xs.device))
+            K_t, k_t, Qx_t, Qu_t, p_t, _ok = outs
 
-        # Lagrangian gradient norm
-        lx = torch.abs(Qx_t - p_t) * x_m.to(dtype)
-        lu = torch.abs(Qu_t) * u_m.to(dtype)
-        grad_norm = torch.maximum(
-            lx.amax(dim=(0, 1)), lu.amax(dim=(0, 1))
-        )                                               # [B]
+        with profiling.annotate("slope"):
+            # Lagrangian gradient norm
+            lx = torch.abs(Qx_t - p_t) * x_m.to(dtype)
+            lu = torch.abs(Qu_t) * u_m.to(dtype)
+            grad_norm = torch.maximum(
+                lx.amax(dim=(0, 1)), lu.amax(dim=(0, 1))
+            )                                               # [B]
 
-        # Armijo slope via the closed-loop sensitivity recursion
-        zx = xs.new_zeros((nx, B))
-        zxs, zus = [], []
-        for t in range(Tm1):
-            zu = k_t[t] + torch.sum(K_t[t] * zx[None], dim=1)
-            zxs.append(zx)
-            zus.append(zu)
-            zx = (
-                torch.sum(fx[t] * zx[None], dim=1)
-                + torch.sum(fu[t] * zu[None], dim=1)
+            # Armijo slope via the closed-loop sensitivity recursion
+            zx = xs.new_zeros((nx, B))
+            zxs, zus = [], []
+            for t in range(Tm1):
+                zu = k_t[t] + torch.sum(K_t[t] * zx[None], dim=1)
+                zxs.append(zx)
+                zus.append(zu)
+                zx = (
+                    torch.sum(fx[t] * zx[None], dim=1)
+                    + torch.sum(fu[t] * zu[None], dim=1)
+                )
+            zx_s = torch.stack(zxs)
+            zu_s = torch.stack(zus)
+            slope = torch.sum((Qx_t - p_t) * zx_s, dim=(0, 1)) + torch.sum(
+                Qu_t * zu_s, dim=(0, 1)
             )
-        zx_s = torch.stack(zxs)
-        zu_s = torch.stack(zus)
-        slope = torch.sum((Qx_t - p_t) * zx_s, dim=(0, 1)) + torch.sum(
-            Qu_t * zu_s, dim=(0, 1)
-        )
 
-        # reg decay for the next iteration
-        reg_next_carry = torch.where(
-            reg_used <= o.regularization_min,
-            torch.zeros_like(reg_used),
-            reg_used / o.regularization_scale,
-        )
+            # reg decay for the next iteration
+            reg_next_carry = torch.where(
+                reg_used <= o.regularization_min,
+                torch.zeros_like(reg_used),
+                reg_used / o.regularization_scale,
+            )
         return K_t, k_t, slope, grad_norm, reg_next_carry
 
     return derive

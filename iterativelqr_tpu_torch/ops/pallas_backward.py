@@ -45,14 +45,14 @@ from . import packed_backward as pk
 from .backward import backward_pass_scan
 from .batching import custom_vmap
 
-RICCATI_MASKED_LAUNCHES = pk.LaunchCounter()
-RICCATI_MASKED_PACKED_LAUNCHES = pk.LaunchCounter()
+RICCATI_MASKED_LAUNCHES = pk.LaunchCounter("riccati_masked")
+RICCATI_MASKED_PACKED_LAUNCHES = pk.LaunchCounter("riccati_masked_packed")
 # the same at the wide dims (K2's template) and past n + m = 32 (the tall
 # template)
-RICCATI_MASKED_WIDE_LAUNCHES = pk.LaunchCounter()
-RICCATI_MASKED_PACKED_WIDE_LAUNCHES = pk.LaunchCounter()
-RICCATI_MASKED_TALL_LAUNCHES = pk.LaunchCounter()
-RICCATI_MASKED_PACKED_TALL_LAUNCHES = pk.LaunchCounter()
+RICCATI_MASKED_WIDE_LAUNCHES = pk.LaunchCounter("riccati_masked_wide")
+RICCATI_MASKED_PACKED_WIDE_LAUNCHES = pk.LaunchCounter("riccati_masked_packed_wide")
+RICCATI_MASKED_TALL_LAUNCHES = pk.LaunchCounter("riccati_masked_tall")
+RICCATI_MASKED_PACKED_TALL_LAUNCHES = pk.LaunchCounter("riccati_masked_packed_tall")
 
 
 def backward_pass_masked_reference(fx, fu, gx, gu, gxx, guu, gux, um, reg):

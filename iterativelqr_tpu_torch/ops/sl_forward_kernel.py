@@ -66,10 +66,10 @@ from .packed_backward import LaunchCounter, _check, ring_entry
 from .packed_pipeline import map2
 
 # every K3 / K4 launch, and those of a generated model's symbols
-SCORE_LAUNCHES = LaunchCounter()
-REROLL_LAUNCHES = LaunchCounter()
-GENERATED_SCORE_LAUNCHES = LaunchCounter()
-GENERATED_REROLL_LAUNCHES = LaunchCounter()
+SCORE_LAUNCHES = LaunchCounter("sl_score_rollout")
+REROLL_LAUNCHES = LaunchCounter("sl_winner_reroll")
+GENERATED_SCORE_LAUNCHES = LaunchCounter("sl_score_rollout_generated")
+GENERATED_REROLL_LAUNCHES = LaunchCounter("sl_winner_reroll_generated")
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _MAX_PARAMS = 16   # kMaxParams in csrc/sl_rollout.cuh

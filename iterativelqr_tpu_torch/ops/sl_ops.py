@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core.spec import ProblemSpec
+from ..utils import profiling
 from . import sl_forward_kernel as fk
 from .packed_pipeline import _grouped_bt2
 
@@ -229,7 +230,9 @@ class SLOps:
             else:
                 head_ok = torch.any(head_acc, dim=0)
             settled = head_ok if need is None else (head_ok | ~need)
-            if bool(settled.all()):
+            with profiling.sync("sync.tail"):
+                all_settled = bool(settled.all())
+            if all_settled:
                 tail = xbar.new_full((na - n1, B), float("inf"))
                 J_tail, V_tail = tail, (tail if viol_filter else None)
             else:

@@ -1,0 +1,11 @@
+"""Milliseconds of card stream time a traced trip spends in the span
+``derive``, the stage functions' Jacobians, gradients and Hessians
+(``_grouped_bt2``) and the terminal stage's (``ops/packed_pipeline.py``).
+The time between the span's two CUDA events covers its kernels and any idle
+while the card waited for the host to issue them."""
+
+from portbench import spans
+
+
+def read(ctx):
+    return spans.trip_phase_ms(ctx, "derive")

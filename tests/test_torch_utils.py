@@ -105,16 +105,29 @@ def test_checkpoint_directory_refused(tmp_path):
 
 
 def test_profiling_trace_annotate_timed(tmp_path):
-    """``trace`` writes a Chrome trace holding the ``annotate`` range;
-    ``timed`` returns seconds a call."""
+    """``trace`` writes a Chrome trace holding the ``annotate`` range, named
+    ``ilqr.<name>``, and the span's record lies inside it on the trace's
+    clock; ``timed`` returns seconds a call."""
     x = torch.ones(64, 64)
+    profiling.drain()
     with profiling.trace(str(tmp_path)) as prof:
         with profiling.annotate("ilqr_stage"):
             (x @ x).sum()
     (path,) = glob.glob(os.path.join(str(tmp_path), "*.json"))
     with open(path) as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "ilqr_stage" in names
-    assert any(e.key == "ilqr_stage" for e in prof.key_averages())
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "ilqr.ilqr_stage" in names
+    assert any(e.key == "ilqr.ilqr_stage" for e in prof.key_averages())
+    (rng,) = [e for e in events if e.get("name") == "ilqr.ilqr_stage" and e.get("ph") == "X"]
+    (rec,) = profiling.drain()
+    assert rec["name"] == "ilqr_stage" and rec["device_ms"] is None
+    # the record's host interval (Unix-epoch ns) inside the trace's range
+    # (microseconds after the trace's base), to the trace's rounding
+    base = doc["baseTimeNanoseconds"]
+    t0, t1 = float(rng["ts"]), float(rng["ts"]) + float(rng["dur"])
+    start, end = ((rec[k] - base) / 1e3 for k in ("host_start_ns", "host_end_ns"))
+    assert t0 - 1.0 <= start <= end <= t1 + 1.0
     t = profiling.timed(lambda a: a @ a, x, reps=3, warmup=1)
     assert isinstance(t, float) and t > 0.0
