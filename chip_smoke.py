@@ -230,9 +230,21 @@ Phases, each of which raises (non-zero exit) when it fails:
    bound and the plain version (timed on its check's run), the share of a
    step's cycles in each phase at (36, 12) and (48, 16) (a build with the
    phase clocks, for measuring only), and K5, K6a, K6b at (36, 12).
+12. the derive kernel (csrc/sl_derive.cuh, ops/derive_kernel.py) on the
+   car, T=51, at B_DERIVE=131072 lanes (portbench's car.sweep), f32: its
+   nine stacks against the plain version's (the torch.func stacks) on the
+   same inputs, its time beside its byte bound and the plain version's;
+   and the main paths' derive kernel launches.  Each main path's solve
+   (check_launches, the planar quadrotor's and the team's) fails unless
+   it launched the kernel once a derive (an SL solve's trips and its
+   finish, from the solve log) and derived on the plain stacks never;
+   phase 8d's spec without derive programs must derive on them.
 
-Budget: the whole run stays under 800 s (1200 s limit).  For that,
-parity's loop cell runs on 4 lanes, tuned's loop cell on 16, phase 4c's
+Budget: 800 s is the aim and 1200 s the limit.  With the derive kernel
+the run took 785.0 s on a warm build cache and 817.8-1083.3 s on a cold
+one, as every fresh checkout has (the builds about 97 s, hosts up to
+200 s apart; NVIDIA H100 80GB HBM3, 700 W).  To hold it, parity's loop
+cell runs on 4 lanes, tuned's loop cell on 16, phase 4c's
 cell (a) on 14 and its acrobot cells (b) and (c) on 16 (each was 4096),
 the first two and 4c's cells (b) and (c)
 (and the kernel cells paired with them) at T=T_LOOP=51 and cell (a) at
@@ -243,8 +255,9 @@ DDP at T=T_DDP (was 51), phase 9e's long-horizon solve at T=T_LONG and
 phase 9f's trace over PROFILE_TRIPS trips, the splits time 5 iterations
 (were 20) and a plain version's time is one run after its check
 (PLAIN_REPS), phase 9c compacts the tuned preset (was parity) and phase
-9f traces 2 trips (was 8), and phase 5's CPU half runs in a worker process
-beside phases 2-4: the reasons and trip counts stand beside B_LOOP,
+9f traces 2 trips (was 8), phase 5's CPU half runs in a worker process
+beside phases 2-4, and the background builds run in the order they are
+needed (8a's with 8e's derive kernels, 10a's, 11d's, 11a's): the reasons and trip counts stand beside B_LOOP,
 run_compacted_devices and PROFILE_TRIPS.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
@@ -1003,37 +1016,71 @@ LAUNCH_NAMES = ("riccati_backward", "riccati_backward_wide", "sl_score_rollout",
                 "riccati_masked_packed", "riccati_packed_wide", "riccati_masked_wide",
                 "riccati_masked_packed_wide", "sl_score_rollout_generated",
                 "sl_winner_reroll_generated", "riccati_backward_tall", "riccati_packed_tall",
-                "riccati_masked_tall", "riccati_masked_packed_tall")
+                "riccati_masked_tall", "riccati_masked_packed_tall", "sl_derive", "derive.plain")
 
 
 def counters():
     """The port's launch counters (utils/profiling.py's registry) by kernel
     family, in LAUNCH_NAMES's order."""
-    from iterativelqr_tpu_torch.ops import pallas_backward, sl_forward_kernel  # noqa: F401
+    from iterativelqr_tpu_torch.ops import (derive_kernel, pallas_backward,  # noqa: F401
+                                            sl_forward_kernel)
     from iterativelqr_tpu_torch.utils import profiling
 
     found = profiling.launch_counters()
     return {k: found[k] for k in LAUNCH_NAMES}
 
 
+def reset_counts():
+    """Sets every launch count to 0; returns the mark read_counts takes
+    (the newest finished SL solve's id in the solve log)."""
+    from iterativelqr_tpu_torch.utils import profiling
+
+    for c in counters().values():
+        c.reset()
+    return max((e["solve"] for e in profiling.solve_log()), default=0)
+
+
+def read_counts(mark):
+    """Every launch count since reset_counts gave ``mark``, and
+    "sl.derives": the derives of the SL solves finished since then (each
+    solve's trips and its finish; 0 where no SL solve ran)."""
+    from iterativelqr_tpu_torch.utils import profiling
+
+    counts = {k: c.launches for k, c in counters().items()}
+    counts["sl.derives"] = sum(e["trips"] + 1 for e in profiling.solve_log() if e["solve"] > mark)
+    return counts
+
+
 def counted_solve(P, solve, args):
     """One timed solve of the main path (the user entry point and
     batch_stats, no instrumentation) with every launch count set to 0 just
     before and read just after; returns (solution, stats, wall s, counts)."""
-    for c in counters().values():
-        c.reset()
+    mark = reset_counts()
     t0 = time.perf_counter()
     sol = solve(*args)
     stats = P.batch_stats(sol)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return sol, stats, wall, {k: c.launches for k, c in counters().items()}
+    return sol, stats, wall, read_counts(mark)
+
+
+def check_derive_launches(name, counts):
+    """The main path derived on the derive kernel: never on the plain
+    stacks, and one launch a derive of each SL solve it ran (its trips and
+    its finish; a compacted solve, whose chunks log no solve, at least
+    one)."""
+    k, plain, sl = counts["sl_derive"], counts["derive.plain"], counts["sl.derives"]
+    if plain != 0 or k <= 0 or (sl and k != sl):
+        raise AssertionError(f"{name}: expected the derive kernel on every derive of the main "
+                             f"path: sl_derive {k}, the SL solves' trips and finishes {sl}, "
+                             f"plain derives {plain}")
 
 
 def check_launches(name, fkm, counts, model):
     """The model's backward kernel (K2 for the quadrotor, K1 for acrobot and
     car) was launched and the other was not; K3/K4 launched on the kernel
-    path and not on the loop path."""
+    path and not on the loop path; every derive on the derive kernel
+    (check_derive_launches)."""
     k1, k2 = counts["riccati_backward"], counts["riccati_backward_wide"]
     if model == "quadrotor":
         if k2 <= 0 or k1 != 0:
@@ -1045,6 +1092,7 @@ def check_launches(name, fkm, counts, model):
         raise AssertionError(f"{name}: K3/K4 were not launched on the main path {rollouts}")
     if fkm == "scan" and max(rollouts) > 0:
         raise AssertionError(f"{name}: the loop path launched K3/K4 {rollouts}")
+    check_derive_launches(name, counts)
 
 
 def integrity(name, spec, sol, stats, ws, tol, B, T, nx, nu):
@@ -1307,7 +1355,8 @@ def run_vmap_cell(P, variant, B, model="acrobot"):
     k6 = {"auto": None, "v1": "riccati_masked", "v2": "riccati_masked_packed"}[variant]
     if k6 is not None and (spec.nx, spec.nu) == WIDE:
         k6 += "_wide"
-    others = {k: v for k, v in counts.items() if k != k6 and v}
+    # the derive kernel is no K6 (a plain derive on the card still fails)
+    others = {k: v for k, v in counts.items() if k not in (k6, "sl_derive", "sl.derives") and v}
     if (k6 is not None and counts[k6] <= 0) or others:
         raise AssertionError(f"{name}: launches {counts}, expected only {k6}")
     if k6 is not None and counts[k6] != tests.get("regularization", 0):
@@ -1921,13 +1970,12 @@ def main_path(P, label, fn, *args):
     """``fn(*args)`` with every launch count set to 0 just before and read
     just after (and the card synchronised); returns (its value, wall s,
     counts)."""
-    for c in counters().values():
-        c.reset()
+    mark = reset_counts()
     t0 = time.perf_counter()
     out = fn(*args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: c.launches for k, c in counters().items()}
+    counts = read_counts(mark)
     log(f"[{label}] launches K1 {counts['riccati_backward']}, K3 {counts['sl_score_rollout']}, "
         f"K4 {counts['sl_winner_reroll']}")
     return out, wall, counts
@@ -2408,10 +2456,13 @@ def start_generated_build(P, fk, pool):
     """Phase 8a's build, queued in the background beside phase 5's golden
     half (it took 8.7 s of phase 8a in an 861.2 s run, NVIDIA H100 80GB
     HBM3, 700 W): the generated models of the three user problems and of
-    phase 8e's two, generated here (tracing stays on this thread), their
-    nvcc runs started together.  Returns (models, the pending build's
-    seconds and paths)."""
+    phase 8e's two, and those five's derive kernels in f32 (the dtype of
+    their solves; built at each first solve, 8e's two took 22 s of an 881.8
+    s run), generated here (tracing stays on this thread), their nvcc runs
+    started together.  Returns (models, the libraries' labels, the pending
+    build's seconds and paths)."""
     from iterativelqr_tpu_torch import _build
+    from iterativelqr_tpu_torch.ops import derive_kernel as dk
 
     models = {}
     cases = [(label, generated_spec(P, label, T)) for label, T in GENERATED_CASES.items()]
@@ -2428,13 +2479,20 @@ def start_generated_build(P, fk, pool):
             f"step and candidate; kStream {g.stream}; "
             f"ops a program {[None if p is None else len(p.ops) for p in g.programs]}")
     sources = [m.generated.translation_unit() for m in models.values()]
+    labels = list(models)
+    for label, spec in cases:
+        # a spec without derive programs fails its solve's launch check
+        derive = dk.derive_model(spec, "cuda") if label != MATH_LABEL else None
+        if derive is not None:
+            sources.append(derive.translation_unit(torch.float32))
+            labels.append(f"{label} (derive)")
 
     def run():
         t0 = time.perf_counter()
         paths = _build.build_generated(*sources)
         return time.perf_counter() - t0, paths
 
-    return models, pool.submit(run)
+    return models, labels, pool.submit(run)
 
 
 def build_generated(pending):
@@ -2442,11 +2500,11 @@ def build_generated(pending):
     the build's seconds and ptxas's registers and spills in f32 and f64."""
     from iterativelqr_tpu_torch import _build
 
-    models, build = pending
+    models, labels, build = pending
     seconds, paths = build.result()
-    log(f"[build] {len(paths)} generated models built together in {seconds:.2f} s, in the "
-        f"background")
-    for label, path in zip(models, paths):
+    log(f"[build] {len(models)} generated models and {len(paths) - len(models)} derive kernels "
+        f"built together in {seconds:.2f} s, in the background")
+    for label, path in zip(labels, paths):
         for line in _build.ptxas_report(path.with_suffix(".log")):
             log(f"[build] {label}: {line}")
     return models
@@ -2628,7 +2686,9 @@ def check_refusals(P, fk):
     op outside the whitelist (acrobot T=9, B=4, f32 on the card): under
     forward_kernel="pallas" the solver refuses, naming the branch or the op;
     under "auto" it picks the loops.  The whitelist case then solves on the
-    loops with no K3/K4 launch; the branch runs on no route (torch.func's
+    loops with no K3/K4 launch, and derives on the plain stacks (no derive
+    programs either: each derive counted on derive.plain); the branch runs
+    on no route (torch.func's
     vmap refuses data-dependent control flow, as jax.vmap does), so there
     only the choice is checked."""
     from iterativelqr_tpu_torch.models import acrobot
@@ -2669,8 +2729,13 @@ def check_refusals(P, fk):
                     torch.isfinite(sol.xs).all()):
                 raise AssertionError(f'"auto" with {what}: K3/K4 {k34}, K1 '
                                      f"{counts['riccati_backward']}")
+            # nor has it derive programs: every derive on the plain stacks,
+            # each counted
+            if counts["sl_derive"] != 0 or counts["derive.plain"] <= 0:
+                raise AssertionError(f'"auto" with {what}: derive kernel launches '
+                                     f"{counts['sl_derive']}, plain derives {counts['derive.plain']}")
             line += (f" and solved there: K3/K4 launches {k34}, K1 {counts['riccati_backward']}, "
-                     f"{int(sol.iterations.max())} trips")
+                     f"plain derives {counts['derive.plain']}, {int(sol.iterations.max())} trips")
         log(line)
 
 
@@ -2772,11 +2837,9 @@ def check_card_vs_cpu(P, cpu):
     T=9, car and quadrotor T=8, B=4, f64: equal iterates, trajectories
     within 1e-8."""
     for name, mod, T, make in card_vs_cpu_cases()[0]:
-        for c in counters().values():
-            c.reset()
+        mark = reset_counts()
         b = card_vs_cpu_solve(P, mod, T, make, "cuda", "pallas")
-        check_launches(f"card vs cpu {name}", "pallas",
-                       {k: c.launches for k, c in counters().items()}, name)
+        check_launches(f"card vs cpu {name}", "pallas", read_counts(mark), name)
         a = cpu["sl", name]
         for f in ("iterations", "al_iterations", "status"):
             if not torch.equal(a[f], getattr(b, f).cpu()):
@@ -2803,7 +2866,11 @@ def check_vmap_card_vs_cpu(P, cpu):
                 c.reset()
             b = vmap_card_vs_cpu_solve(P, mod, T, make, "cuda", kw, variant)
             launched = {k: c.launches for k, c in counters().items() if c.launches}
-            if set(launched) != ({kname} if kname else set()):
+            # backward_pass="packed" derives on the derive kernel, never on
+            # the plain stacks
+            want = (({kname} if kname else set())
+                    | ({"sl_derive"} if kw.get("backward_pass") == "packed" else set()))
+            if set(launched) != want:
                 raise AssertionError(f"vmap card vs cpu {name} {label}: launches {launched}")
             a = cpu["vmap", name, label]
             for f in ("iterations", "al_iterations", "status", "trace_mask"):
@@ -2882,11 +2949,9 @@ def check_golden(P, fixture):
     ws = torch.zeros((1, T, 0), dtype=dtype, device=dev)
     opts = P.Options(record_traces=False, adaptive_penalty=False,
                      forward_kernel="pallas")
-    for c in counters().values():
-        c.reset()
+    mark = reset_counts()
     sol = P.make_batched_solve_fn(spec, opts, device=dev, dtype=dtype)(xs, us[None], ws)
-    check_launches(f"golden {fixture}", "pallas",
-                   {k: c.launches for k, c in counters().items()}, name)
+    check_launches(f"golden {fixture}", "pallas", read_counts(mark), name)
     viol = float(sol.max_violation[0])
     dx = float(np.abs(sol.xs[0].cpu().numpy() - data["xs"]).max())
     du = float(np.abs(sol.us[0].cpu().numpy() - data["us"]).max())
@@ -3198,6 +3263,7 @@ def run_planar_quadrotor(P, pk, fk):
             f"{c['riccati_backward_wide']}), generated K3 {k34[0]}, K4 {k34[1]}")
         if k12 <= 0:
             raise AssertionError(f"planar quadrotor/{fkm}: the recursion's kernel was not launched")
+        check_derive_launches(f"planar quadrotor/{fkm}", c)
         if fkm == "pallas" and min(k34) <= 0:
             raise AssertionError(f"planar quadrotor: generated K3/K4 were not launched {k34}")
         if fkm == "scan" and max(k34) > 0:
@@ -3244,10 +3310,10 @@ B_TEAM_LOOP = 16
 
 def start_team_build(P, pk, fk, pool):
     """Phase 11d's build, started first in the background beside phase 5's
-    golden half: the team's device model generated here (tracing stays on
-    this thread), then the recursion's library at (36, 12) f32 and the
-    generated K3/K4 built together, as a user's first solve builds them
-    (``core/solve_sl.py::build_kernels``).  Returns (spec, device model,
+    golden half: the team's device model and derive programs generated here
+    (tracing stays on this thread), then the recursion's library at (36,
+    12) f32, the generated K3/K4 and the derive kernel built together, as a
+    user's first solve builds them (``core/solve_sl.py::build_kernels``).  Returns (spec, device model,
     the pending build's seconds)."""
     from iterativelqr_tpu_torch import _build
 
@@ -3255,7 +3321,13 @@ def start_team_build(P, pk, fk, pool):
     model = fk.device_model(spec, "cuda")
     if model is None or model.generated is None:
         raise AssertionError(f"team: no generated model ({fk.model_reason(spec, 'cuda')})")
-    sources = (pk.riccati_plan(*TEAM, torch.float32).source(), model.generated.translation_unit())
+    from iterativelqr_tpu_torch.ops import derive_kernel as dk
+
+    derive = dk.derive_model(spec, "cuda")
+    if derive is None:
+        raise AssertionError(f"team: no derive programs ({dk.derive_reason(spec, 'cuda')})")
+    sources = (pk.riccati_plan(*TEAM, torch.float32).source(), model.generated.translation_unit(),
+               derive.translation_unit(torch.float32))
 
     def run():
         t0 = time.perf_counter()
@@ -3566,6 +3638,7 @@ def run_team(P, pk, fk, team):
             raise AssertionError(f"team: generated K3/K4 were not launched {k34}")
         if fkm == "scan" and max(k34) > 0:
             raise AssertionError(f"team: the loop path launched K3/K4 {k34}")
+        check_derive_launches(f"team/{fkm}", c)
         if fkm == "pallas" and frac < 0.99:
             raise AssertionError(f"team/{fkm} B={B}: recomputed solved fraction {frac} < 0.99")
     # the loop cell against the kernel solve's first B_TEAM_LOOP lanes (a
@@ -3588,6 +3661,57 @@ def run_team(P, pk, fk, team):
         f"{trips[1]}); a trip {walls['pallas'] / trips[0]:.3f} s with the kernels on {B_MAIN} "
         f"lanes, {walls['scan'] / trips[1]:.3f} s with the loops on {L}")
     return counts["pallas"], records
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the derive kernel against its plain version
+# ---------------------------------------------------------------------------
+
+B_DERIVE = 131072   # car.sweep's lanes (portbench)
+
+
+def check_derive(P):
+    """The derive kernel (csrc/sl_derive.cuh) on the car, T=51, at
+    B_DERIVE lanes in f32: its nine stacks against the plain version's
+    (the torch.func stacks, ops/packed_pipeline.py::make_plain_stacks) on
+    the same inputs, within 1e-5 of max(1, |plain|) (the same functions
+    summed in other orders), and its time beside its bound (each input
+    value read once, each stack value written once) and the plain
+    version's.  Returns the kernel's record."""
+    from iterativelqr_tpu_torch.models import car
+    from iterativelqr_tpu_torch.ops import derive_kernel as dk
+    from iterativelqr_tpu_torch.ops import packed_pipeline as pp
+
+    spec = P.build_spec(*car.problem(T_CAR)[:3])
+    model = dk.derive_model(spec, "cuda")
+    if model is None:
+        raise AssertionError(f"car: no derive programs ({dk.derive_reason(spec, 'cuda')})")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rand = lambda *shape: 0.4 * torch.randn(*shape, device="cuda", generator=gen)
+    B, T = B_DERIVE, T_CAR
+    args = (rand(T, spec.nx, B), rand(T - 1, spec.nu, B), rand(T, 0, B))
+    plain = pp.make_plain_stacks(spec)
+    before = dk.DERIVE_LAUNCHES.launches
+    out = dk.derive_stacks(model, *args)
+    if dk.DERIVE_LAUNCHES.launches != before + 1:
+        raise AssertionError("derive_stacks did not launch the kernel")
+    ref, p_ms = timed_once(lambda: plain(*args))
+    err = 0.0
+    for name, a, b in zip(dk.stack_names(spec.nc), out, ref):
+        scale = max(1.0, float(b.abs().max()))
+        e = float((a - b).abs().max())
+        if not e <= 1e-5 * scale:
+            raise AssertionError(f"derive {name}: max |kernel - plain| {e:.3e} > 1e-5 * {scale:.3e}")
+        err = max(err, e)
+    del ref
+    k_ms = cuda_ms(lambda: dk.derive_stacks(model, *args), reps=20)
+    nbytes = sum(a.numel() * a.element_size() for a in (*args, *out))
+    b_ms, b_by = bound_ms(nbytes, 0)
+    log(f"[derive] sl_derive_kernel car T={T} B={B} f32: max |kernel - plain| {err:.3e} (tol 1e-5 "
+        f"relative); kernel {k_ms:.4f} ms (median of 20), plain {p_ms:.3f} ms (one run, "
+        f"{p_ms / k_ms:.1f} x); bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e9:.3f} GB); "
+        f"{b_ms / k_ms:.1%} of the bound; stage program {len(model.stage.ops)} ops")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def main():
@@ -3696,15 +3820,18 @@ def main():
     check_card_vs_cpu(P, cpu_half)
     check_vmap_card_vs_cpu(P, cpu_half)
     at("phase 5 card vs cpu")
-    # phases 8a's, 11d's, 10a's and 11a's builds in the background, from
-    # phase 5's golden half on (beside its CPU-bound half they slowed it by
-    # a third).  Their thread runs at nice 10 (on Linux a thread's own), and
-    # the nvcc processes it starts inherit it: up to 22 of them at once on 8
-    # cores took most of the host from the phases beside them
+    # phases 8a's, 10a's, 11d's and 11a's builds in the background, in the
+    # order they are needed, from phase 5's golden half on (beside its
+    # CPU-bound half they slowed it by a third).  Their thread runs at nice
+    # 10 (on Linux a thread's own), and the nvcc processes it starts
+    # inherit it: up to 22 of them at once on 8 cores took most of the host
+    # from the phases beside them.  The team's build (its derive kernel's
+    # nvcc takes minutes: 178.9-310.6 s with its K2 and K3/K4) went before
+    # 10a's, which then waited 42.8 s for it in an 1083.3 s run
     background = concurrent.futures.ThreadPoolExecutor(1, initializer=os.nice, initargs=(10,))
     gen_build = start_generated_build(P, fk, background)
-    team = start_team_build(P, pk, fk, background)
     grid_plans_, grid_build = start_riccati_grid(pk, background)
+    team = start_team_build(P, pk, fk, background)
     tall_plans_, tall_build = start_tall_grid(pk, background)
     for fixture in GOLDEN:
         check_golden(P, fixture)
@@ -3852,6 +3979,16 @@ def main():
         extra.append((kname, "generated model=team", rec))
     at("phase 11c")
 
+    # phase 12: the derive kernel (it replaces no TPU kernel: the JAX
+    # package leaves derive to XLA)
+    derive_record = check_derive(P)
+    # the main paths' own launches (each checked by check_derive_launches:
+    # one a derive, no plain derive)
+    derive_record["launches"] = launches["sl_derive"]
+    log(f"[derive] the main paths: {launches['sl_derive']} derive kernel launches, "
+        f"{launches['derive.plain']} plain derives")
+    at("phase 12")
+
     sources = {"riccati_backward": ("riccati_backward.cuh", "iterativelqr_tpu/ops/packed_backward.py:509"),
                "riccati_backward_wide": ("riccati_backward_wide.cuh", "iterativelqr_tpu/ops/packed_backward.py:574"),
                "sl_score_rollout": ("sl_forward.cu", "iterativelqr_tpu/ops/sl_forward_kernel.py:327"),
@@ -3894,6 +4031,9 @@ def main():
         library_ms=None,
         **rec,
     ) for name, instance, rec in extra]
+    kernels.append(dict(name="sl_derive", instance="model=car", route="cuda",
+                        source="iterativelqr_tpu_torch/csrc/sl_derive.cuh", replaces=None,
+                        library_ms=None, **derive_record))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -677,6 +677,11 @@ def make_solve_fn(
     def run(xs_init, us_init, ws, duals0=None, penalty0=None, *, batched):
         B, dtype = xs_init.shape[0], xs_init.dtype
         if riccati and batched:
+            if o.backward_pass == "packed":
+                # the recursion's and the derive kernel's libraries, built
+                # together as the SL solver builds them
+                from .solve_sl import build_kernels   # solve_sl imports this module
+                build_kernels(spec, False, dtype)
             pk.library(spec.nx, spec.nu, dtype)
         if duals0 is None:
             duals0 = torch.zeros((B, T, nc), dtype=dtype, device=device)

@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..ops import derive_kernel as dk
 from ..ops import packed_backward as pk
 from ..ops.packed_pipeline import make_derive_backward_sl
 from ..ops.sl_forward_kernel import device_model, select_kernels
@@ -62,11 +63,15 @@ class SLParts(NamedTuple):
 
 def build_kernels(spec: ProblemSpec, use_kernels: bool, dtype) -> list:
     """Build the kernels a solve of ``spec`` on the card runs, their nvcc
-    runs started together: the recursion's library at (nx, nu, dtype) and,
-    where the line search runs K3/K4 on a generated model, that model's.
-    Each is built once (cached on disk by its text); returns the paths."""
+    runs started together: the recursion's library at (nx, nu, dtype),
+    the derive kernel's where the spec has derive programs and, where the
+    line search runs K3/K4 on a generated model, that model's.  Each is
+    built once (cached on disk by its text); returns the paths."""
     model = device_model(spec, "cuda") if use_kernels else None
     sources = [model.generated.translation_unit()] if model and model.generated else []
+    derive = dk.derive_model(spec, "cuda")
+    if derive is not None:
+        sources.append(derive.translation_unit(dtype))
     return pk.build((spec.nx, spec.nu), dtypes=(dtype,), sources=sources)
 
 

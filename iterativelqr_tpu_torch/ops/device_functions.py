@@ -23,10 +23,23 @@ constraint, terminal constraint) is
    * indexing with constant integer indices renames too: ``index`` (a
      closed-over LongTensor or a Python list), ``index_select``,
      ``gather``; so do writes at constant indices (``index_put``,
-     ``select_scatter``, ``slice_scatter``, ``copy``) and the constant
-     makers (``zeros``, ``ones``, ``full``, ``eye``, ``arange``, their
-     ``_like`` and ``new_`` forms, ``fill``, ``diag_embed``).  An integer
-     value is taken only as an index;
+     ``select_scatter``, ``slice_scatter``, ``diagonal_scatter``,
+     ``copy``) and the constant makers (``zeros``, ``ones``, ``full``,
+     ``eye``, ``arange``, their ``_like`` and ``new_`` forms, ``fill``,
+     ``diag_embed``, ``empty_like``).  An integer value is taken only as an
+     index (``neg`` and ``cumsum`` of one are index arithmetic), or as a
+     count of conditions (``sum`` or ``cumsum`` of booleans,
+     ``count_nonzero``), which is whole and exact in T;
+   * what ``jacfwd``'s and ``grad``'s graphs add (the derive kernel's
+     programs, ``ops/derive_kernel.py``): the tangent makers
+     ``_efficientzerotensor``, ``_new_zeros_with_same_feature_meta``,
+     ``slice_backward``, ``select_backward`` (literals and renames), the
+     shape checks ``is_same_size`` and ``_has_same_storage_numel``, the
+     derivative ops ``tanh_backward``, ``sigmoid_backward``,
+     ``threshold_backward``, ``softplus_backward`` (aten's decompositions,
+     in their order), ``masked_fill``, ``isnan``, ``sgn``, ``cumsum``,
+     ``cumprod`` and ``index_put`` with ``accumulate`` (in index order);
+     ``prims`` arithmetic lowers as its aten twin of the same name;
    * products unroll into multiply-adds, left to right: ``dot``, ``mv``,
      ``mm``, ``bmm``, ``addmm``, ``linalg_cross`` (JAX's ``_dot_mulsum``
      rule: a tiny product is multiply-reduce, never a library call);
@@ -95,20 +108,25 @@ _LOWERINGS = {
                            "lift_fresh_copy clone alias detach _to_copy expand flip unbind "
                            "split split_with_sizes index index_select gather index_put"),
     **_ops("layout", "r", "permute t transpose repeat diagonal select_scatter slice_scatter "
+                          "diagonal_scatter slice_backward select_backward constant_pad_nd "
                           "copy"),
     **_ops("layout", "rp", "squeeze_ unsqueeze_"),
-    **_ops("layout", "i", "getitem"),
-    **_ops("constants", "r", "zeros zeros_like ones ones_like full full_like new_zeros "
-                             "new_ones new_full fill eye diag_embed"),
-    **_ops("constants", "ri", "arange"),
+    **_ops("layout", "i", "getitem is_same_size _has_same_storage_numel"),
+    **_ops("constants", "r", "zeros_like ones_like full full_like new_zeros new_ones new_full "
+                             "fill eye diag_embed _new_zeros_with_same_feature_meta empty_like"),
+    **_ops("constants", "ri", "zeros ones _efficientzerotensor arange"),
     **_ops("constants", "", "scalar_tensor"),
-    **_ops("math", "", "add sub mul div rsub neg abs sign sigmoid sin cos tan exp log sqrt "
+    **_ops("math", "i", "neg"),
+    **_ops("math", "", "add sub mul div rsub abs sign sigmoid sin cos tan exp log sqrt "
                        "tanh atan asin acos sinh cosh asinh acosh atanh log1p expm1 erf "
                        "rsqrt reciprocal relu softplus atan2 hypot pow minimum maximum "
                        "clamp clamp_min clamp_max gt ge lt le eq ne bitwise_and bitwise_or "
-                       "bitwise_not logical_and logical_or logical_not where dot mv mm bmm "
-                       "addmm linalg_cross"),
-    **_ops("reduction", "", "sum mean prod amax amin max min linalg_vector_norm"),
+                       "bitwise_not logical_and logical_or logical_not where masked_fill dot mv "
+                       "mm bmm addmm linalg_cross tanh_backward sigmoid_backward "
+                       "threshold_backward softplus_backward isnan sgn"),
+    **_ops("reduction", "", "sum mean prod amax amin max min linalg_vector_norm cumprod "
+                            "count_nonzero"),
+    **_ops("reduction", "i", "cumsum"),
 }
 WHITELIST = tuple(_LOWERINGS)
 
@@ -471,6 +489,12 @@ class _Lowering:
             return
         if _is_index(out) and not val.is_floating_point():
             return
+        counted = getattr(node.args[0], "meta", {}).get("val") if node.args else None
+        if not val.is_floating_point() and (
+                _name(node.target) == "count_nonzero" or (
+                    _name(node.target) in ("sum", "cumsum") and counted is not None
+                    and counted.dtype == torch.bool)):
+            return      # a count (grad's ties of amax, zeros of prod): whole, exact in T
         if ("r" in _LOWERINGS.get(_name(node.target), ("", ""))[1] and val.is_floating_point()
                 and all(_is_lit(a) for a in out.reshape(-1))):
             return
@@ -504,12 +528,20 @@ class _Lowering:
             return a
         if name == "getitem":
             return a[args[1]]
+        if name in ("is_same_size", "_has_same_storage_numel"):
+            # checks of forward-mode AD on fixed shapes
+            same = np.shape if name == "is_same_size" else np.size
+            return same(a) == same(args[1])
         if name == "_to_copy":
             want = kw.get("dtype")
             if _is_index(a):
                 if want is None or not want.is_floating_point:
                     return a
                 return np.vectorize(float, otypes=[object])(a) if a.ndim else _obj(float(a))
+            if want == torch.bool:
+                # a value's truth: nonzero (a count's, under grad)
+                return _elementwise(lambda p: p if b.kind(p) == "b" else b.emit(
+                    "ne", p, 0.0, kind="b"), a)
             # a move or a cast to the input's dtype (a cast to another dtype
             # is refused by check_dtype); a condition becomes 0 or 1
             return _elementwise(b.as_float, a)
@@ -591,10 +623,18 @@ class _Lowering:
             return np.array(_elementwise(b.as_float, np.broadcast_to(args[1], a.shape)))
         if name == "index_put":
             accumulate = args[3] if len(args) > 3 else kw.get("accumulate", False)
-            if accumulate:
-                raise Refused(f"{target} with accumulate=True")
             out = np.array(a, dtype=object)
-            _assign(out, _index_tuple(args[1], target), _elementwise(b.as_float, args[2]))
+            index = _index_tuple(args[1], target)
+            src = _elementwise(b.as_float, args[2])
+            if not accumulate:
+                _assign(out, index, src)
+                return out
+            # out[index] += src one target after another, in index order (a
+            # repeated index adds each time; the CPU's serial loop), as
+            # grad forms the derivative of indexing
+            at = np.arange(out.size).reshape(out.shape)[index]
+            for pos, v in zip(at.reshape(-1), np.broadcast_to(src, at.shape).reshape(-1)):
+                out.flat[pos] = b.emit("add", b.as_float(out.flat[pos]), v)
             return out
         if name in ("select_scatter", "slice_scatter"):
             src, dim = args[1], args[2] if len(args) > 2 else kw.get("dim", 0)
@@ -609,6 +649,39 @@ class _Lowering:
                 sl[dim % a.ndim] = slice(start, end, step)
             _assign(out, tuple(sl), _elementwise(b.as_float, src))
             return out
+        if name == "diagonal_scatter":
+            # the diagonal of ``a`` (np.diagonal's: offset, dim1, dim2) set to
+            # src, whose last axis runs along it
+            offset = args[2] if len(args) > 2 else kw.get("offset", 0)
+            d1 = args[3] if len(args) > 3 else kw.get("dim1", 0)
+            d2 = args[4] if len(args) > 4 else kw.get("dim2", 1)
+            out = np.array(a, dtype=object)
+            on = np.moveaxis(out, (d1 % a.ndim, d2 % a.ndim), (-2, -1))
+            src = _elementwise(b.as_float, args[1])
+            for i in range(src.shape[-1]):
+                r, c = (i, i + offset) if offset >= 0 else (i - offset, i)
+                _assign(on, (Ellipsis, r, c), src[..., i])
+            return out
+        if name == "constant_pad_nd":
+            # F.pad's constant mode (core/spec.py pads manual derivatives):
+            # (before, after) pairs from the last dim back
+            pad, value = args[1], _lit(args[2] if len(args) > 2 else kw.get("value", 0.0))
+            widths = [(0, 0)] * (a.ndim - len(pad) // 2) + [
+                (pad[2 * i], pad[2 * i + 1]) for i in reversed(range(len(pad) // 2))]
+            if any(w < 0 for pair in widths for w in pair):
+                raise Refused(f"{target} with a negative pad")
+            out = _literals([n + lo + hi for n, (lo, hi) in zip(a.shape, widths)], value)
+            _assign(out, tuple(slice(lo, lo + n) for n, (lo, _) in zip(a.shape, widths)), a)
+            return out
+        if name in ("slice_backward", "select_backward"):
+            # zeros of the input's sizes with the slice (the row) set to the
+            # gradient: the tangents of ``slice`` and ``select`` under jacfwd
+            sizes, dim = args[1], args[2]
+            out = _literals(sizes)
+            sl = [slice(None)] * out.ndim
+            sl[dim % out.ndim] = slice(*args[3:6]) if name == "slice_backward" else args[3]
+            _assign(out, tuple(sl), _elementwise(b.as_float, a))
+            return out
         return NotImplemented
 
     # -- literals -------------------------------------------------------------
@@ -617,10 +690,20 @@ class _Lowering:
         a = args[0] if args else None
         if name == "scalar_tensor":
             return _obj(_lit(a))
-        if name in ("zeros", "ones"):
-            return _literals(a, 0.0 if name == "zeros" else 1.0)
+        if name in ("zeros", "ones", "_efficientzerotensor"):
+            value = 1.0 if name == "ones" else 0.0
+            dtype = kw.get("dtype")
+            if dtype is not None and not dtype.is_floating_point and dtype != torch.bool:
+                # an integer tensor (an index, or a sum's integer start
+                # under grad): its values are exact
+                return np.full(tuple(a), int(value), dtype=np.int64)
+            return _literals(a, value)
         if name == "full":
             return _literals(args[0], _lit(args[1]))
+        if name == "empty_like":
+            # uninitialised: a later fill or copy writes it (zeros are as
+            # good as any values)
+            return _literals(np.shape(a))
         if name in ("zeros_like", "ones_like", "new_zeros", "new_ones"):
             shape = np.shape(a) if name.endswith("like") else args[1]
             return _literals(shape, 0.0 if "zeros" in name else 1.0)
@@ -633,6 +716,11 @@ class _Lowering:
             if isinstance(v, np.ndarray):
                 return np.array(np.broadcast_to(_elementwise(self.b.as_float, v), a.shape))
             return _literals(np.shape(a), _lit(v))
+        if name == "_new_zeros_with_same_feature_meta":
+            # zeros of other's shape behind self's leading batch dims
+            # (forward-mode AD's tangent of a primal)
+            n_batch = args[2] if len(args) > 2 else kw.get("self_num_batch_dims", 0)
+            return _literals(np.shape(a)[:n_batch] + np.shape(args[1]))
         if name == "eye":
             n = args[0]
             m = args[1] if len(args) > 1 else n
@@ -673,6 +761,8 @@ class _Lowering:
             if name == "rsub":
                 name, x, y = "sub", y, x
             return _elementwise(lambda p, q: b.emit(name, b.as_float(p), b.as_float(q)), x, y)
+        if name == "neg" and _is_index(a):
+            return -a       # a constant index (torch's split sizes under jacfwd)
         if name in _UNARY:
             return _elementwise(lambda p: b.emit(name, b.as_float(p)), a)
         if name == "rsqrt":
@@ -741,6 +831,32 @@ class _Lowering:
                 return b.emit("where", p, b.as_float(q), b.as_float(r))
 
             return _elementwise(sel, c, x, y)
+        if name == "sgn":
+            return _elementwise(lambda p: b.emit("sign", b.as_float(p)), a)   # real tensors
+        if name == "isnan":
+            return _elementwise(lambda p: b.emit("ne", b.as_float(p), b.as_float(p), kind="b"), a)
+        if name == "masked_fill":
+            return self.math("where", target, [args[1], args[2], a], {})
+        # the derivatives grad forms (aten's decompositions, in their order)
+        if name == "tanh_backward":
+            return _elementwise(lambda g, y: b.emit("mul", g, b.emit(
+                "sub", 1.0, b.emit("mul", y, y))), a, args[1])
+        if name == "sigmoid_backward":
+            return _elementwise(lambda g, y: b.emit("mul", g, b.emit(
+                "mul", y, b.emit("sub", 1.0, y))), a, args[1])
+        if name == "threshold_backward":
+            return _elementwise(lambda g, p: b.emit(
+                "where", b.emit("le", p, _lit(args[2]), kind="b"), 0.0, g), a, args[1])
+        if name == "softplus_backward":
+            beta, threshold = _lit(args[2]), _lit(args[3])
+
+            def softplus_grad(g, p):
+                xb = b.emit("mul", p, beta)
+                z = b.emit("exp", xb)
+                return b.emit("where", b.emit("gt", xb, threshold, kind="b"), g,
+                              b.emit("div", b.emit("mul", g, z), b.emit("add", z, 1.0)))
+
+            return _elementwise(softplus_grad, a, args[1])
         if name == "dot":
             return _obj(_products(b, args[0], args[1]))
         if name == "mv":
@@ -806,6 +922,22 @@ class _Lowering:
             if name in ("max", "min") and len(args) > 1:
                 return [out, _DataIndex()]     # (values, indices)
             return out
+        if name == "count_nonzero":
+            return _reduce(a, dims, False, lambda ts: _sequential_sum(
+                b, [b.as_float(b.emit("ne", t, 0.0, kind="b")) for t in flt(ts)]))
+        if name in ("cumsum", "cumprod"):
+            # running sums or products along dim, left to right (prod's
+            # derivative under grad)
+            if kw.get("dtype") is not None:
+                raise Refused(f"{target} with a dtype")
+            if _is_index(args[0]):
+                return np.cumsum(args[0], axis=dims)    # constant indices
+            op = "add" if name == "cumsum" else "mul"
+            out = np.moveaxis(np.array(_elementwise(b.as_float, a)), dims, -1)
+            for i in range(1, out.shape[-1]):
+                out[..., i] = _elementwise(lambda p, q: b.emit(op, p, q), out[..., i - 1],
+                                           out[..., i])
+            return np.moveaxis(out, -1, dims)
         if name == "linalg_vector_norm":
             ord_ = _lit(args[1] if len(args) > 1 else kw.get("ord", 2))
             dims = args[2] if len(args) > 2 else kw.get("dim")
@@ -918,7 +1050,9 @@ def _c_lit(v: float) -> str:
     return f"T({v!r})"
 
 
-def _c_ref(prog: Program, a) -> str:
+def c_ref(prog: Program, a) -> str:
+    """The C expression of an arg or output: a literal cast to T, an
+    input (``x[i]``, ``u[i]``, ``w[i]``) or a register (``r<i>``)."""
     if _is_lit(a):
         return _c_lit(a)
     if a < prog.n_x:
@@ -933,10 +1067,21 @@ def _c_ref(prog: Program, a) -> str:
 def _c_body(prog: Program, out: Optional[str]) -> list:
     """The statements of one program; ``out`` None returns its single
     output, else writes out[i]."""
+    lines = c_statements(prog)
+    if out is None:
+        lines.append(f"    return {c_ref(prog, prog.outs[0])};")
+    else:
+        lines += [f"    {out}[{i}] = {c_ref(prog, o)};" for i, o in enumerate(prog.outs)]
+    return lines
+
+
+def c_statements(prog: Program) -> list:
+    """One C statement for each op of the program, in its order: ``const T
+    r<register> = ...;`` (``bool`` for a condition)."""
     lines = []
     for i, (name, args) in enumerate(prog.ops):
         reg = prog.n_in + i
-        a = [_c_ref(prog, v) for v in args]
+        a = [c_ref(prog, v) for v in args]
         if name in _ARITH:
             e = f"{a[0]} {_ARITH[name]} {a[1]}"
         elif name == "neg":
@@ -963,10 +1108,6 @@ def _c_body(prog: Program, out: Optional[str]) -> list:
             raise AssertionError(name)
         ty = "bool" if prog.kinds[i] == "b" else "T"
         lines.append(f"    const {ty} r{reg} = {e};")
-    if out is None:
-        lines.append(f"    return {_c_ref(prog, prog.outs[0])};")
-    else:
-        lines += [f"    {out}[{i}] = {_c_ref(prog, o)};" for i, o in enumerate(prog.outs)]
     return lines
 
 
@@ -1037,6 +1178,41 @@ def _mask(rows) -> str:
     return f"{sum(1 << i for i in rows)}ull"
 
 
+# a generated header's lines up to its struct: the math functions by their
+# C names on the host as well, in namespace sl_models
+PREAMBLE = (
+    "#pragma once",
+    "",
+    "#include <cmath>",
+    "",
+    "namespace sl_models {",
+    "",
+    "#ifndef __CUDACC__",
+    "using std::cos; using std::exp; using std::fabs; using std::log;",
+    "using std::sin; using std::sqrt; using std::tan; using std::tanh;",
+    "using std::acos; using std::acosh; using std::asin; using std::asinh;",
+    "using std::atan; using std::atan2; using std::atanh; using std::cosh;",
+    "using std::erf; using std::expm1; using std::hypot; using std::log1p;",
+    "using std::pow; using std::sinh;",
+    "#endif",
+    "",
+)
+
+# the struct's helpers that the printed scalar ops call
+HELPERS = (
+    "  // torch.minimum / torch.maximum: NaN in either operand gives NaN",
+    "  template <typename T>",
+    "  __host__ __device__ static T gmin(T a, T b) { return (a != a || b != b) ? a + b : (b < a ? b : a); }",
+    "  template <typename T>",
+    "  __host__ __device__ static T gmax(T a, T b) { return (a != a || b != b) ? a + b : (b > a ? b : a); }",
+    "  // torch.sign (0 for NaN, as on the CPU) and torch.sigmoid",
+    "  template <typename T>",
+    "  __host__ __device__ static T gsign(T a) { return T((T(0) < a) - (a < T(0))); }",
+    "  template <typename T>",
+    "  __host__ __device__ static T gsigmoid(T a) { return T(1) / (T(1) + exp(-a)); }",
+)
+
+
 def print_header(programs, nx, nu, nw, nc, nc_stage, nc_term, ineq, ineq_T,
                  stream, struct: str) -> str:
     """The CUDA header of a generated model (``csrc/sl_model_*.cuh``'s
@@ -1046,21 +1222,7 @@ def print_header(programs, nx, nu, nw, nc, nc_stage, nc_term, ineq, ineq_T,
         "// from a problem's torch stage functions, for the rollout kernels K3/K4",
         "// (sl_rollout.cuh).  Each function is the traced function's scalar",
         "// program: its operations in the traced order, literals cast to T.",
-        "#pragma once",
-        "",
-        "#include <cmath>",
-        "",
-        "namespace sl_models {",
-        "",
-        "#ifndef __CUDACC__",
-        "using std::cos; using std::exp; using std::fabs; using std::log;",
-        "using std::sin; using std::sqrt; using std::tan; using std::tanh;",
-        "using std::acos; using std::acosh; using std::asin; using std::asinh;",
-        "using std::atan; using std::atan2; using std::atanh; using std::cosh;",
-        "using std::erf; using std::expm1; using std::hypot; using std::log1p;",
-        "using std::pow; using std::sinh;",
-        "#endif",
-        "",
+        *PREAMBLE,
         f"struct {struct} {{",
         f"  static constexpr int NX = {nx}, NU = {nu}, NW = {nw}, NP = 0;",
         f"  static constexpr int NC_STAGE = {nc_stage}, NC_TERM = {nc_term};",
@@ -1069,16 +1231,7 @@ def print_header(programs, nx, nu, nw, nc, nc_stage, nc_term, ineq, ineq_T,
         f"INEQ_TERM = {_mask(ineq_T)};",
         f"  static constexpr bool kStream = {'true' if stream else 'false'};",
         "",
-        "  // torch.minimum / torch.maximum: NaN in either operand gives NaN",
-        "  template <typename T>",
-        "  __host__ __device__ static T gmin(T a, T b) { return (a != a || b != b) ? a + b : (b < a ? b : a); }",
-        "  template <typename T>",
-        "  __host__ __device__ static T gmax(T a, T b) { return (a != a || b != b) ? a + b : (b > a ? b : a); }",
-        "  // torch.sign (0 for NaN, as on the CPU) and torch.sigmoid",
-        "  template <typename T>",
-        "  __host__ __device__ static T gsign(T a) { return T((T(0) < a) - (a < T(0))); }",
-        "  template <typename T>",
-        "  __host__ __device__ static T gsigmoid(T a) { return T(1) / (T(1) + exp(-a)); }",
+        *HELPERS,
     ]
     for (fname, ret, sig, out), prog in zip(_SLOTS, programs):
         lines += ["", "  template <typename T>",

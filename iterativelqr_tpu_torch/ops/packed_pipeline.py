@@ -5,14 +5,17 @@ Counterpart of ``iterativelqr_tpu/ops/packed_pipeline.py``: its
 solver's step) and the ``custom_vmap`` dispatch of ``backward_pass="packed"``
 on the per-instance solver's vmap route (``make_derive_backward``).  The
 derivative stacks are born in the backward kernel's batch-last layout
-``[T, *dims, B]`` by vmapping the per-timestep derivative functions over t
-and over the trailing batch axis, so no stack is ever re-laid-out before the
-kernel (``ops/packed_backward.py``).
+``[T, *dims, B]``, so no stack is ever re-laid-out before the kernel
+(``ops/packed_backward.py``): on the card, by the derive kernel
+(``ops/derive_kernel.py``) where the spec has derive programs; otherwise by
+vmapping the per-timestep derivative functions over t and over the
+trailing batch axis (``make_plain_stacks``, the plain version).
 """
 
 from __future__ import annotations
 
 import functools
+import warnings
 
 import numpy as np
 import torch
@@ -20,6 +23,7 @@ from torch.func import vmap
 
 from ..core.spec import ProblemSpec
 from ..utils import profiling
+from . import derive_kernel as dk
 from . import packed_backward as pk
 from .batching import custom_vmap
 from .derivatives import _merge_groups
@@ -53,6 +57,49 @@ def _grouped_bt2(fns, comb_key, rows, args):
     return _merge_groups(results, groups)
 
 
+def make_plain_stacks(spec: ProblemSpec):
+    """The plain version of derive (and of the derive kernel,
+    ``ops/derive_kernel.py``): the stage functions' ``torch.func``
+    derivatives vmapped over t and the lanes,
+
+        (xs [T,nx,B], us [T-1,nu,B], ws [T,npar,B])
+          -> (fx, fu, gx, gu, gxx, guu, gux[, cx, cu])
+
+    batch-last, gx, gxx and cx with the terminal row (u = 0), the others
+    T-1 rows."""
+    Tm1, nu, nc = spec.T - 1, spec.nu, spec.nc
+    # combined per-timestep derivative function per (dyn, cost, con) type key
+    comb_key = dk.combined_key(spec)
+    fns = {int(key): dk.stage_function(spec, key) for key in np.unique(comb_key)}
+
+    gT = int(spec.cost_tidx[-1])
+    cT = int(spec.con_tidx[-1])
+    grad_T = map2(spec.cost_grad[gT])
+    hess_T = map2(spec.cost_hess[gT])
+    cjac_T = map2(spec.con_jac[cT])
+
+    def plain_stacks(xs, us, ws):
+        stacks = _grouped_bt2(fns, comb_key, Tm1, (xs[:-1], us, ws[:-1]))
+        if nc > 0:
+            fx, fu, gx_s, gu, gxx_s, guu, gux, cx_s, cu = stacks
+        else:
+            fx, fu, gx_s, gu, gxx_s, guu, gux = stacks
+
+        # terminal stage (u = 0)
+        u0 = xs.new_zeros((nu, xs.shape[-1]))
+        gxT, _ = grad_T(xs[-1], u0, ws[-1])
+        gxxT, _, _ = hess_T(xs[-1], u0, ws[-1])
+        gx = torch.cat([gx_s, gxT[None]], dim=0)       # [T,nx,B]
+        gxx = torch.cat([gxx_s, gxxT[None]], dim=0)    # [T,nx,nx,B]
+        if nc > 0:
+            cxT, _ = cjac_T(xs[-1], u0, ws[-1])
+            cx = torch.cat([cx_s, cxT[None]], dim=0)   # [T,nc,nx,B]
+            return fx, fu, gx, gu, gxx, guu, gux, cx, cu
+        return fx, fu, gx, gu, gxx, guu, gux
+
+    return plain_stacks
+
+
 def make_derive_backward_sl(spec: ProblemSpec, options, device):
     """Build the batch-last derive+backward+slope step of the SL solver:
 
@@ -63,9 +110,14 @@ def make_derive_backward_sl(spec: ProblemSpec, options, device):
 
     ``valid`` (bool [B] or None) marks real lanes: lanes outside it never
     hold the regularization retry open.  ``device`` (the solve's device,
-    from the caller) places the static masks.  On the card the solvers
-    build the recursion's kernels for (nx, nu, dtype) when a solve starts
-    (``core/solve_sl.py::build_kernels``, ``core/solve.py``).
+    from the caller) places the static masks and picks derive, once, here:
+    on the card the derive kernel where the spec has derive programs
+    (``ops/derive_kernel.py::derive_model``; ``derive_reason`` says why
+    not), else the plain stacks with a ``RuntimeWarning`` that gives the
+    reason, each such derive counted on ``derive.plain``.  On the card the
+    solvers build the recursion's and the derive kernel's libraries for
+    (nx, nu, dtype) when a solve starts (``core/solve_sl.py::build_kernels``,
+    ``core/solve.py``).
     """
     T, nx, nu, nc = spec.T, spec.nx, spec.nu, spec.nc
     Tm1 = T - 1
@@ -75,57 +127,32 @@ def make_derive_backward_sl(spec: ProblemSpec, options, device):
     x_m = torch.as_tensor(spec.x_mask[:-1], device=device)[:, :, None]
     u_m = u_mask[:, :, None]
 
-    # combined per-timestep derivative function per (dyn, cost, con) type key
-    n_cost = len(spec.cost_eval)
-    n_con = len(spec.con_eval)
-    comb_key = (
-        spec.dyn_tidx.astype(np.int64) * n_cost + spec.cost_tidx[:Tm1]
-    ) * n_con + spec.con_tidx[:Tm1]
-    fns = {}
-    for key in np.unique(comb_key):
-        di, rest = divmod(int(key), n_cost * n_con)
-        gi, ci = divmod(rest, n_con)
-        dj, cg, ch, cj = (
-            spec.dyn_jac[di], spec.cost_grad[gi], spec.cost_hess[gi],
-            spec.con_jac[ci],
-        )
+    plain_stacks = make_plain_stacks(spec)
 
-        def per_t(x, u, w, dj=dj, cg=cg, ch=ch, cj=cj):
-            fx, fu = dj(x, u, w)
-            gx, gu = cg(x, u, w)
-            gxx, guu, gux = ch(x, u, w)
-            if nc > 0:
-                cx, cu = cj(x, u, w)
-                return fx, fu, gx, gu, gxx, guu, gux, cx, cu
-            return fx, fu, gx, gu, gxx, guu, gux
-
-        fns[int(key)] = per_t
-
-    gT = int(spec.cost_tidx[-1])
-    cT = int(spec.con_tidx[-1])
-    grad_T = map2(spec.cost_grad[gT])
-    hess_T = map2(spec.cost_hess[gT])
-    cjac_T = map2(spec.con_jac[cT])
+    # the derive kernel where the card runs a spec it has programs for
+    # (decided once, here); the torch.func stacks otherwise, said aloud on
+    # the card, where they cost a hundred times the kernel's time
+    model = None
+    if torch.device(device).type == "cuda":
+        model = dk.derive_model(spec, device)
+        if model is None:
+            warnings.warn("derive on the card takes the plain torch.func stacks: "
+                          + dk.derive_reason(spec, device), RuntimeWarning, stacklevel=2)
 
     def derive(xs, us, ws, lam, rho, c, reg, valid=None):
         dtype = xs.dtype
         B = xs.shape[-1]
         with profiling.annotate("derive"):
-            stacks = _grouped_bt2(fns, comb_key, Tm1, (xs[:-1], us, ws[:-1]))
-            if nc > 0:
-                fx, fu, gx_s, gu, gxx_s, guu, gux, cx_s, cu = stacks
+            if model is not None:
+                stacks = dk.derive_stacks(model, xs.contiguous(), us.contiguous(),
+                                          ws.contiguous())
             else:
-                fx, fu, gx_s, gu, gxx_s, guu, gux = stacks
-
-            # terminal stage (u = 0)
-            u0 = xs.new_zeros((nu, B))
-            gxT, _ = grad_T(xs[-1], u0, ws[-1])
-            gxxT, _, _ = hess_T(xs[-1], u0, ws[-1])
-            gx = torch.cat([gx_s, gxT[None]], dim=0)       # [T,nx,B]
-            gxx = torch.cat([gxx_s, gxxT[None]], dim=0)    # [T,nx,nx,B]
+                if xs.is_cuda:
+                    dk.PLAIN_DERIVES.launches += 1
+                stacks = plain_stacks(xs, us, ws)
+            fx, fu, gx, gu, gxx, guu, gux = stacks[:7]
             if nc > 0:
-                cxT, _ = cjac_T(xs[-1], u0, ws[-1])
-                cx = torch.cat([cx_s, cxT[None]], dim=0)   # [T,nc,nx,B]
+                cx, cu = stacks[7:]
 
         with profiling.annotate("augment"):
             # AL Gauss-Newton augmentation (broadcast-multiply-reduce, as

@@ -7,7 +7,8 @@
   examples/sensitivity_demo.py's functions in torch, the problems of every
   elementwise function and of the mixed ops, and one function for each
   whitelisted op family (products and layout, constant indices and writes
-  at them, the math functions, reductions).  The program reorders nothing
+  at them, the math functions, reductions, and what jacfwd's and grad's
+  graphs hold: tangent makers, the derivative ops, running sums, counts).  The program reorders nothing
   but the terms of a sum, product or reduction (left to right; torch's CPU
   reduction and BLAS may pair them).
 - The quadrotor written with matrices and the car as users write it equal
@@ -142,6 +143,33 @@ _OP_CASES = {
     # registers, not one
     "signed zero": lambda x, u, w: torch.stack([
         torch.atan2(0.0 * x[0], -1.0 - x[1] * x[1]), torch.atan2(-0.0 * x[0], -1.0 - x[1] * x[1])]),
+    # what jacfwd's and grad's graphs of stage functions hold (the derive
+    # kernel's programs, ops/derive_kernel.py): tangent makers and writes
+    "diagonal_scatter": lambda x, u, w: torch.cat([
+        torch.diagonal_scatter(torch.outer(x, x), 2.0 * x)[1:].reshape(-1),
+        torch.diagonal_scatter(torch.outer(x, x), w * x[:2], 1)[0]]),
+    "slice_backward": lambda x, u, w: torch.ops.aten.slice_backward(x[1:] * u, [5], 0, 1, 3, 1)
+    + torch.ops.aten.slice_backward(x[::2], [4], 0, 0, 4, 2)[:3].sum(),
+    "select_backward": lambda x, u, w: torch.ops.aten.select_backward(x * w[0], [2, 3], 0, 1)
+    .reshape(-1) + torch.ops.aten.select_backward(u[1] * x[0], [3], 0, 2).sum(),
+    "zero tangents": lambda x, u, w: torch.ops.aten._efficientzerotensor([3], dtype=x.dtype)
+    + torch.ops.aten._new_zeros_with_same_feature_meta(u, x)
+    + sum(v * v for v in u) + torch.empty_like(x).fill_(2.0) * x
+    + (x if torch.ops.aten.is_same_size(x, 2.0 * x)
+       and torch.ops.aten._has_same_storage_numel(x, x) else -x),
+    "backward math": lambda x, u, w: torch.ops.aten.tanh_backward(x, torch.tanh(0.5 * x))
+    + torch.ops.aten.sigmoid_backward(x, torch.sigmoid(x)) + torch.ops.aten.threshold_backward(
+        x, x - 0.1, 0.0) + torch.ops.aten.softplus_backward(x, 3.0 * x, 1.0, 2.0)
+    + torch.ops.aten.softplus_backward(x, x, 2.0, 1.0),
+    "masked_fill": lambda x, u, w: x.masked_fill(x > 0.2, 0.5) + x.masked_fill(x < u[0], w[1])
+    + torch.where(torch.isnan(x / x), 0.0, x) + torch.sgn(x) * x,
+    "index_put accumulate": lambda x, u, w: torch.zeros(3, dtype=x.dtype).index_put(
+        (_IDX,), x, accumulate=True) + x.index_put((_IDX[1:],), u, accumulate=True),
+    "cumsum": lambda x, u, w: torch.cumsum(x, 0) + torch.cumprod(x, 0)
+    + torch.cumsum(_A.to(x) * x, 1)[1] + (x > 0.0).cumsum(0).to(x.dtype)
+    + (x > 0.0).cumsum(0).to(torch.bool).to(x.dtype) + x[-torch.tensor([0, 1]).cumsum(0)].sum(),
+    "counts": lambda x, u, w: x / torch.count_nonzero(x - 0.5)
+    + x / (torch.cat([x, x.new_ones(1)]) > 0.0).sum() + x / torch.count_nonzero(_A.to(x) * x, 0),
     # reductions
     "amax": lambda x, u, w: torch.amax(_A.to(x) * x, 1) + torch.amin(_A.to(x) * x, 0)
     + torch.amax(x),

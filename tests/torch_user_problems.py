@@ -7,7 +7,8 @@ does not recognise; models/quadrotor.py's and models/car.py's problems
 written with matrices, constant indices and norms, and a small problem of
 the ops the generator lowers since products and the wider math; the
 padded problems of tests/test_padding.py, a planar quadrotor at (6, 2) and
-a team of three quadrotors at (36, 12), built in either package.  Imports
+a team of three quadrotors at (36, 12), built in either package, and a
+pendulum with every derivative written by hand.  Imports
 torch and the port only."""
 
 import torch
@@ -169,6 +170,61 @@ def car_user(T, device="cpu"):
                        indices_inequality=[3])
     return build_spec([dyn] * (T - 1), [stage] * (T - 1) + [term],
                       [con] * (T - 1) + [con_T])
+
+
+def pendulum_manual(T, device="cpu"):
+    """A pendulum (2 states, 1 torque, explicit Euler at h = 0.05) whose
+    stage objects carry every manual derivative: the dynamics' Jacobians,
+    the costs' gradients and Hessians and the constraints' Jacobians (the
+    torque box on every stage, the upright goal at the end), written by
+    hand in place of torch.func's.  Each is made from its inputs (``ones``
+    and ``zeros`` of x or u): torch.func's vmap over a trailing lane axis
+    refuses an output that does not depend on them."""
+    h, g = 0.05, 9.81
+    goal = torch.tensor([3.141592653589793, 0.0], dtype=torch.float64, device=device)
+    eye = lambda x: torch.diag(torch.ones_like(x))
+    zero = lambda x: torch.zeros_like(x[0])
+
+    def dynamics(x, u):
+        return torch.stack([x[0] + h * x[1], x[1] + h * (u[0] - g * torch.sin(x[0]))])
+
+    def dyn_x(x, u):
+        one = torch.ones_like(x[0])
+        return torch.stack([torch.stack([one, h * one]),
+                            torch.stack([-h * g * torch.cos(x[0]), one])])
+
+    def dyn_u(x, u):
+        return torch.stack([torch.zeros_like(u), h * torch.ones_like(u)])
+
+    def stage_cost(x, u):
+        return 0.5 * torch.sum((x - goal.to(x)) ** 2) + 0.05 * torch.sum(u ** 2)
+
+    def terminal_cost(x, u):
+        return 50.0 * torch.sum((x - goal.to(x)) ** 2)
+
+    dyn = Dynamics(dynamics, 2, 1, jacobian_state=dyn_x, jacobian_action=dyn_u)
+    stage = Cost(stage_cost, 2, 1,
+                 gradient_state=lambda x, u: x - goal.to(x),
+                 gradient_action=lambda x, u: 0.1 * u,
+                 hessian_state_state=lambda x, u: eye(x),
+                 hessian_action_action=lambda x, u: 0.1 * torch.ones_like(u)[:, None],
+                 hessian_action_state=lambda x, u: torch.stack([zero(x), zero(x)])[None])
+    term = Cost(terminal_cost, 2, 0,
+                gradient_state=lambda x, u: 100.0 * (x - goal.to(x)),
+                gradient_action=lambda x, u: zero(x)[None][:0],
+                hessian_state_state=lambda x, u: 100.0 * eye(x),
+                hessian_action_action=lambda x, u: eye(x)[:0, :0],
+                hessian_action_state=lambda x, u: eye(x)[:0])
+    box = Constraint(lambda x, u: torch.cat([u - 2.0, -u - 2.0]), 2, 1,
+                     indices_inequality=(0, 1),
+                     jacobian_state=lambda x, u: 0.0 * eye(x),
+                     jacobian_action=lambda x, u: torch.stack([torch.ones_like(u),
+                                                               -torch.ones_like(u)]))
+    upright = Constraint(lambda x, u: x - goal.to(x), 2, 0,
+                         jacobian_state=lambda x, u: eye(x),
+                         jacobian_action=lambda x, u: eye(x)[:, :0])
+    return build_spec([dyn] * (T - 1), [stage] * (T - 1) + [term],
+                      [box] * (T - 1) + [upright])
 
 
 def mixed_problem(T, device="cpu"):
